@@ -2,23 +2,40 @@
 
   python3 chip_smoke.py
 
-Phases, each printing one JSON line:
+Phases, each printing JSON lines:
 
-1. device  — the card's name and power limit;
-2. build   — the CUDA kernels, built from ``src/repro_torch/kernels/csrc``;
-3. kernel  — the polarized-matmul kernel against its plain PyTorch version
-             at every full-width qwen2-1.5b projection shape, at M=4
-             (decode) and M=64 (prefill), with CUDA-event times of the
-             kernel, the plain version and one library call, beside the
-             card's bound;
-4. small   — a reduced qwen2 served on the card and on the CPU: prefill
-             logits agree (the CPU runs the plain versions);
-5. slice   — full-width qwen2-1.5b (random weights from a seed), compressed
-             by FORMS and served through ``ServingEngine``: every request
-             returns its tokens, the kernel's launch count is 196 per model
-             call, and three timed runs give the same tokens; each run's
-             decode ms per step beside the step's byte bound;
-6. kernels — one JSON object summarising every kernel of the main path.
+1. device    — the card's name and power limit;
+2. build     — the CUDA kernels, built from ``src/repro_torch/kernels/csrc``
+               (one nvcc per source, all started together);
+3. kernel    — the polarized-matmul kernel against its plain PyTorch version
+               at every full-width qwen2-1.5b projection shape, at M=4
+               (decode) and M=64 (prefill), with CUDA-event times of the
+               kernel, the plain version and one library call, beside the
+               card's bound;
+4. skip      — its block-skip launch at the same shapes with 0%, 50% and
+               100% of the K slices of x zero: equal to the dense launch
+               bit for bit, timed at 50%; fragment compaction at M=1 and 4,
+               where it engages and where it falls back, its output equal
+               bit for bit to the launch the device flag chose;
+5. bitserial — the bit-serial crossbar kernel at M=4 and full-width shapes,
+               16-bit inputs, ideal and 4-bit ADCs and a result that wraps
+               int32: acc and eic equal to the plain version exactly;
+6. small     — a reduced qwen2 served on the card and on the CPU: prefill
+               logits agree (the CPU runs the plain versions);
+7. slice     — full-width qwen2-1.5b (random weights from a seed), compressed
+               by FORMS and served through ``ServingEngine``: every request
+               returns its tokens, the kernel's launch count is 196 per model
+               call, and three timed runs give the same tokens; each run's
+               decode ms per step beside the step's byte bound;
+8. zero_skip — the same model with ReLU and 50% fragment sparsity, one tree
+               compressed once, served with zero_skip off, block and compact:
+               block gives off's tokens through the skip kernel, compact's
+               tokens are compared, one compact decode call runs with host
+               syncs forbidden;
+9. fidelity  — ``forms.apply_simulated`` on layer 0's wq/wk/wv/gate/up of
+               that tree: the bit-serial kernel against its plain version,
+               mean EIC and cycle savings;
+10. kernels  — one JSON object summarising every kernel of the main paths.
 
 Then the card's ``nvidia-smi`` line and, last, ``{"ok": true, ...}``.  Any
 failure raises and the script exits non-zero; without CUDA it exits 1 and
@@ -40,11 +57,16 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores: the
                                # kernel's contract keeps f32 products
+INT8_OPS = 1979e12             # H100 SXM int8 tensor cores, dense: the least
+                               # time any design could take for integer MACs
 REL_TOL = 1e-4                 # both sides sum in f32, in different orders
 DECODE_M, PREFILL_M = 4, 64
 # qwen2-1.5b projections per layer: (K, N) -> calls per layer
 LAYER_SHAPES = {(1536, 1536): 2, (1536, 256): 2, (1536, 8960): 2, (8960, 1536): 1}
 SLICE_RUNS = 3
+# the bit-serial kernel's shapes (M=4) and the zero-skip slice's model
+BITSERIAL_SHAPES = [(1536, 1536), (1536, 8960), (8960, 1536)]
+SPARSE = dict(mlp_act="relu", act_sparsity=0.5, act_fragment=8)
 
 
 def emit(phase: str, **fields) -> None:
@@ -149,6 +171,217 @@ def per_layer(rows, M, key):
     return sum(r[key] * LAYER_SHAPES[(r["K"], r["N"])] for r in rows if r["M"] == M)
 
 
+def launch_counts():
+    """Every kernel wrapper's launch count, by kernel name."""
+    from repro_torch.kernels import bitserial_crossbar as bx
+    from repro_torch.kernels import polarized_matmul as pm
+    return {"polarized_matmul": pm.polarized_matmul.launches,
+            "polarized_matmul_skip": pm.polarized_matmul_skip.launches,
+            "bitserial_crossbar": bx.bitserial_crossbar.launches}
+
+
+def reset_counts() -> None:
+    """Set every kernel's launch count to 0, just before a path is driven."""
+    from repro_torch.kernels import bitserial_crossbar as bx
+    from repro_torch.kernels import polarized_matmul as pm
+    pm.polarized_matmul.launches = 0
+    pm.polarized_matmul_skip.launches = 0
+    bx.bitserial_crossbar.launches = 0
+
+
+def dead_slices(x, frac: float):
+    """x with none (0), every other (0.5) or all (1) of its K slices of the
+    kernel's tiling set to zero, in place."""
+    from repro_torch.kernels.polarized_matmul import _KC
+    S = -(-x.shape[1] // _KC)
+    dead = [] if frac == 0 else range(S) if frac == 1 else range(1, S, 2)
+    for k in dead:
+        x[:, k * _KC:(k + 1) * _KC] = 0.0
+    return x
+
+
+def skip_bound(mask, M: int, K: int, N: int, mag_bytes: int, m: int = 8):
+    """The skip launch's bound for this mask: a K slice's weights are read
+    when any row tile is live in it; x, y, scale and the mask once."""
+    from repro_torch.kernels.polarized_matmul import _KC
+    live = mask.any(dim=0).tolist()
+    rows = sum(min(_KC, K - k * _KC) for k, on in enumerate(live) if on)
+    nbytes = (M * K * 4 + M * N * 4 + N * 4 + mask.numel() * 4
+              + rows * N * mag_bytes + -(-rows // m) * N)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * M * rows * N / F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_skip():
+    """Kernel #2: the block-skip launch equals the dense one bit for bit at
+    0/50/100% dead K slices, timed at 50%; then fragment compaction."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import polarized_matmul as pm
+    from repro_torch.kernels.ref import ref_polarized_matmul_fast, ref_polarized_matmul_skip
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    scrub = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    flush = lambda: scrub.zero_()
+    rows = []
+    worst = 0.0
+    for M in (DECODE_M, PREFILL_M):
+        for (K, N) in LAYER_SHAPES:
+            x0, mags, signs, scale = kernel_inputs(gen, M, K, N)
+            for frac in (0.0, 0.5, 1.0):
+                x = dead_slices(x0.clone(), frac)
+                mask = pm.tile_mask(x)
+                dense = pm.polarized_matmul(x, mags, signs, scale, 8)
+                skip = pm.polarized_matmul_skip(x, mags, signs, scale, 8, mask=mask)
+                want = ref_polarized_matmul_skip(x, mags, signs, scale, mask, 8,
+                                                 pm.tile_rows(M), pm._KC)
+                torch.cuda.synchronize()
+                equal = torch.equal(skip, dense)
+                abs_err = float((skip - want).abs().max())
+                top = float(want.abs().max())
+                rec = {"M": M, "K": K, "N": N, "dead_tiles": float(1 - mask.float().mean()),
+                       "equal_dense": equal, "max_abs_err": abs_err}
+                if frac == 0.5:
+                    w = mags.float() * signs.float().repeat_interleave(8, dim=0)
+                    rec["kernel_ms"] = timed_ms(
+                        lambda: pm.polarized_matmul_skip(x, mags, signs, scale, 8, mask=mask), flush)
+                    rec["dense_ms"] = timed_ms(lambda: pm.polarized_matmul(x, mags, signs, scale, 8), flush)
+                    rec["plain_ms"] = timed_ms(lambda: ref_polarized_matmul_skip(
+                        x, mags, signs, scale, mask, 8, pm.tile_rows(M), pm._KC), flush)
+                    rec["library_ms"] = timed_ms(lambda: torch.matmul(x, w), flush)
+                    rec["bound_ms"], rec["bound_by"] = skip_bound(mask, M, K, N, 1)
+                    rows.append(rec)
+                emit("skip", **rec)
+                if not equal:
+                    raise AssertionError(f"the skip launch differs from the dense one: {rec}")
+                if top and abs_err > REL_TOL * top:
+                    raise AssertionError(f"the skip launch disagrees with its plain version: {rec}")
+                worst = max(worst, abs_err)
+
+    # fragment compaction (kernel #1 on gathered operands, gated on the card):
+    # the branch the device flag took shows in the bits, since the gathered
+    # product sums in another order than the full one
+    K, N = 8960, 1536
+    _, mags, signs, scale = kernel_inputs(gen, 1, K, N)
+    for M in (1, DECODE_M):
+        for engage in (True, False):
+            x = torch.randn((M, K), generator=gen, device="cuda")
+            if engage:   # 70% of the fragments dead in every row: the union too
+                live = torch.rand((K // 8,), generator=gen, device="cuda") >= 0.7
+                x = x * live.repeat_interleave(8).float()
+            xg, mg, sg, n_live, keep = ops.gather_live_fragments(x, mags, signs, 8, 0.5)
+            y = ops.polarized_matmul(x, mags, signs, scale, m=8, zero_skip="compact",
+                                     zero_skip_keep=0.5)
+            full = pm.polarized_matmul(x, mags, signs, scale, 8)
+            gathered = pm.polarized_matmul(xg, mg, sg, scale, 8)
+            want = ref_polarized_matmul_fast(x, mags, signs, scale, 8)
+            torch.cuda.synchronize()
+            rel = float((y - want).abs().max()) / float(want.abs().max())
+            took = {(True, False): "compact", (False, True): "full"}.get(
+                (torch.equal(y, gathered), torch.equal(y, full)), "neither")
+            rec = {"M": M, "K": K, "N": N, "live_fragments": int(n_live), "keep": keep,
+                   "engages": int(n_live) <= keep, "branch": took, "max_rel_err": rel,
+                   "compact_ms": timed_ms(lambda: ops.polarized_matmul(
+                       x, mags, signs, scale, m=8, zero_skip="compact", zero_skip_keep=0.5), flush),
+                   "dense_ms": timed_ms(lambda: pm.polarized_matmul(x, mags, signs, scale, 8), flush)}
+            emit("compact", **rec)
+            if rec["engages"] != engage or not rel <= REL_TOL:
+                raise AssertionError(f"compaction disagrees with the plain version: {rec}")
+            if took != ("compact" if engage else "full"):
+                raise AssertionError(f"compaction took the wrong launch: {rec}")
+    return rows, worst
+
+
+def bitserial_bound(M: int, K: int, N: int, bits: int = 16, C: int = 4, m: int = 8):
+    """Operations: M*K*N*bits*C bit-plane multiply-adds (2 ops each) over the
+    card's int8 tensor-core rate, the fastest integer MACs it has; bytes: x,
+    the uint8 cell planes, signs, acc and eic, each once."""
+    t_ops = 2 * M * K * N * bits * C / INT8_OPS * 1e3
+    nbytes = M * K * 4 + C * K * N + (K // m) * N + M * N * 4 + M * (K // m) * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_bitserial():
+    """Kernel #3 at M=4: acc and eic equal to the plain version exactly (and
+    acc to the exact integer product with an ideal ADC), timed; plus a
+    result that wraps int32."""
+    import torch
+    from repro_torch.core.quantization import QuantSpec, slice_to_cells
+    from repro_torch.core.zeroskip import fragment_eic
+    from repro_torch.kernels.bitserial_crossbar import bitserial_crossbar
+    from repro_torch.kernels.ref import ref_bitserial_crossbar, ref_exact_int_matmul
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    scrub = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    flush = lambda: scrub.zero_()
+    M, m, bits = DECODE_M, 8, 16
+    rows = []
+
+    def check(label, x, mags, signs, adc_bits, time_it):
+        cells = slice_to_cells(mags, QuantSpec(bits=8, cell_bits=2)).to(torch.uint8)
+        acc, eic = bitserial_crossbar(x, cells, signs, m=m, input_bits=bits, adc_bits=adc_bits)
+        want, _ = ref_bitserial_crossbar(x, cells, signs, m, bits, 2, adc_bits=adc_bits)
+        want_eic = fragment_eic(x, m, bits)
+        torch.cuda.synchronize()
+        K, N = mags.shape
+        rec = {"case": label, "M": M, "K": K, "N": N, "adc_bits": adc_bits,
+               "acc_equal": torch.equal(acc, want), "eic_equal": torch.equal(eic, want_eic),
+               "max_abs_err": float((acc.double() - want.double()).abs().max())}
+        if adc_bits is None:
+            rec["exact_equal"] = torch.equal(acc, ref_exact_int_matmul(x, mags, signs, m))
+        if time_it:
+            rec["kernel_ms"] = timed_ms(lambda: bitserial_crossbar(
+                x, cells, signs, m=m, input_bits=bits, adc_bits=adc_bits), flush)
+            rec["plain_ms"] = timed_ms(lambda: ref_bitserial_crossbar(
+                x, cells, signs, m, bits, 2, adc_bits=adc_bits), flush)
+            rec["library_ms"] = None   # no PyTorch call clips per fragment
+            if adc_bits is None:
+                # with an ideal ADC acc is the integer product (wrapped to
+                # int32), which one float64 matmul computes exactly below 2^53
+                xd = x.double()
+                wd = mags.double() * signs.double().repeat_interleave(m, dim=0)
+                lib = torch.matmul(xd, wd)
+                rec["library_equal"] = bool(((lib.long() - acc.long()) % 2 ** 32 == 0).all())
+                rec["library_ms"] = timed_ms(lambda: torch.matmul(xd, wd), flush)
+            rec["bound_ms"], rec["bound_by"] = bitserial_bound(M, K, N)
+        emit("bitserial", **rec)
+        if not (rec["acc_equal"] and rec["eic_equal"] and rec.get("exact_equal", True)
+                and rec.get("library_equal", True)):
+            raise AssertionError(f"the bit-serial kernel disagrees with its plain version: {rec}")
+        return rec
+
+    for (K, N) in BITSERIAL_SHAPES:
+        x = torch.randint(0, 2 ** bits, (M, K), generator=gen, device="cuda").to(torch.int32)
+        live = torch.rand((M, K // m), generator=gen, device="cuda") >= 0.25
+        x = x * live.repeat_interleave(m, dim=1)
+        mags = torch.randint(0, 256, (K, N), generator=gen, device="cuda").to(torch.uint8)
+        signs = (torch.randint(0, 2, (K // m, N), generator=gen, device="cuda") * 2 - 1
+                 ).to(torch.int8)
+        for adc_bits in (None, 4):
+            rec = check("qwen2-1.5b", x, mags, signs, adc_bits, time_it=True)
+            if adc_bits is None:
+                rows.append(rec)
+    # every input at its top code, every weight 255, every sign +1: the sum,
+    # 8960 * 65535 * 255, is far past 2^31 and wraps
+    K, N = 8960, 1536
+    x = torch.full((M, K), 2 ** bits - 1, dtype=torch.int32, device="cuda")
+    mags = torch.full((K, N), 255, dtype=torch.uint8, device="cuda")
+    signs = torch.ones((K // m, N), dtype=torch.int8, device="cuda")
+    check("wraps int32", x, mags, signs, None, time_it=False)
+    return rows
+
+
+def slice_prompts(cfg):
+    """The slice's four prompts of 16-64 tokens, from ``RandomState(0)``."""
+    import numpy as np
+    rng = np.random.RandomState(0)
+    return [rng.randint(0, cfg.vocab_size, size=rng.randint(16, 65)) for _ in range(4)]
+
+
 def phase_small():
     """A reduced qwen2 (f32) compressed by FORMS: prefill logits on the card
     (the kernel) against the CPU (the plain versions), same codes."""
@@ -190,7 +423,6 @@ def phase_slice():
     import torch
     from repro_torch.configs import get_config
     from repro_torch.forms import FormsSpec
-    from repro_torch.kernels.polarized_matmul import polarized_matmul
     from repro_torch.models.registry import build
     from repro_torch.serving.engine import Request, ServingEngine
 
@@ -204,19 +436,18 @@ def phase_slice():
     del params
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    rng = np.random.RandomState(0)
-    prompts = [rng.randint(0, cfg.vocab_size, size=rng.randint(16, 65)) for _ in range(4)]
+    prompts = slice_prompts(cfg)
     n_new = 16
 
     def run():
         reqs = [Request(uid=i, prompt=p, max_new_tokens=n_new) for i, p in enumerate(prompts)]
         rounds0 = engine.scheduler.rounds
-        polarized_matmul.launches = 0
+        reset_counts()
         t = time.perf_counter()
         results = engine.run(reqs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-        launches = polarized_matmul.launches
+        launches = launch_counts()["polarized_matmul"]
         steps = (engine.scheduler.rounds - rounds0) * engine.decode_block
         return results, launches, len(results) + steps, wall, steps
 
@@ -255,6 +486,198 @@ def phase_slice():
          launches_per_call=launches // calls, pages=engine.stats()["pages"],
          tokens=tokens[-1], peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     profile_decode(engine, prompts)
+    return launches
+
+
+def phase_zero_skip():
+    """Full-width qwen2-1.5b with ReLU and 50% fragment sparsity, compressed
+    once and served with zero_skip off, block and compact (in the order
+    off, block, compact, compact, block, off), then once more in block mode
+    with the sparsity meter on.  Returns the compressed tree, the prompts
+    and the skip kernel's launches in the first block run."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.forms import FormsSpec, compress_tree, default_spec
+    from repro_torch.kernels import polarized_matmul as pm
+    from repro_torch.models.registry import build
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    cfg = dataclasses.replace(get_config("qwen2-1.5b"), **SPARSE)
+    model = build(cfg, device="cuda")
+    spec = FormsSpec(m=8, bits=8, rule="energy")
+    with torch.inference_mode():
+        tree, rep = compress_tree(model.init(0), spec)
+    prompts = slice_prompts(cfg)
+    n_new = 16
+    per_call = 7 * cfg.num_layers
+    engines = {mode: ServingEngine(model, tree, spec=spec, zero_skip=mode.split("+")[0],
+                                   zero_skip_keep=0.5, zero_skip_stats=mode.endswith("+stats"),
+                                   page_size=16, batch_slots=4, max_len=256, decode_block=4,
+                                   device="cuda")
+               for mode in ("off", "block", "compact", "block+stats")}
+    tile_mask = pm.tile_mask
+    dead = {}
+
+    def counting_mask(x):
+        """tile_mask, also counting the down projection's (K = d_ff) dead
+        tiles on the device."""
+        mask = tile_mask(x)
+        if x.shape[1] == cfg.d_ff:
+            dead["tiles"] = dead.get("tiles", 0) + (mask == 0).sum()
+            dead["of"] = dead.get("of", 0) + mask.numel()
+        return mask
+
+    def run(mode):
+        engine = engines[mode]
+        rounds0 = engine.scheduler.rounds
+        reqs = [Request(uid=i, prompt=p, max_new_tokens=n_new) for i, p in enumerate(prompts)]
+        if mode.endswith("+stats"):
+            pm.tile_mask = counting_mask
+        reset_counts()
+        try:
+            t = time.perf_counter()
+            results = engine.run(reqs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        finally:
+            pm.tile_mask = tile_mask
+        counts = launch_counts()
+        steps = (engine.scheduler.rounds - rounds0) * engine.decode_block
+        calls = len(results) + steps
+        if mode.startswith("block") and (counts["polarized_matmul_skip"] != per_call * calls
+                                         or counts["polarized_matmul"]):
+            raise AssertionError(f"block mode did not run every projection through the "
+                                 f"skip kernel: {counts}, {calls} model calls")
+        return {"tokens": {r.uid: r.tokens for r in results}, "wall_s": wall,
+                "decode_steps": steps, "model_calls": calls,
+                "decode_step_ms": sum(r.decode_ms for r in results) / steps,
+                "mean_prefill_ms": sum(r.prefill_ms for r in results) / len(results),
+                "launches": counts}
+
+    timed = {mode: [] for mode in engines}
+    for mode in ("off", "block", "compact", "compact", "block", "off", "block+stats"):
+        timed[mode].append(run(mode))
+    runs = {mode: {"decode_step_ms": [r["decode_step_ms"] for r in rs],
+                   "mean_prefill_ms": [r["mean_prefill_ms"] for r in rs],
+                   "model_calls": rs[0]["model_calls"], "launches": rs[0]["launches"]}
+            for mode, rs in timed.items()}
+    sp = engines["block+stats"].stats()["sparsity"]
+    runs["block+stats"].update(
+        fragment_sparsity={t: v["fragment_sparsity"] for t, v in sp["layers"].items()},
+        elem_sparsity={t: v["elem_sparsity"] for t, v in sp["layers"].items()},
+        down_dead_tile_share=int(dead["tiles"]) / dead["of"])
+    runs["compact"]["sync_free_decode_call"] = sync_free_decode(model, engines["compact"])
+    del engines
+    torch.cuda.empty_cache()
+    tokens = {mode: [r["tokens"] for r in rs] for mode, rs in timed.items()}
+    off = tokens["off"][0]
+    if any(t != off for t in tokens["off"] + tokens["block"] + tokens["block+stats"]):
+        raise AssertionError("zero_skip='block' (or a second off run) changed the tokens")
+    if tokens["compact"][0] != tokens["compact"][1]:
+        raise AssertionError("two compact runs gave other tokens")
+    block, compact = tokens["block"][0], tokens["compact"][0]
+    for toks in off.values():
+        if len(toks) != n_new or not all(0 <= v < cfg.vocab_size for v in toks):
+            raise AssertionError(f"a request returned {toks}")
+    same = sum(a == b for uid in off for a, b in zip(off[uid], compact[uid]))
+    first = [(uid, next(i for i, (a, b) in enumerate(zip(off[uid], compact[uid])) if a != b))
+             for uid in off if off[uid] != compact[uid]]
+    divergence = None
+    if first:   # the off model's top-2 logit margin where compact first differs
+        uid, i = min(first, key=lambda u: u[1])
+        seq = torch.tensor(list(prompts[uid]) + off[uid][:i], device="cuda")[None]
+        with torch.inference_mode(), default_spec(spec):
+            logits = model.forward(tree, {"tokens": seq})[0][0, -1].float()
+        top2 = torch.topk(logits, 2).values
+        divergence = {"uid": uid, "step": i, "off_token": off[uid][i],
+                      "compact_token": compact[uid][i],
+                      "top2_margin": float(top2[0] - top2[1]),
+                      "gap_to_compact_token": float(logits[off[uid][i]]
+                                                    - logits[compact[uid][i]])}
+    emit("zero_skip", arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+         d_ff=cfg.d_ff, compression=rep.summary(),
+         block_equals_off=block == off, compact_tokens_equal_off=same,
+         tokens_total=sum(len(t) for t in off.values()), compact_divergence=divergence,
+         runs=runs)
+    return tree, cfg, prompts, runs["block"]["launches"]["polarized_matmul_skip"]
+
+
+def sync_free_decode(model, engine) -> dict:
+    """One compact decode model call with every host sync an error: the
+    fragment compaction's branch must stay on the device."""
+    import torch
+    from repro_torch.forms import default_spec
+
+    r = engine.runner
+    slots = engine.slots
+    tok = torch.zeros((slots, 1), dtype=torch.int32, device="cuda")
+    pos = torch.zeros((slots,), dtype=torch.int32, device="cuda")
+    tables = torch.zeros((slots, engine.scheduler.n_tables), dtype=torch.int32, device="cuda")
+    before = launch_counts()["polarized_matmul"]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.inference_mode(), default_spec(r.spec):
+            logits, r.cache = model.decode_paged(r.params, tok, r.cache, pos, tables)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    if not torch.isfinite(logits).all():
+        raise AssertionError("the compact decode call gave non-finite logits")
+    return {"logits_shape": list(logits.shape),
+            "polarized_matmul_launches": launch_counts()["polarized_matmul"] - before}
+
+
+def phase_fidelity(tree, cfg, prompts):
+    """``forms.apply_simulated`` on layer 0's wq/wk/wv/gate/up at full
+    width: the bit-serial kernel against its plain version, exactly, and
+    the EIC statistics of the activations."""
+    import torch
+    from repro_torch.core.quantization import quantize_activations, slice_to_cells
+    from repro_torch.core.zeroskip import eic_stats, fragment_eic
+    from repro_torch.forms import FormsSpec, apply, apply_simulated
+    from repro_torch.kernels.ref import ref_bitserial_crossbar
+    from repro_torch.models import layers as L
+    from repro_torch.models.transformer import layer_params
+
+    spec = FormsSpec(m=8, bits=8, input_bits=16)
+    bp = layer_params(tree["blocks"], 0)
+    toks = torch.tensor([int(t) for p in prompts for t in p[:16]], device="cuda")
+    emb = L.embed_lookup(tree["embed"], toks, torch.float32)
+    acts = {"attn": L.rmsnorm(emb, bp["norm1"], cfg.norm_eps),
+            "mlp": L.rmsnorm(emb, bp["norm2"], cfg.norm_eps)}
+    reset_counts()
+    with torch.inference_mode():
+        outs = {name: apply_simulated(bp[grp][name], acts[grp], spec)
+                for grp, name in (("attn", "wq"), ("attn", "wk"), ("attn", "wv"),
+                                  ("mlp", "gate"), ("mlp", "up"))}
+    torch.cuda.synchronize()
+    launches = launch_counts()["bitserial_crossbar"]
+    recs = {}
+    for grp, name in (("attn", "wq"), ("attn", "wk"), ("attn", "wv"), ("mlp", "gate"),
+                      ("mlp", "up")):
+        leaf, x = bp[grp][name], acts[grp]
+        y, eic, x_scale = outs[name]
+        codes, _ = quantize_activations(x, spec.input_bits)
+        cells = slice_to_cells(leaf.mags, spec.quant)
+        acc, _ = ref_bitserial_crossbar(codes, cells, leaf.signs, 8, 16, 2)
+        want_y = acc.float() * x_scale * leaf.scale
+        dense = apply(leaf, x.clamp(min=0.0))   # the simulator streams x >= 0 only
+        st = eic_stats(codes, 8, 16)
+        recs[name] = {"rows": x.shape[0], "K": leaf.k, "N": leaf.n,
+                      "y_equal_plain": torch.equal(y, want_y),
+                      "eic_equal_plain": torch.equal(eic, fragment_eic(codes, 8, 16)),
+                      "rel_err_vs_float": float((y - dense).norm() / dense.norm()),
+                      "mean_eic": st.mean_eic, "cycle_savings": st.savings}
+        if not (recs[name]["y_equal_plain"] and recs[name]["eic_equal_plain"]):
+            raise AssertionError(f"{name}: the bit-serial kernel disagrees: {recs[name]}")
+    emit("fidelity", launches=launches, leaves=recs,
+         mean_eic=sum(r["mean_eic"] for r in recs.values()) / len(recs),
+         cycle_savings=sum(r["cycle_savings"] for r in recs.values()) / len(recs))
+    if launches != len(recs):
+        raise AssertionError(f"apply_simulated launched the kernel {launches} times")
     return launches
 
 
@@ -310,13 +733,28 @@ def main() -> int:
 
     from repro_torch.kernels import build
     t0 = time.perf_counter()
-    build.build(["polarized_matmul"])
+    build.build(["polarized_matmul", "bitserial_crossbar"])
     emit("build", seconds=time.perf_counter() - t0,
          ptxas={k: v["ptxas"] for k, v in build.BUILD_LOG.items()})
 
     rows, worst_abs, worst_rel = phase_kernels()
+    skip_rows, skip_err = phase_skip()
+    bit_rows = phase_bitserial()
     phase_small()
     launches = phase_slice()
+    torch.cuda.empty_cache()
+    tree, cfg, prompts, skip_launches = phase_zero_skip()
+    bit_launches = phase_fidelity(tree, cfg, prompts)
+    if not (launches and skip_launches and bit_launches):
+        raise AssertionError("a kernel of a path was never launched on it")
+
+    def total(rows, key):
+        return sum(r[key] for r in rows)
+
+    def bound_by(rows):
+        """What bounds the summed rows: their one answer, or "mixed"."""
+        by = {r["bound_by"] for r in rows}
+        return by.pop() if len(by) == 1 else "mixed"
 
     kernels = {"kernels": [{
         "name": "polarized_matmul", "route": "cuda",
@@ -326,9 +764,32 @@ def main() -> int:
         "ms": per_layer(rows, DECODE_M, "kernel_ms"),
         "plain_ms": per_layer(rows, DECODE_M, "plain_ms"),
         "bound_ms": per_layer(rows, DECODE_M, "bound_ms"),
-        "bound_by": "bytes",
+        "bound_by": bound_by([r for r in rows if r["M"] == DECODE_M]),
         "library_ms": per_layer(rows, DECODE_M, "library_ms"),
         "per": "the 7 projections of one qwen2-1.5b layer at decode, M=4",
+    }, {
+        "name": "polarized_matmul_skip", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/polarized_matmul.cu",
+        "replaces": "src/repro/kernels/polarized_matmul.py:68",
+        "launches": skip_launches, "max_abs_err": skip_err,
+        "ms": per_layer(skip_rows, DECODE_M, "kernel_ms"),
+        "plain_ms": per_layer(skip_rows, DECODE_M, "plain_ms"),
+        "bound_ms": per_layer(skip_rows, DECODE_M, "bound_ms"),
+        "bound_by": bound_by([r for r in skip_rows if r["M"] == DECODE_M]),
+        "library_ms": per_layer(skip_rows, DECODE_M, "library_ms"),
+        "per": "the 7 projections of one qwen2-1.5b layer at decode, M=4, every other "
+               "K slice of x zero",
+    }, {
+        "name": "bitserial_crossbar", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/bitserial_crossbar.cu",
+        "replaces": "src/repro/kernels/bitserial_crossbar.py:43",
+        "launches": bit_launches, "max_abs_err": max(r["max_abs_err"] for r in bit_rows),
+        "ms": total(bit_rows, "kernel_ms"), "plain_ms": total(bit_rows, "plain_ms"),
+        "bound_ms": total(bit_rows, "bound_ms"), "bound_by": bound_by(bit_rows),
+        "library_ms": total(bit_rows, "library_ms"),
+        "library_note": "one float64 torch.matmul of the codes and the signed "
+                        "weights: the exact integer product of the ideal ADC",
+        "per": "M=4 at 1536x1536, 1536x8960 and 8960x1536, 16-bit inputs, ideal ADC",
     }]}
     print(json.dumps(kernels), flush=True)
     print(smi, flush=True)

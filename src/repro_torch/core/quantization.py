@@ -1,4 +1,4 @@
-"""ReRAM-customized weight quantization (paper §III-C).
+"""ReRAM-customized weight quantization (paper §III-C) and cell bit-slicing.
 
 Only magnitude bits live on the crossbar (signs are in the fragment sign
 indicator), so the grid is a symmetric magnitude grid ``w = s * delta * q``
@@ -47,6 +47,10 @@ class QuantSpec:
     def levels(self) -> int:
         return (1 << self.bits) - 1  # max magnitude code
 
+    @property
+    def cells_per_weight(self) -> int:
+        return self.bits // self.cell_bits
+
 
 def scale_for(mat: torch.Tensor, spec: QuantSpec) -> torch.Tensor:
     """Max-abs calibration scale: largest code maps to the largest magnitude."""
@@ -65,3 +69,43 @@ def quantize_codes(mat: torch.Tensor, spec: QuantSpec,
         scale = scale_for(mat, spec)
     q = torch.clamp(torch.round(mat / scale), -spec.levels, spec.levels)
     return q, scale
+
+
+# ---------------------------------------------------------------------------
+# Cell bit-slicing and bit-serial inputs (paper §III-C, §IV-A/B).
+# ---------------------------------------------------------------------------
+
+def slice_to_cells(mag_codes: torch.Tensor, spec: QuantSpec) -> torch.Tensor:
+    """``(cells, K, N)`` int32 planes of ``(K, N)`` magnitude codes, plane
+    ``c`` holding bits ``[c*cell_bits, (c+1)*cell_bits)`` (least significant
+    plane first): ``sum_c plane_c * 2**(c*cell_bits) == codes``."""
+    codes = mag_codes.to(torch.int32)
+    mask = (1 << spec.cell_bits) - 1
+    return torch.stack([(codes >> (c * spec.cell_bits)) & mask
+                        for c in range(spec.cells_per_weight)])
+
+
+def cells_to_codes(planes: torch.Tensor, spec: QuantSpec) -> torch.Tensor:
+    """Inverse of :func:`slice_to_cells`."""
+    weights = [1 << (spec.cell_bits * c) for c in range(planes.shape[0])]
+    return sum(w * p.to(torch.int32) for w, p in zip(weights, planes))
+
+
+def input_bit_planes(x_codes: torch.Tensor, input_bits: int) -> torch.Tensor:
+    """``(input_bits, ..., K)`` 0/1 int32 planes of unsigned activation
+    codes, least significant first: the bit-serial DAC stream (§IV-B)."""
+    x = x_codes.to(torch.int32)
+    return torch.stack([(x >> b) & 1 for b in range(input_bits)])
+
+
+def quantize_activations(x: torch.Tensor, input_bits: int = 16,
+                         scale: Optional[torch.Tensor] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Unsigned activation codes (post-ReLU activations are >= 0), as f32
+    values in [0, 2^input_bits - 1], and the scale; FORMS streams 16-bit
+    activations bit-serially."""
+    levels = (1 << input_bits) - 1
+    if scale is None:
+        scale = torch.clamp(x.abs().amax(), min=1e-12) / levels
+    codes = torch.clamp(torch.round(torch.clamp(x, min=0.0) / scale), 0, levels)
+    return codes, scale

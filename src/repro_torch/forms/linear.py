@@ -9,7 +9,8 @@ A FORMS-compressed linear layer stores, per weight matrix:
 ``from_dense`` projects a float matrix onto the polarized set P and the
 magnitude grid Q and returns the codes; ``apply`` runs the MVM through
 ``kernels/ops.polarized_matmul`` (the CUDA kernel on the card, its plain
-version on the CPU).  Scan-stacked ``(L, K, N)`` weights keep their leading
+version on the CPU), and ``apply_simulated`` runs it through the bit-serial
+crossbar simulator.  Scan-stacked ``(L, K, N)`` weights keep their leading
 layer axis on every tensor.
 """
 from __future__ import annotations
@@ -25,6 +26,7 @@ from repro_torch.core import quantization as quantmod
 from repro_torch.core.fragments import matrix_to_conv, pad_rows
 from repro_torch.forms.spec import FormsSpec
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.sparsity import SparsityMeter, sparsity_counts
 
 
 @dataclasses.dataclass
@@ -74,6 +76,26 @@ def default_spec(spec: Optional[FormsSpec]) -> Iterator[None]:
         yield
     finally:
         _DEFAULT_SPEC = prev
+
+
+# Ambient sparsity meter, same lifecycle as the ambient spec: installed by
+# the serving engine around its decode steps when zero_skip_stats is on.
+# When set, every forms matmul adds its input's counters into the meter's
+# device accumulator under the call site's tag.
+_SPARSITY_METER: Optional[SparsityMeter] = None
+
+
+@contextlib.contextmanager
+def sparsity_stats(meter: Optional[SparsityMeter]) -> Iterator[None]:
+    """Make ``meter`` the ambient sparsity meter for :func:`apply` calls
+    (a few small device ops per matmul, so the engine installs it only
+    when ``zero_skip_stats`` is asked for)."""
+    global _SPARSITY_METER
+    prev, _SPARSITY_METER = _SPARSITY_METER, meter
+    try:
+        yield
+    finally:
+        _SPARSITY_METER = prev
 
 
 def _resolve_spec(p: FormsLinearParams, spec: Optional[FormsSpec]) -> FormsSpec:
@@ -140,10 +162,12 @@ def to_dense(p: FormsLinearParams) -> torch.Tensor:
 
 
 def apply(p: FormsLinearParams, x: torch.Tensor,
-          spec: Optional[FormsSpec] = None) -> torch.Tensor:
+          spec: Optional[FormsSpec] = None, tag: str = "linear") -> torch.Tensor:
     """y = x @ W_forms (f32) for x of shape (..., K) via the polarized matmul.
 
     Requires an unstacked 2-D weight (take a layer with ``p.layer(i)``).
+    ``tag`` names the call site in the sparsity counters
+    (``engine.stats()["sparsity"]["layers"]``).
     """
     if p.mags.ndim != 2:
         raise ValueError(
@@ -152,5 +176,28 @@ def apply(p: FormsLinearParams, x: torch.Tensor,
             "leaves are not ported yet)")
     spec = _resolve_spec(p, spec)
     x2, lead = _flatten_pad(x, p.mags.shape[0])
+    if _SPARSITY_METER is not None:
+        _SPARSITY_METER.record(tag, sparsity_counts(x2, p.m))
     y = kops.polarized_matmul(x2, p.mags, p.signs, p.scale, spec=spec)
     return y.reshape(*lead, p.n)
+
+
+def apply_simulated(p: FormsLinearParams, x: torch.Tensor,
+                    spec: Optional[FormsSpec] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Bit-serial crossbar simulation; returns (y, eic, x_scale).
+
+    y is the dequantized f32 output; eic (rows, fragments) the effective
+    input cycles consumed (the zero-skipping observable).  ``spec``
+    provides ``input_bits``/``adc_bits``/``cell_bits``.
+    """
+    if p.mags.ndim != 2:
+        raise ValueError(
+            f"apply_simulated() needs a 2-D weight, got rank {p.mags.ndim}")
+    spec = _resolve_spec(p, spec)
+    x2, lead = _flatten_pad(x, p.mags.shape[0])
+    x_codes, x_scale = quantmod.quantize_activations(x2, spec.input_bits)
+    cells = quantmod.slice_to_cells(p.mags, spec.quant)
+    acc, eic = kops.bitserial_crossbar(x_codes, cells, p.signs, spec=spec)
+    y = acc.float() * x_scale * p.scale
+    return y.reshape(*lead, p.n), eic, x_scale

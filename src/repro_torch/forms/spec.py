@@ -13,10 +13,10 @@ from typing import Optional
 
 from repro_torch.core.fragments import FragmentSpec
 from repro_torch.core.quantization import QuantSpec
+from repro_torch.kernels.ops import VALID_ZERO_SKIP
 
 VALID_RULES = ("sum", "energy")
 VALID_ENCODINGS = ("binary", "vecom")
-VALID_ZERO_SKIP = ("off", "block", "compact")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,9 +27,8 @@ class FormsSpec:
     Quantization grid (paper §III-C): ``bits``, ``cell_bits``,
     ``per_channel``.  Polarization: ``rule`` ("sum" or "energy").
     Bit-serial simulation: ``input_bits``, ``adc_bits``.  Reliability:
-    ``encoding``.  Zero-skipping: ``zero_skip``, ``zero_skip_keep`` (only
-    "off" is served by the port so far).  Tiling hints: ``bm``, ``bn``,
-    ``bk``, ``sim_bm``, ``sim_bn``.
+    ``encoding``.  Zero-skipping: ``zero_skip``, ``zero_skip_keep``.
+    Tiling hints: ``bm``, ``bn``, ``bk``, ``sim_bm``, ``sim_bn``.
     """
 
     m: int = 8

@@ -1,30 +1,35 @@
-"""Polarized-magnitude matmul: the hand-written CUDA kernel and its wrapper.
+"""Polarized-magnitude matmul: the hand-written CUDA kernel and its wrappers.
 
 Computes ``y = x @ (repeat(signs, m) * mags) * scale`` for ``x`` (M, K) f32,
 ``mags`` (K, N) uint8 or int32 codes, ``signs`` (K/m, N) int8 and ``scale``
 (1, N) f32.  The kernel (``csrc/polarized_matmul.cu``) replaces the Pallas
-TPU kernel ``repro/kernels/polarized_matmul.py::_kernel``; its source says
-what bounds it on the card and how the design answers that.
+TPU kernels ``repro/kernels/polarized_matmul.py::_kernel`` (dense,
+:func:`polarized_matmul`) and ``::_kernel_skip`` (input zero-skipping,
+:func:`polarized_matmul_skip`); its source says what bounds it on the card
+and how the design answers that.
 
 The tensors' device picks the route: CPU tensors go to the plain PyTorch
-version (:func:`repro_torch.kernels.ref.ref_polarized_matmul_fast`), CUDA
-tensors to the kernel.  A CUDA call either launches the kernel or raises —
-there is no fallback.  ``polarized_matmul.launches`` counts kernel launches.
+versions (:func:`repro_torch.kernels.ref.ref_polarized_matmul_fast` and
+``ref_polarized_matmul_skip``), CUDA tensors to the kernel.  A CUDA call
+either launches the kernel or raises — there is no fallback.  Each wrapper
+counts its kernel launches in its ``launches`` attribute.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import ref_polarized_matmul_fast
+from repro_torch.kernels.ref import ref_polarized_matmul_fast, ref_polarized_matmul_skip
+from repro_torch.kernels.sparsity import block_mask
 
 _SOURCE = "polarized_matmul"
 _ENTRY = {torch.uint8: "forms_polarized_matmul_u8",
           torch.int32: "forms_polarized_matmul_i32"}
-_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+# x, mags, signs, scale, mask, gate, y, work, tickets; M, N, K, m, fast; stream
+_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 # the kernel's tiling, as csrc/polarized_matmul.cu fixes it: 32 output
 # columns by 4 (M <= 4) or 8 rows per block, K cut into slices of 256 rows
 _BN, _KC = 32, 256
@@ -66,18 +71,86 @@ def _entry(mag_dtype: torch.dtype):
     return fn
 
 
-def polarized_matmul(x: torch.Tensor, mags: torch.Tensor, signs: torch.Tensor,
-                     scale: torch.Tensor, m: int) -> torch.Tensor:
-    """y[M, N] = x[M, K] @ (repeat(signs, m) * mags)[K, N] * scale[1, N], f32."""
-    devices = {t.device for t in (x, mags, signs, scale)}
+def tile_rows(M: int) -> int:
+    """Rows of x per block: the kernel takes 4 at decode (M <= 4), else 8."""
+    return 4 if M <= 4 else 8
+
+
+def tile_mask(x: torch.Tensor) -> torch.Tensor:
+    """The kernel's int32 zero-skip mask of x: one entry per (row tile,
+    K slice of ``KC`` rows), 1 where the tile holds a nonzero.  A plain
+    torch reduction over x padded to whole tiles, made on x's device before
+    the launch (as the reference makes its mask outside its kernel)."""
+    M, K = x.shape
+    bm = tile_rows(M)
+    if M % bm or K % _KC:   # the served shapes tile already: no copy
+        x = torch.nn.functional.pad(x, (0, (-K) % _KC, 0, (-M) % bm))
+    return block_mask(x, bm, _KC)
+
+
+def _device_of(*ts: torch.Tensor) -> torch.device:
+    devices = {t.device for t in ts}
     if len(devices) != 1:
         raise ValueError(f"operands lie on different devices: {sorted(map(str, devices))}")
-    dev = x.device
-    if dev.type == "cpu":
-        return ref_polarized_matmul_fast(x, mags, signs, scale, m)
-    if dev.type != "cuda":
+    dev = devices.pop()
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"polarized_matmul runs on cpu or cuda tensors, got {dev}")
+    return dev
 
+
+def polarized_matmul(x: torch.Tensor, mags: torch.Tensor, signs: torch.Tensor,
+                     scale: torch.Tensor, m: int, *, gate: Optional[torch.Tensor] = None,
+                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """y[M, N] = x[M, K] @ (repeat(signs, m) * mags)[K, N] * scale[1, N], f32.
+
+    ``gate`` (one int32 on the card, CUDA tensors only) lets the launch
+    write ``out`` only where it reads nonzero, without the host reading it:
+    the kernel's blocks return at once otherwise (fragment compaction
+    launches two gated products into one ``out``).
+    """
+    dev = _device_of(x, mags, signs, scale)
+    if dev.type == "cpu":
+        if gate is not None or out is not None:
+            raise ValueError("gate= and out= are for CUDA tensors; on the CPU choose "
+                             "with a Python if")
+        return ref_polarized_matmul_fast(x, mags, signs, scale, m)
+    y = _launch(x, mags, signs, scale, m, None, gate, out)
+    polarized_matmul.launches += 1
+    return y
+
+
+def polarized_matmul_skip(x: torch.Tensor, mags: torch.Tensor, signs: torch.Tensor,
+                          scale: torch.Tensor, m: int,
+                          mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The same product with input zero-skipping: a (row tile, K slice) of
+    x that is all zero moves no weight byte and does no MAC.  ``mask`` is
+    :func:`tile_mask` of x (made here when None); the result equals
+    :func:`polarized_matmul`'s bit for bit, for any x."""
+    dev = _device_of(x, mags, signs, scale)
+    if mask is None:
+        mask = tile_mask(x.float())
+    M, K = x.shape
+    want = (-(-M // tile_rows(M)), -(-K // _KC))
+    if tuple(mask.shape) != want:
+        raise ValueError(f"mask {tuple(mask.shape)} is not the kernel's tiling of x "
+                         f"{tuple(x.shape)}: expected {want} (tile_mask(x))")
+    if m < 1 or _KC % m:
+        raise ValueError(f"zero-skip masks cover K slices of {_KC} rows, which must be "
+                         f"a whole number of fragments: m={m} does not divide "
+                         f"{_KC}; use zero_skip='compact' for this m")
+    if dev.type == "cpu":
+        return ref_polarized_matmul_skip(x, mags, signs, scale, mask, m,
+                                         tile_rows(M), _KC)
+    if mask.device != dev or mask.dtype != torch.int32 or not mask.is_contiguous():
+        raise ValueError("mask must be a contiguous int32 tensor on x's device")
+    y = _launch(x, mags, signs, scale, m, mask, None, None)
+    polarized_matmul_skip.launches += 1
+    return y
+
+
+def _launch(x, mags, signs, scale, m, mask, gate, out) -> torch.Tensor:
+    """Check the operands and launch the kernel on x's CUDA device."""
+    dev = x.device
     if x.ndim != 2 or mags.ndim != 2:
         raise ValueError(f"x and mags must be 2-D, got {tuple(x.shape)} and {tuple(mags.shape)}")
     M, K = x.shape
@@ -101,9 +174,22 @@ def polarized_matmul(x: torch.Tensor, mags: torch.Tensor, signs: torch.Tensor,
     if max(M, N, K) >= 2 ** 31:
         raise ValueError(f"shape ({M}, {K}, {N}) exceeds the kernel's int32 indices")
 
-    y = torch.empty((M, N), dtype=torch.float32, device=dev)
+    if gate is not None and (gate.device != dev or gate.dtype != torch.int32
+                             or gate.numel() != 1):
+        raise ValueError("gate must be one int32 on x's device")
+    if out is None:
+        if gate is not None:
+            raise ValueError("a gated call needs out=")
+        y = torch.empty((M, N), dtype=torch.float32, device=dev)
+    elif (out.shape != (M, N) or out.dtype != torch.float32 or out.device != dev
+          or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous float32 ({M}, {N}) tensor on {dev}")
+    else:
+        y = out
     if M == 0 or N == 0 or K == 0:
-        return y.zero_()
+        if gate is None:
+            return y.zero_()
+        return y.masked_fill_(gate.reshape(1, 1) != 0, 0.0)  # no host read
     # the vector-load instantiation needs whole 4-column and 8-row groups
     # and aligned rows; anything else takes the masked scalar one
     fast = int(N % 4 == 0 and K % 8 == 0
@@ -115,21 +201,20 @@ def polarized_matmul(x: torch.Tensor, mags: torch.Tensor, signs: torch.Tensor,
     slices = -(-K // _KC)
     work = tickets = None
     if slices > 1:
-        bm = 4 if M <= 4 else 8
         work = torch.empty(slices * M * N, dtype=torch.float32, device=dev)
-        tickets = _tickets(key, -(-N // _BN) * -(-M // bm))
+        tickets = _tickets(key, -(-N // _BN) * -(-M // tile_rows(M)))
+    ptr = lambda t: t.data_ptr() if t is not None else None
     with torch.cuda.device(dev):
         err = fn(x.data_ptr(), mags.data_ptr(), signs.data_ptr(), scale.data_ptr(),
-                 y.data_ptr(), work.data_ptr() if work is not None else None,
-                 tickets.data_ptr() if tickets is not None else None,
+                 ptr(mask), ptr(gate), y.data_ptr(), ptr(work), ptr(tickets),
                  M, N, K, m, fast, stream)
     if err != 0:
         # a launch that failed may leave tickets raised: the next launch on
         # this stream starts from fresh zeros
         _TICKETS.pop(key, None)
         raise RuntimeError(f"polarized_matmul kernel launch failed: CUDA error {err}")
-    polarized_matmul.launches += 1
     return y
 
 
 polarized_matmul.launches = 0
+polarized_matmul_skip.launches = 0

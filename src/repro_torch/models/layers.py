@@ -60,12 +60,13 @@ def linear(p: Params, name: str, x: torch.Tensor, dtype: torch.dtype) -> torch.T
     weights only (a stacked or conv leaf raises)."""
     v = p[name]
     if isinstance(v, FormsLinearParams):
-        return forms_apply(v, x).to(dtype)
+        return forms_apply(v, x, tag=name).to(dtype)
     return matmul(x, wload(p, name, dtype))
 
 
 def _f32_scalar(v: float, device) -> torch.Tensor:
-    return torch.tensor(v, dtype=torch.float32, device=device)
+    # a fill on the device, not a host-to-device copy: no host sync
+    return torch.full((), v, dtype=torch.float32, device=device)
 
 
 def attn_scale(hd: int, device) -> torch.Tensor:
@@ -274,10 +275,40 @@ _MLP_ACTS = {"silu": F.silu, "gelu": lambda t: F.gelu(t, approximate="tanh"),
              "relu": F.relu}
 
 
-def swiglu(p: Params, x: torch.Tensor, dtype=torch.bfloat16,
-           act: str = "silu") -> torch.Tensor:
-    """Gated MLP; ``act`` picks the gate nonlinearity."""
+def sparsify_fragments(x: torch.Tensor, m: int, drop_frac: float) -> torch.Tensor:
+    """Zero all but the top-``(1 - drop_frac)`` fragments of each row.
+
+    Ranks the m-wide input groups of each row by max |x| and zeroes the
+    weakest ``drop_frac`` of them, so the sparsity the zero-skipping
+    matmuls see is aligned with the fragments they can skip.  Ties at the
+    threshold may keep more than the budget, as in the reference.
+    """
+    if drop_frac <= 0.0:
+        return x
+    if not 0.0 < drop_frac < 1.0:
+        raise ValueError(f"drop_frac must be in [0, 1), got {drop_frac}")
+    K = x.shape[-1]
+    if K % m:
+        raise ValueError(
+            f"feature dim {K} does not tile into fragments of m={m}; "
+            f"align act_fragment with the layer width (or pad the model)")
+    F = K // m
+    keep = max(1, int(round(F * (1.0 - drop_frac))))
+    xf = x.reshape(*x.shape[:-1], F, m)
+    strength = xf.float().abs().amax(dim=-1)                           # (..., F)
+    kth = torch.sort(strength, dim=-1, descending=True).values[..., keep - 1:keep]
+    mask = strength >= kth
+    return (xf * mask[..., None].to(xf.dtype)).reshape(x.shape)
+
+
+def swiglu(p: Params, x: torch.Tensor, dtype=torch.bfloat16, act: str = "silu",
+           frag_drop: float = 0.0, frag_m: int = 8) -> torch.Tensor:
+    """Gated MLP; ``act`` picks the gate nonlinearity.  ``frag_drop > 0``
+    sparsifies the hidden activations in whole fragments before ``down``,
+    so the zero-skipping matmuls have dead fragments to skip."""
     h = _MLP_ACTS[act](linear(p, "gate", x, dtype)) * linear(p, "up", x, dtype)
+    if frag_drop > 0.0:
+        h = sparsify_fragments(h, frag_m, frag_drop)
     return linear(p, "down", h, dtype)
 
 
@@ -290,5 +321,5 @@ def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor,
 
 def lm_logits(x: torch.Tensor, head, dtype=torch.bfloat16) -> torch.Tensor:
     if isinstance(head, FormsLinearParams):
-        return forms_apply(head, x).to(dtype)
+        return forms_apply(head, x, tag="head").to(dtype)
     return matmul(x, head.to(dtype))

@@ -72,12 +72,13 @@ def _block_apply(cfg: ModelConfig, bp: Params, x: torch.Tensor,
         window=cfg.sliding_window, q_chunk=q_chunk,
         cache=cache, cache_pos=cache_pos, return_kv=collect_kv, dtype=dtype)
     x = x + h
+    mlp_in = L.rmsnorm(x, bp["norm2"], cfg.norm_eps)
     if cfg.act_sparsity > 0.0:
-        raise NotImplementedError(
-            "act_sparsity is part of zero-skip, not ported yet (ROADMAP "
-            "queue 1, item 5)")
-    x = x + L.swiglu(bp["mlp"], L.rmsnorm(x, bp["norm2"], cfg.norm_eps), dtype,
-                     act=cfg.mlp_act)
+        # fragment-structured sparsification of the MLP input, so that the
+        # gate/up projections have dead whole fragments to skip too
+        mlp_in = L.sparsify_fragments(mlp_in, cfg.act_fragment, cfg.act_sparsity)
+    x = x + L.swiglu(bp["mlp"], mlp_in, dtype, act=cfg.mlp_act,
+                     frag_drop=cfg.act_sparsity, frag_m=cfg.act_fragment)
     return x, new_kv
 
 

@@ -19,11 +19,13 @@ prompt prefixes through a :class:`~repro_torch.serving.kv_cache.PrefixCache`.
 With ``forms=True``/``spec=...`` the engine compresses the weights once
 (``repro_torch.forms.compress_tree``) and serves the compressed tree: every
 projection runs the polarized-matmul kernel on uint8 magnitudes and int8
-fragment signs.
+fragment signs.  ``zero_skip="block"``/``"compact"`` serves it with input
+zero-skipping, and ``zero_skip_stats=True`` measures the decode path's
+per-layer input sparsity into ``stats()["sparsity"]``.
 
 Not ported yet, and refused rather than ignored: the dense slot cache
-(``page_size=0``), mesh sharding, speculative decoding, health monitoring,
-the SLO fleet scheduler and zero-skipping (see ROADMAP).
+(``page_size=0``), mesh sharding, speculative decoding, health monitoring
+and the SLO fleet scheduler (see ROADMAP).
 """
 from __future__ import annotations
 
@@ -37,7 +39,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.device import DEFAULT_DEVICE, resolve_device
-from repro_torch.forms import CompressReport, FormsSpec, compress_tree, default_spec
+from repro_torch.forms import (CompressReport, FormsSpec, compress_tree, default_spec,
+                               sparsity_stats)
+from repro_torch.kernels.sparsity import SparsityMeter
 from repro_torch.models.registry import Model
 from repro_torch.serving import kv_cache as KV
 
@@ -99,6 +103,9 @@ class ModelRunner:
         self.max_len = int(max_len)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(rng_seed)
+        # the engine's sparsity meter, installed around decode steps only
+        # (bulk prefill is not metered, as in the reference)
+        self.meter: Optional[SparsityMeter] = None
 
     @property
     def page_size(self) -> int:
@@ -152,7 +159,7 @@ class ModelRunner:
         tables = self._to_device(block_tables)
         temps_d = self._to_device(temps, torch.float32)
         out = []
-        with default_spec(self.spec):
+        with default_spec(self.spec), sparsity_stats(self.meter):
             for _ in range(self.decode_block):
                 logits, self.cache = self.model.decode_paged(
                     self.params, tok[:, None], self.cache, pos, tables)
@@ -341,7 +348,10 @@ class ServingEngine:
 
     ``device`` defaults to ``"cuda"`` and must match the model's device;
     without CUDA the caller has to ask for ``"cpu"``.  ``plan={path:
-    FormsSpec}`` serves a heterogeneous compressed tree.
+    FormsSpec}`` serves a heterogeneous compressed tree.  ``zero_skip``
+    (``"off"``, ``"block"`` or ``"compact"``, with the ``zero_skip_keep``
+    budget) and ``zero_skip_stats`` act on the FORMS matmuls and need
+    compression on.
     """
 
     def __init__(self, model: Model, params: Any, *, max_len: int = 512,
@@ -356,7 +366,8 @@ class ServingEngine:
                  device: Union[str, torch.device, None] = DEFAULT_DEVICE,
                  mesh: Optional[Any] = None, speculate: bool = False,
                  health: Optional[Any] = None, zero_skip: Optional[str] = None,
-                 zero_skip_stats: bool = False, slo: Optional[Any] = None):
+                 zero_skip_keep: float = 0.5, zero_skip_stats: bool = False,
+                 slo: Optional[Any] = None):
         dev = resolve_device(device)
         if dev != model.device:
             raise ValueError(f"engine device {dev} differs from the model's "
@@ -369,9 +380,12 @@ class ServingEngine:
         _refuse("speculate", speculate, False, "ROADMAP queue 1, item 6")
         _refuse("health", health, None, "ROADMAP queue 1, item 9")
         _refuse("slo", slo, None, "ROADMAP queue 1, item 7")
-        _refuse("zero_skip", zero_skip if zero_skip != "off" else None, None,
-                "ROADMAP queue 1, item 5")
-        _refuse("zero_skip_stats", zero_skip_stats, False, "ROADMAP queue 1, item 5")
+        if ((zero_skip not in (None, "off")) or zero_skip_stats) \
+                and not (forms or spec is not None):
+            raise ValueError(
+                "zero_skip / zero_skip_stats act on the FORMS matmul path — "
+                "enable compression too (forms=True, spec=..., or serve "
+                "--forms)")
         if plan is not None and not (forms or spec is not None):
             raise ValueError(
                 "plan= is a per-leaf override map over the engine's FORMS "
@@ -384,6 +398,11 @@ class ServingEngine:
         self.compression_report: Optional[CompressReport] = None
         if forms or spec is not None:
             self.spec = spec if spec is not None else FormsSpec()
+            if zero_skip is not None:
+                # folded into the spec before compression, so every FORMS
+                # matmul of the served tree takes the skip route
+                self.spec = dataclasses.replace(self.spec, zero_skip=zero_skip,
+                                                zero_skip_keep=zero_skip_keep)
             with torch.inference_mode():
                 params, self.compression_report = compress_tree(params, self.spec,
                                                                 plan=plan)
@@ -401,6 +420,12 @@ class ServingEngine:
                                   rng_seed=rng_seed)
         self.scheduler = Scheduler(self.runner, slots=batch_slots, max_len=max_len,
                                    allocator=allocator, prefix=prefix)
+        # off by default: metering adds a few device ops to every FORMS
+        # matmul of every decode step
+        self.sparsity_meter: Optional[SparsityMeter] = None
+        if zero_skip_stats:
+            self.sparsity_meter = SparsityMeter()
+            self.runner.meter = self.sparsity_meter
 
     @property
     def params(self) -> Any:
@@ -423,8 +448,9 @@ class ServingEngine:
         return self.runner.cache.nbytes()
 
     def stats(self) -> Dict[str, Any]:
-        """Serving counters: scheduler occupancy, page-pool occupancy and
-        prefix-cache hits, as a deep-copied snapshot."""
+        """Serving counters: scheduler occupancy, page-pool occupancy,
+        prefix-cache hits and, with ``zero_skip_stats``, the decode path's
+        measured input sparsity, as a deep-copied snapshot."""
         out: Dict[str, Any] = {
             "max_concurrent": self.scheduler.max_concurrent,
             "rounds": self.scheduler.rounds,
@@ -433,6 +459,8 @@ class ServingEngine:
         }
         if self.prefix_cache is not None:
             out["prefix_hits"] = self.prefix_cache.hits
+        if self.sparsity_meter is not None:
+            out["sparsity"] = self.sparsity_meter.summary()
         return copy.deepcopy(out)
 
     def run(self, requests: List[Request]) -> List[Result]:

@@ -38,7 +38,11 @@ template <class T> T __ldg(const T* p) { return *p; }
 template <class T> T __ldcg(const T* p) { return *p; }
 inline void __syncthreads() { block_barrier->arrive_and_wait(); }
 inline void __threadfence() {}
-inline int atomicAdd(int* p, int v) { int old = *p; *p += v; return old; }  // one thread calls it
+// blocks run one at a time, so a plain add is atomic
+inline int atomicAdd(int* p, int v) { int old = *p; *p += v; return old; }
+inline unsigned atomicAdd(unsigned* p, unsigned v) { unsigned old = *p; *p += v; return old; }
+inline int __clz(unsigned v) { return v ? __builtin_clz(v) : 32; }
+inline int __popc(unsigned v) { return __builtin_popcount(v); }
 inline float __shfl_xor_sync(unsigned, float v, int lane_mask) {
   shuffle_slots[threadIdx.x] = v;
   block_barrier->arrive_and_wait();

@@ -122,3 +122,130 @@ def test_forms_leaf_on_the_card_never_bypasses_the_kernel():
     before = pm.polarized_matmul.launches
     layers.linear({"up": leaf.layer(0)}, "up", x, torch.float32)
     assert pm.polarized_matmul.launches == before + 1
+
+
+def _dead_tiles(x, frac):
+    """Zero the first ``frac`` of the kernel's (row tile, K slice) tiles of x."""
+    M, K = x.shape
+    bm, kc = pm.tile_rows(M), pm._KC
+    tiles = [(i, k) for i in range(-(-M // bm)) for k in range(-(-K // kc))]
+    for i, k in tiles[:int(round(frac * len(tiles)))]:
+        x[i * bm:(i + 1) * bm, k * kc:(k + 1) * kc] = 0.0
+    return x
+
+
+@pytest.mark.parametrize("M,K,N", [(4, 1536, 1536), (4, 8960, 1536), (64, 1536, 256),
+                                   (7, 1544, 250)])
+@pytest.mark.parametrize("frac", [0.0, 0.5, 1.0])
+@pytest.mark.gpu
+@needs_card
+def test_skip_kernel_equals_dense_kernel(M, K, N, frac):
+    """The block-skip launch equals the dense launch bit for bit, whatever
+    share of the tiles is dead, and counts as a skip-kernel launch."""
+    dev = torch.device("cuda")
+    x, mags, signs, scale = _mk(9, M, K, N, 8)
+    x, mags, signs, scale = [t.to(dev) for t in _torch(_dead_tiles(x, frac), mags, signs, scale)]
+    dense = pm.polarized_matmul(x, mags, signs, scale, 8)
+    before = pm.polarized_matmul_skip.launches
+    skip = pm.polarized_matmul_skip(x, mags, signs, scale, 8)
+    torch.cuda.synchronize()
+    assert pm.polarized_matmul_skip.launches == before + 1
+    assert torch.equal(skip, dense)
+
+
+@pytest.mark.parametrize("M,dead", [(1, 0.8), (4, 0.8), (4, 0.0)])
+@pytest.mark.gpu
+@needs_card
+def test_compact_on_the_card_never_syncs(M, dead):
+    """Fragment compaction on the card, where it engages (80% of the
+    fragments dead in every row) and where it falls back (dense x): the
+    result matches the plain version, the call never waits on the card, and
+    its bits are those of the launch the device flag chose (the gathered
+    product sums in another order than the full one)."""
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda")
+    K, N, m = 8960, 1536, 8
+    x, mags, signs, scale = _mk(10, M, K, N, m)
+    rng = np.random.RandomState(11)
+    x = x * np.repeat(rng.rand(1, K // m) >= dead, m, axis=1).astype(np.float32)
+    x, mags, signs, scale = [t.to(dev) for t in _torch(x, mags, signs, scale)]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = ops.polarized_matmul(x, mags, signs, scale, m=m, zero_skip="compact",
+                                   zero_skip_keep=0.5)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    want = ref.ref_polarized_matmul_fast(x, mags, signs, scale, m)
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    xg, mg, sg, n_live, keep = ops.gather_live_fragments(x, mags, signs, m, 0.5)
+    gathered = pm.polarized_matmul(xg, mg, sg, scale, m)
+    full = pm.polarized_matmul(x, mags, signs, scale, m)
+    chosen, other = (gathered, full) if dead else (full, gathered)
+    assert (int(n_live) <= keep) == bool(dead)
+    assert torch.equal(got, chosen) and not torch.equal(got, other)
+
+
+@pytest.mark.parametrize("M,K,N,m,input_bits,adc_bits", [
+    (4, 1536, 1536, 8, 16, None), (4, 8960, 256, 8, 16, 4), (5, 200, 70, 4, 8, 3),
+    (3, 512, 64, 16, 12, None),
+])
+@pytest.mark.gpu
+@needs_card
+def test_bitserial_kernel_equals_plain(M, K, N, m, input_bits, adc_bits):
+    """acc and eic equal the plain version exactly, including results that
+    wrap int32; with an ideal ADC acc is the exact integer product."""
+    from repro_torch.core.zeroskip import fragment_eic
+    from repro_torch.kernels import bitserial_crossbar as bx
+
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(12)
+    x = rng.randint(0, 2 ** input_bits, (M, K)).astype(np.float32)
+    x[:, :m] = 0.0
+    mcodes = rng.randint(0, 256, (K, N)).astype(np.int32)
+    cells = np.stack([(mcodes >> (2 * c)) & 3 for c in range(4)])
+    signs = np.where(rng.rand(K // m, N) < 0.5, 1, -1).astype(np.int8)
+    tx, tm, tc, ts = [t.to(dev) for t in _torch(x, mcodes, cells, signs)]
+    before = bx.bitserial_crossbar.launches
+    acc, eic = bx.bitserial_crossbar(tx, tc, ts, m=m, input_bits=input_bits, adc_bits=adc_bits)
+    torch.cuda.synchronize()
+    assert bx.bitserial_crossbar.launches == before + 1
+    want, _ = ref.ref_bitserial_crossbar(tx, tc, ts, m, input_bits, 2, adc_bits=adc_bits)
+    assert torch.equal(acc, want)
+    assert torch.equal(eic, fragment_eic(tx, m, input_bits))
+    if adc_bits is None:
+        assert torch.equal(acc, ref.ref_exact_int_matmul(tx, tm, ts, m))
+
+
+@pytest.mark.gpu
+@needs_card
+def test_engine_block_skip_tokens_equal_dense_on_the_card():
+    """A reduced qwen2 with ReLU and 50% fragment sparsity served on the
+    card: zero_skip="block" gives the dense engine's tokens and runs every
+    projection through the skip kernel."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.forms import FormsSpec
+    from repro_torch.models.registry import build
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    cfg = dataclasses.replace(get_reduced("qwen2-1.5b"), mlp_act="relu", act_sparsity=0.5,
+                              act_fragment=8)
+    model = build(cfg, device="cuda")
+    params = model.init(0)
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab_size, 5) for _ in range(3)]
+    tokens = {}
+    for mode in ("off", "block"):
+        eng = ServingEngine(model, params, spec=FormsSpec(), zero_skip=mode, max_len=32,
+                            batch_slots=2, page_size=8, decode_block=2, device="cuda")
+        before = pm.polarized_matmul_skip.launches
+        res = eng.run([Request(uid=i, prompt=p, max_new_tokens=5) for i, p in enumerate(prompts)])
+        tokens[mode] = {r.uid: r.tokens for r in res}
+        calls = len(res) + eng.stats()["rounds"] * eng.decode_block
+        skips = pm.polarized_matmul_skip.launches - before
+        assert skips == (7 * cfg.num_layers * calls if mode == "block" else 0)
+    assert tokens["block"] == tokens["off"]

@@ -7,6 +7,7 @@ a card (``tests/test_torch_gpu.py`` holds it against the plain version
 there); here its source is compiled against a host stand-in for the CUDA
 names and checked for its logic only.
 """
+import ctypes
 import pathlib
 
 import jax.numpy as jnp
@@ -80,8 +81,11 @@ def test_geometry_errors_raise():
         ops.polarized_matmul(x, mags, signs[:2], scale, m=8)
     with pytest.raises(ValueError, match="disagree on K"):
         ops.polarized_matmul(x[:, :16], mags, signs, scale, m=8)
-    with pytest.raises(NotImplementedError, match="zero-skip"):
-        ops.polarized_matmul(x, mags, signs, scale, spec=FormsSpec(m=8, zero_skip="block"))
+    with pytest.raises(ValueError, match="zero_skip must be one of"):
+        ops.polarized_matmul(x, mags, signs, scale, m=8, zero_skip="banana")
+    with pytest.raises(ValueError, match="whole number of fragments"):
+        ops.polarized_matmul(x[:, :21], mags[:21], torch.ones(7, 8, dtype=torch.int8), scale,
+                             m=3, zero_skip="block")
 
 
 def test_device_picks_the_route():
@@ -118,12 +122,10 @@ def test_kernel_source_carries_its_note_and_c_interface():
     assert pm.build.library_path("polarized_matmul").parent == pm.build.BUILD_DIR
 
 
-def test_cuda_source_under_host_emulation(tmp_path):
-    """The kernel source itself, compiled with g++ against a host stand-in
-    for the CUDA names (``tests/cuda_host``) and run block by block on the
-    CPU, matches the plain version: its tiling, masks, vector and scalar
-    paths, K slices and ticketed slice sum (tickets back at zero after)."""
-    import ctypes
+def host_library(tmp_path, name: str, kernel: str):
+    """``csrc/<name>.cu`` compiled with g++ against a host stand-in for the
+    CUDA names (``tests/cuda_host``), its one launch of ``kernel`` run block
+    by block on the CPU; skips without g++."""
     import re
     import shutil
     import subprocess
@@ -131,17 +133,25 @@ def test_cuda_source_under_host_emulation(tmp_path):
     cxx = shutil.which("g++")
     if cxx is None:
         pytest.skip("g++ is not installed")
-    src = (pm.build.CSRC / "polarized_matmul.cu").read_text()
-    src, n = re.subn(r"(polarized_matmul_kernel<BM, Fast, MagT>)<<<grid, THREADS, 0, stream>>>"
-                     r"\(([^;]*)\);", r"host_launch(grid, THREADS, [=] { \1(\2); });", src)
+    src = (pm.build.CSRC / f"{name}.cu").read_text()
+    src, n = re.subn(rf"({re.escape(kernel)})<<<grid, THREADS, 0, ([^>]*)>>>\(([^;]*)\);",
+                     r"host_launch(grid, THREADS, [=] { \1(\3); });", src)
     assert n == 1
-    (tmp_path / "k.cpp").write_text(src)
-    lib_path = tmp_path / "k.so"
+    (tmp_path / f"{name}.cpp").write_text(src)
+    lib_path = tmp_path / f"{name}.so"
     include = pathlib.Path(__file__).parent / "cuda_host"
     subprocess.run([cxx, "-std=c++20", "-O1", "-shared", "-fPIC", f"-I{include}",
-                    "-o", str(lib_path), str(tmp_path / "k.cpp"), "-lpthread"],
+                    "-o", str(lib_path), str(tmp_path / f"{name}.cpp"), "-lpthread"],
                    check=True, capture_output=True)
-    lib = ctypes.CDLL(str(lib_path))
+    return ctypes.CDLL(str(lib_path))
+
+
+def test_cuda_source_under_host_emulation(tmp_path):
+    """The kernel source itself, compiled with g++ against a host stand-in
+    for the CUDA names (``tests/cuda_host``) and run block by block on the
+    CPU, matches the plain version: its tiling, masks, vector and scalar
+    paths, K slices and ticketed slice sum (tickets back at zero after)."""
+    lib = host_library(tmp_path, "polarized_matmul", "polarized_matmul_kernel<BM, Fast, MagT>")
     kc = lib.forms_polarized_matmul_kc()
     assert kc == pm._KC
     # the vector path at BM=8 (uint8), the masked scalar path at BM=4 with
@@ -154,8 +164,89 @@ def test_cuda_source_under_host_emulation(tmp_path):
         tickets = np.zeros(-(-N // pm._BN) * -(-M // bm), np.int32)
         fn = getattr(lib, pm._ENTRY[torch.int32 if levels > 256 else torch.uint8])
         fn.argtypes, fn.restype = pm._ARGTYPES, ctypes.c_int
-        assert fn(*(a.ctypes.data for a in (x, mags, signs, scale, y, work, tickets)),
-                  M, N, K, m, fast, None) == 0
+        assert fn(*(a.ctypes.data for a in (x, mags, signs, scale)), None, None,
+                  *(a.ctypes.data for a in (y, work, tickets)), M, N, K, m, fast, None) == 0
         want = ref.ref_polarized_matmul_fast(*_torch(x, mags, signs, scale), m).numpy()
         np.testing.assert_allclose(y, want, rtol=1e-5, atol=1e-4 * np.abs(want).max())
         assert not tickets.any()
+
+
+@pytest.mark.parametrize("M,K,N,m,levels,fast,dead", [
+    (9, 776, 36, 4, 256, 1, ((0, 1), (1, 0), (1, 2))),   # BM=8, vector loads, 2x4 tiles
+    (3, 520, 70, 8, 1024, 0, ((0, 1),)),                 # BM=4, scalar loads
+    (4, 200, 12, 8, 256, 1, ((0, 0),)),                  # one slice, all dead
+])
+def test_skip_kernel_under_host_emulation(tmp_path, M, K, N, m, levels, fast, dead):
+    """The block-skip entry of the same source, under the host stand-in: with
+    whole (row tile, K slice) tiles of x zeroed, the masked launch equals the
+    dense launch bit for bit, ticket counters return to zero, and a gate
+    reading 0 leaves the output untouched."""
+    lib = host_library(tmp_path, "polarized_matmul", "polarized_matmul_kernel<BM, Fast, MagT>")
+    x, mags, signs, scale = _mk(8, M, K, N, m, levels)
+    bm, kc = pm.tile_rows(M), pm._KC
+    for i, k in dead:
+        x[i * bm:(i + 1) * bm, k * kc:(k + 1) * kc] = 0.0
+    mask = pm.tile_mask(torch.from_numpy(x)).numpy()
+    assert int(mask.size - mask.sum()) == len(dead)
+    slices = -(-K // kc)
+    mag_t = torch.int32 if levels > 256 else torch.uint8
+    fn = getattr(lib, pm._ENTRY[mag_t])
+    fn.argtypes, fn.restype = pm._ARGTYPES, ctypes.c_int
+
+    def run(mask, gate, y=None):
+        y = np.zeros((M, N), np.float32) if y is None else y
+        work = np.zeros(slices * M * N, np.float32)
+        tickets = np.zeros(-(-N // pm._BN) * -(-M // bm), np.int32)
+        ptrs = [a.ctypes.data for a in (x, mags, signs, scale)]
+        assert fn(*ptrs, mask, gate, y.ctypes.data, work.ctypes.data, tickets.ctypes.data,
+                  M, N, K, m, fast, None) == 0
+        assert not tickets.any()
+        return y
+
+    want = run(None, None)
+    got = run(mask.ctypes.data, None)
+    assert np.array_equal(got, want)
+    plain = ref.ref_polarized_matmul_skip(*_torch(x, mags, signs, scale), torch.from_numpy(mask),
+                                          m, bm, kc).numpy()
+    np.testing.assert_allclose(got, plain, rtol=1e-5, atol=1e-4 * np.abs(plain).max())
+    closed, open_ = np.zeros(1, np.int32), np.ones(1, np.int32)
+    y = np.full((M, N), 7.0, np.float32)
+    assert (run(None, closed.ctypes.data, y=y) == 7.0).all()
+    assert np.array_equal(run(None, open_.ctypes.data, y=y), want)
+
+
+@pytest.mark.parametrize("M,K,N,m,input_bits,cell_bits,C,adc_bits", [
+    (5, 96, 40, 8, 8, 2, 4, None),     # 2 row tiles, 2 column tiles, ragged both
+    (3, 80, 33, 4, 8, 2, 4, 3),        # ADC clipping
+    (4, 1040, 8, 8, 16, 2, 4, None),   # 5 K ranges: wraps int32 on its way
+    (2, 64, 16, 16, 4, 1, 8, 2),       # one-bit cells, m = 16
+])
+def test_bitserial_source_under_host_emulation(tmp_path, M, K, N, m, input_bits, cell_bits,
+                                               C, adc_bits):
+    """``csrc/bitserial_crossbar.cu`` under the host stand-in: ``acc`` and
+    ``eic`` equal the plain version exactly (integers), for clipped and
+    ideal ADCs, ragged tiles, several K ranges and a result that wraps."""
+    from repro_torch.core.zeroskip import fragment_eic
+    from repro_torch.kernels import bitserial_crossbar as bx
+
+    lib = host_library(tmp_path, "bitserial_crossbar", "bitserial_crossbar_kernel")
+    assert lib.forms_bitserial_max_m() == bx._MAX_M
+    rng = np.random.RandomState(9)
+    x = rng.randint(0, 2 ** input_bits, (M, K)).astype(np.int32)
+    x[:, :m] = 0                                     # a dead fragment
+    x[0, m:2 * m] = 1                                # an EIC of 1
+    x[-1, 2 * m] = 2 ** input_bits + 5               # a bit above the streamed ones
+    x[-1, 3 * m] = -7                                # two's-complement bits
+    cells = rng.randint(0, 2 ** cell_bits, (C, K, N)).astype(np.uint8)
+    signs = np.where(rng.rand(K // m, N) < 0.5, 1, -1).astype(np.int8)
+    acc = np.zeros((M, N), np.int32)
+    eic = np.full((M, K // m), -1, np.int32)
+    fn = lib.forms_bitserial_crossbar
+    fn.argtypes, fn.restype = bx._ARGTYPES, ctypes.c_int
+    adc_max = 0xFFFFFFFF if adc_bits is None else (1 << adc_bits) - 1
+    assert fn(*(a.ctypes.data for a in (x, cells, signs, acc, eic)), M, N, K, C, m,
+              input_bits, cell_bits, adc_max, None) == 0
+    tx, tc, ts = _torch(x, cells, signs)
+    want, _ = ref.ref_bitserial_crossbar(tx, tc, ts, m, input_bits, cell_bits, adc_bits)
+    np.testing.assert_array_equal(acc, want.numpy())
+    np.testing.assert_array_equal(eic, fragment_eic(tx, m, input_bits).numpy())

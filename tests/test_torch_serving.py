@@ -93,8 +93,7 @@ def test_unported_options_are_refused():
     _, _, tm, tp = models()
     kw = dict(max_len=32, batch_slots=2, device="cpu")
     for extra in (dict(page_size=0), dict(mesh=object()), dict(speculate=True),
-                  dict(health=object()), dict(slo={}), dict(forms=True, zero_skip="block"),
-                  dict(forms=True, zero_skip_stats=True)):
+                  dict(health=object()), dict(slo={})):
         with pytest.raises(NotImplementedError):
             TEngine(tm, tp, **kw, **{"page_size": 8, **extra})
     with pytest.raises(ValueError, match="plan="):
