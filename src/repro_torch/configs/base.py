@@ -1,7 +1,9 @@
-"""Config dataclasses: the model architecture description.
+"""Config dataclasses: the model architecture and the training loop.
 
-A copy of the JAX package's ``ModelConfig`` (same fields, same defaults), so
-the port and the reference describe one architecture with one record.
+Copies of the JAX package's ``ModelConfig`` and ``TrainConfig`` (same
+fields, same defaults), so the port and the reference describe one
+architecture and one training run with one record each.  The reference's
+mesh description has no counterpart on one card and is left out.
 """
 from __future__ import annotations
 
@@ -125,3 +127,29 @@ class ModelConfig:
         active_experts = L * 3 * d * self.moe_d_ff * self.experts_per_token
         return total - all_experts + active_experts
 
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training-loop hyperparameters."""
+
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.01
+    beta1: float = 0.9
+    beta2: float = 0.95
+    grad_clip: float = 1.0
+    microbatches: int = 1           # gradient accumulation
+    remat: bool = True              # activation checkpointing per block
+    grad_compression: str = "none"  # none | bf16 | bf16_ef | int8_ef
+    moment_dtype: str = "float32"   # float32 | bfloat16 | int8 (quantized Adam)
+    seed: int = 0
+    # ADMM
+    admm_enabled: bool = False
+    admm_rho: float = 1e-3
+    admm_update_every: int = 100
+    admm_sign_refresh_every: int = 5
+    # checkpointing
+    checkpoint_every: int = 200
+    keep_checkpoints: int = 3

@@ -87,15 +87,17 @@ def pad_rows(mat: torch.Tensor, m: int) -> torch.Tensor:
 
 
 def to_fragments(mat: torch.Tensor, m: int) -> torch.Tensor:
-    """View ``(K, N)`` as ``(F, m, N)`` fragments (zero-padding K as needed)."""
+    """View ``(K, N)`` as ``(F, m, N)`` fragments (zero-padding K as needed);
+    a stack ``(L, K, N)`` becomes ``(L, F, m, N)``."""
     mat = pad_rows(mat, m)
-    k, n = mat.shape
-    return mat.reshape(k // m, m, n)
+    k, n = mat.shape[-2:]
+    return mat.reshape(*mat.shape[:-2], k // m, m, n)
 
 
 def expand_fragment_values(values: torch.Tensor, m: int, k: int) -> torch.Tensor:
-    """Broadcast per-fragment values ``(F, N)`` to per-weight ``(K, N)``."""
-    return values.repeat_interleave(m, dim=0)[:k]
+    """Broadcast per-fragment values ``(F, N)`` to per-weight ``(K, N)``
+    (and ``(L, F, N)`` to ``(L, K, N)``)."""
+    return values.repeat_interleave(m, dim=-2)[..., :k, :]
 
 
 def is_crossbar_weight(path: str, shape: Tuple[int, ...]) -> bool:

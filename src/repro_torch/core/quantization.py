@@ -53,9 +53,16 @@ class QuantSpec:
 
 
 def scale_for(mat: torch.Tensor, spec: QuantSpec) -> torch.Tensor:
-    """Max-abs calibration scale: largest code maps to the largest magnitude."""
+    """Max-abs calibration scale: largest code maps to the largest magnitude.
+
+    Per output column ``(1, N)`` or per tensor (a scalar); a stack of
+    matrices ``(L, K, N)`` gets one scale per layer, ``(L, 1, N)`` or
+    ``(L, 1, 1)``.
+    """
     if spec.per_channel:
-        amax = mat.abs().amax(dim=0, keepdim=True)  # (1, N)
+        amax = mat.abs().amax(dim=-2, keepdim=True)  # (1, N)
+    elif mat.ndim > 2:
+        amax = mat.abs().amax(dim=(-2, -1), keepdim=True)
     else:
         amax = mat.abs().amax()
     return torch.clamp(amax, min=1e-12) / spec.levels
@@ -67,8 +74,34 @@ def quantize_codes(mat: torch.Tensor, spec: QuantSpec,
     """Signed integer codes in [-levels, levels] and the scale used."""
     if scale is None:
         scale = scale_for(mat, spec)
-    q = torch.clamp(torch.round(mat / scale), -spec.levels, spec.levels)
+    q = (mat / scale).round_().clamp_(-spec.levels, spec.levels)
     return q, scale
+
+
+def project_quantize(mat: torch.Tensor, spec: QuantSpec,
+                     scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Euclidean projection onto the quantization grid Q (round to nearest).
+
+    ``mat / scale`` stays a division, as in the reference: multiplying by a
+    reciprocal rounds differently and moves codes sitting on a half step.
+    """
+    q, scale = quantize_codes(mat, spec, scale)
+    return q * scale
+
+
+def quantization_error(mat: torch.Tensor, spec: QuantSpec) -> torch.Tensor:
+    """Relative L2 error of projecting onto Q."""
+    pq = project_quantize(mat, spec)
+    return torch.linalg.norm(mat - pq) / torch.clamp(torch.linalg.norm(mat), min=1e-12)
+
+
+def is_on_grid(mat: torch.Tensor, spec: QuantSpec, scale: torch.Tensor,
+               atol: float = 1e-5) -> torch.Tensor:
+    """Boolean: every entry sits on the quantization grid (up to atol)."""
+    q = torch.round(mat / scale)
+    ok_range = torch.all(q.abs() <= spec.levels)
+    ok_grid = torch.all((q * scale - mat).abs() <= atol * torch.clamp(mat.abs(), min=1.0))
+    return ok_range & ok_grid
 
 
 # ---------------------------------------------------------------------------

@@ -5,7 +5,9 @@ messages, picks the zero-skip route, then hands the operands to the kernel
 wrappers, which run the CUDA kernels on CUDA tensors and the plain PyTorch
 versions on CPU tensors.  The CUDA kernels mask ragged M/N/K edges
 themselves, so nothing is padded here.  ``bitserial_crossbar`` is the
-entry of the bit-serial crossbar simulator.
+entry of the bit-serial crossbar simulator, ``admm_polarize`` that of the
+fragment-polarization projection (the ADMM Z-update), which pads K to
+whole fragments.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ from typing import Any, Callable, Optional, Tuple
 import torch
 
 from repro_torch.kernels import sparsity
+from repro_torch.kernels.admm_polarize import admm_polarize as _polarize_kernel
 from repro_torch.kernels.bitserial_crossbar import bitserial_crossbar as _bitserial_kernel
 from repro_torch.kernels.polarized_matmul import polarized_matmul as _polarized_kernel
 from repro_torch.kernels.polarized_matmul import polarized_matmul_skip as _skip_kernel
@@ -149,3 +152,21 @@ def bitserial_crossbar(
         adc_bits = spec.adc_bits
     return _bitserial_kernel(x_codes, cell_planes, signs, m=m, input_bits=input_bits,
                              cell_bits=cell_bits, adc_bits=adc_bits)
+
+
+def admm_polarize(v: torch.Tensor, *, m: int = 8, rule: str = "sum",
+                  spec: Optional[Any] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (projected, signs) of ``v`` (K, N) or a stacked leaf (L, K, N).
+
+    K is zero-padded to whole fragments (pad rows are sign-neutral) and the
+    projection is cut back to K rows; ``signs`` keeps all ``ceil(K/m)``
+    fragment rows.  ``spec`` (a FormsSpec) overrides ``m``/``rule``.  On
+    CUDA tensors a stacked leaf is one kernel launch.
+    """
+    if spec is not None:
+        m, rule = spec.m, spec.rule
+    K = v.shape[-2]
+    pad = (-K) % m if m >= 1 else 0
+    vp = torch.nn.functional.pad(v, (0, 0, 0, pad)) if pad else v.contiguous()
+    out, signs = _polarize_kernel(vp, m=m, rule=rule)
+    return (out[..., :K, :] if pad else out), signs

@@ -8,6 +8,8 @@ held against the fast form.  ``ref_polarized_matmul_skip`` is its
 zero-skipping variant at a tiling, ``ref_bitserial_crossbar`` the plain
 version of the bit-serial simulator kernel and ``ref_exact_int_matmul`` the
 integer product that simulator reaches with enough ADC bits.
+``ref_admm_polarize`` is the plain version of the fragment-polarization
+projection kernel of the ADMM Z-update.
 """
 from __future__ import annotations
 
@@ -132,3 +134,47 @@ def ref_exact_int_matmul(x_codes: torch.Tensor, mag_codes: torch.Tensor,
     if top(xd) * top(w) * k >= 2.0 ** 53:
         raise ValueError("codes too large for an exact float64 product")
     return _wrap_int32((xd @ w).to(torch.int64))
+
+
+# ---------------------------------------------------------------------------
+# Fused polarization projection
+# ---------------------------------------------------------------------------
+
+def ref_admm_polarize(v: torch.Tensor, m: int, rule: str = "sum"):
+    """Projection onto P: returns (projected, signs), both in v's dtype.
+
+    ``v`` is ``(K, N)`` or a stack ``(L, K, N)`` with K a multiple of m;
+    ``signs`` is ``(K/m, N)`` (or ``(L, K/m, N)``) of +-1.  Per (fragment,
+    column) the sign is +1 iff the fragment's sum is >= 0 (``sum``) or its
+    positive entries carry at least the squared mass of its negative ones
+    (``energy``); entries whose product with the sign is negative become 0.
+    The m rows of a fragment are added one after another in row order, in
+    float32 (bf16 inputs are widened first), as the CUDA kernel adds them:
+    a fragment summing to about 0 elects the same sign on both.  NaN
+    compares false, so a NaN fragment elects -1 and its NaN is zeroed; a
+    fragment summing to 0 or -0.0 elects +1; an entry of -0.0 is kept.
+    """
+    if rule not in ("sum", "energy"):
+        raise ValueError(f"unknown sign rule {rule!r} (sum or energy)")
+    k, n = v.shape[-2:]
+    if m < 1 or k % m:
+        raise ValueError(f"K={k} rows do not tile into fragments of m={m}; pad first")
+    vf = v.float().reshape(*v.shape[:-2], k // m, m, n)
+    if rule == "sum":
+        acc = torch.zeros_like(vf[..., 0, :])
+        for i in range(m):
+            acc = acc + vf[..., i, :]
+        up = acc >= 0
+    else:
+        pos_e = torch.zeros_like(vf[..., 0, :])
+        neg_e = torch.zeros_like(pos_e)
+        for i in range(m):
+            p = torch.clamp(vf[..., i, :], min=0.0)   # NaN stays NaN
+            q = torch.clamp(vf[..., i, :], max=0.0)
+            pos_e = pos_e + p * p
+            neg_e = neg_e + q * q
+        up = pos_e >= neg_e
+    s = torch.where(up, 1.0, -1.0)
+    keep = vf * s[..., None, :] >= 0
+    out = torch.where(keep, vf, torch.zeros((), dtype=vf.dtype, device=vf.device))
+    return out.reshape(v.shape).to(v.dtype), s.to(v.dtype)

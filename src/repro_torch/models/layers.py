@@ -315,8 +315,11 @@ def swiglu(p: Params, x: torch.Tensor, dtype=torch.bfloat16, act: str = "silu",
 def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor,
                  dtype=torch.bfloat16) -> torch.Tensor:
     """Rows of the table, cast to ``dtype`` (gather first: same numbers as
-    the reference's cast-then-gather, without casting the whole table)."""
-    return embed[tokens.long()].to(dtype)
+    the reference's cast-then-gather, without casting the whole table).
+    ``index_select``, whose gradient is an ``index_add_`` into the table,
+    keeps the backward pass free of host syncs."""
+    rows = embed.index_select(0, tokens.reshape(-1).long())
+    return rows.reshape(*tokens.shape, embed.shape[-1]).to(dtype)
 
 
 def lm_logits(x: torch.Tensor, head, dtype=torch.bfloat16) -> torch.Tensor:

@@ -22,7 +22,10 @@ class Model:
     """The functions the serving engine consumes, bound to one config and
     one device.
 
-    ``init(seed)`` makes random params on the device; ``prefill_paged(params,
+    ``init(seed)`` makes random params on the device; ``forward(params,
+    batch, remat=, return_hidden=)`` is the full-sequence pass training
+    takes; ``head_matrix(params)`` the LM head training reads (the tied
+    ``embed.T``, never the serving copy); ``prefill_paged(params,
     tokens (1, S), cache, pages, slot, length)`` returns the logits (1, V) at
     ``length - 1`` and writes the prompt's pages; ``decode_paged(params,
     tokens (B, T), cache, pos (B,), block_tables)`` returns (B, T, V) logits
@@ -33,6 +36,7 @@ class Model:
     device: torch.device
     init: Callable[..., Params]
     forward: Callable[..., Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
+    head_matrix: Callable[[Params], Any]
     init_paged_cache: Callable[..., Any]
     prefill_paged: Callable[..., Tuple[torch.Tensor, Any]]
     decode_paged: Callable[..., Tuple[torch.Tensor, Any]]
@@ -70,7 +74,8 @@ def build(cfg: ModelConfig, device: Union[str, torch.device, None] = DEFAULT_DEV
         config=cfg,
         device=dev,
         init=init,
-        forward=lambda params, batch: mod.forward(cfg, params, batch),
+        forward=lambda params, batch, **kw: mod.forward(cfg, params, batch, **kw),
+        head_matrix=lambda params: mod.head_matrix(cfg, params),
         init_paged_cache=lambda num_pages, page_size, dtype=torch.bfloat16:
             mod.init_paged_cache(cfg, num_pages, page_size, dev, dtype),
         prefill_paged=lambda params, tokens, cache, pages, slot, length:

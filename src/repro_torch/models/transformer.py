@@ -10,6 +10,7 @@ from __future__ import annotations
 from typing import Any, Dict, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.forms.linear import FormsLinearParams
@@ -62,6 +63,19 @@ def layer_params(blocks: Any, i: int) -> Any:
     return blocks[i]
 
 
+def unstack_layers(blocks: Any, n: int) -> list:
+    """The stacked block tree as ``n`` per-layer trees.  Each stacked tensor
+    is unbound once, so a backward pass returns the ``n`` layer gradients as
+    one stack; taking layer i out by indexing would cost a zero-filled
+    full-size gradient and its addition for every layer."""
+    if isinstance(blocks, dict):
+        cols = {k: unstack_layers(v, n) for k, v in blocks.items()}
+        return [{k: cols[k][i] for k in cols} for i in range(n)]
+    if isinstance(blocks, FormsLinearParams):
+        return [blocks.layer(i) for i in range(n)]
+    return list(blocks.unbind(0))
+
+
 def _block_apply(cfg: ModelConfig, bp: Params, x: torch.Tensor,
                  positions: torch.Tensor, cache, cache_pos, dtype, q_chunk: int,
                  collect_kv: bool = False):
@@ -83,38 +97,57 @@ def _block_apply(cfg: ModelConfig, bp: Params, x: torch.Tensor,
 
 
 def head_matrix(cfg: ModelConfig, params: Params):
-    """The LM head: the serving cast copy if one was made, the untied
-    ``head``, or the tied ``embed.T``."""
-    cast = params.get("head_cast")
-    if cast is not None:
-        return cast
+    """The LM head: the untied ``head`` or the tied ``embed.T``.  Training
+    reads this one, so a tied head's gradient reaches the embedding."""
     head = params.get("head")
     return head if head is not None else params["embed"].T
+
+
+def _serving_head(cfg: ModelConfig, params: Params):
+    """The head the serving paths read: the cast copy if one was made."""
+    cast = params.get("head_cast")
+    return cast if cast is not None else head_matrix(cfg, params)
 
 
 def with_head_cast(cfg: ModelConfig, params: Params) -> Params:
     """A shallow copy of ``params`` holding the dense head once in the compute
     dtype.  ``lm_logits`` casts the head on every call; for a tied (V, d)
     embedding that is a full-table read and write per step, and a copy made
-    once gives the same numbers."""
+    once gives the same numbers.  Serving only: training reads
+    :func:`head_matrix`."""
     head = head_matrix(cfg, params)
     if isinstance(head, FormsLinearParams):
         return params
     return {**params, "head_cast": head.to(L.DTYPES[cfg.dtype])}
 
 
-def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor]
+def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor], *,
+            remat: bool = False, q_chunk: int = L.DEFAULT_Q_CHUNK,
+            return_hidden: bool = False
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Full-sequence forward.  Returns (logits (B, S, V), aux)."""
+    """Full-sequence forward (train / prefill).  Returns (logits (B, S, V),
+    aux); ``return_hidden=True`` returns the final hidden states instead
+    (the chunked-CE training loss never materializes the full logits).
+    ``remat`` recomputes each block's activations in the backward pass
+    (``torch.utils.checkpoint``), keeping only the residual stream between
+    blocks, as the reference's ``jax.checkpoint`` over the layer scan does."""
     dtype = L.DTYPES[cfg.dtype]
     x = L.embed_lookup(params["embed"], batch["tokens"], dtype)
     s = x.shape[1]
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
-    for i in range(cfg.num_layers):
-        x, _ = _block_apply(cfg, layer_params(params["blocks"], i), x, positions,
-                            None, None, dtype, L.DEFAULT_Q_CHUNK)
+
+    def body(x, bp):
+        return _block_apply(cfg, bp, x, positions, None, None, dtype, q_chunk)[0]
+
+    for bp in unstack_layers(params["blocks"], cfg.num_layers):
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(body, x, bp, use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = body(x, bp)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return L.lm_logits(x, head_matrix(cfg, params), dtype), {}
+    if return_hidden:
+        return x, {}
+    return L.lm_logits(x, _serving_head(cfg, params), dtype), {}
 
 
 def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
@@ -144,7 +177,7 @@ def _prefill_core(cfg: ModelConfig, params: Params, tokens: torch.Tensor, length
         vs.append(v)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     x_last = x[:, length - 1:length]
-    logits = L.lm_logits(x_last, head_matrix(cfg, params), dtype)
+    logits = L.lm_logits(x_last, _serving_head(cfg, params), dtype)
     return logits[:, 0], {"k": torch.stack(ks), "v": torch.stack(vs)}
 
 
@@ -176,7 +209,7 @@ def _decode_core(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
         k_tok.append(k)
         v_tok.append(v)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    logits = L.lm_logits(x, head_matrix(cfg, params), dtype)
+    logits = L.lm_logits(x, _serving_head(cfg, params), dtype)
     return logits, torch.stack(k_tok), torch.stack(v_tok)
 
 

@@ -9,6 +9,7 @@
 #include <barrier>
 #include <cstddef>
 #include <cstdint>
+#include <cstring>
 #include <thread>
 #include <vector>
 
@@ -51,6 +52,11 @@ inline float __shfl_xor_sync(unsigned, float v, int lane_mask) {
   return other;
 }
 inline float fmaf(float a, float b, float c) { return a * b + c; }
+// round-to-nearest add and multiply, never contracted into an FMA (the
+// emulation compiles with -ffp-contract=off)
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __uint_as_float(unsigned u) { float f; std::memcpy(&f, &u, sizeof f); return f; }
 inline int cudaGetLastError() { return 0; }
 
 // stands in for kernel<<<grid, threads, 0, stream>>>(args...)

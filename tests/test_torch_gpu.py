@@ -249,3 +249,48 @@ def test_engine_block_skip_tokens_equal_dense_on_the_card():
         skips = pm.polarized_matmul_skip.launches - before
         assert skips == (7 * cfg.num_layers * calls if mode == "block" else 0)
     assert tokens["block"] == tokens["off"]
+
+
+def _polarize_input(seed, shape, m):
+    """Random values with the edge cases planted in every layer: a fragment
+    summing to exactly 0, one of -0.0 entries, one holding a NaN."""
+    v = np.random.RandomState(seed).randn(*shape).astype(np.float32)
+    for layer in v.reshape(-1, *shape[-2:]):
+        layer[:m, 0] = np.tile([0.5, -0.5], m)[:m] if m % 2 == 0 else 0.0
+        layer[:m, 1] = -0.0
+        layer[m + 1, 2] = np.nan
+    return torch.from_numpy(v)
+
+
+@pytest.mark.parametrize("shape,m", [((3, 64, 300), 4), ((2, 1536, 256), 8),
+                                     ((1536, 8960), 8), ((2, 96, 40), 16), ((2, 40, 33), 5)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.gpu
+@needs_card
+def test_polarize_kernel_equals_plain_bit_for_bit(shape, m, dtype):
+    """Kernel #4 on the card: one launch per (stacked) leaf, outputs and
+    signs equal to the plain version bit for bit, for both rules."""
+    from repro_torch.kernels import admm_polarize as kpol
+
+    v = _polarize_input(3, shape, m).to("cuda", dtype)
+    for rule in ("sum", "energy"):
+        before = kpol.admm_polarize.launches
+        out, signs = kpol.admm_polarize(v, m=m, rule=rule)
+        torch.cuda.synchronize()
+        assert kpol.admm_polarize.launches == before + 1
+        want, want_s = ref.ref_admm_polarize(v, m, rule)
+        bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+        assert torch.equal(out.view(bits), want.view(bits))
+        assert torch.equal(signs, want_s)
+
+
+@pytest.mark.gpu
+@needs_card
+def test_polarize_wrapper_raises_instead_of_falling_back():
+    from repro_torch.kernels import admm_polarize as kpol
+
+    v = torch.randn(16, 8, device="cuda")
+    with pytest.raises(TypeError):
+        kpol.admm_polarize(v.double(), m=8, rule="sum")
+    with pytest.raises(ValueError, match="contiguous"):
+        kpol.admm_polarize(v.t(), m=4, rule="sum")

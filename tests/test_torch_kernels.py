@@ -140,8 +140,8 @@ def host_library(tmp_path, name: str, kernel: str):
     (tmp_path / f"{name}.cpp").write_text(src)
     lib_path = tmp_path / f"{name}.so"
     include = pathlib.Path(__file__).parent / "cuda_host"
-    subprocess.run([cxx, "-std=c++20", "-O1", "-shared", "-fPIC", f"-I{include}",
-                    "-o", str(lib_path), str(tmp_path / f"{name}.cpp"), "-lpthread"],
+    subprocess.run([cxx, "-std=c++20", "-O1", "-ffp-contract=off", "-shared", "-fPIC",
+                    f"-I{include}", "-o", str(lib_path), str(tmp_path / f"{name}.cpp"), "-lpthread"],
                    check=True, capture_output=True)
     return ctypes.CDLL(str(lib_path))
 
