@@ -7,26 +7,38 @@ Phases, each printing JSON lines:
 1. device    — the card's name and power limit;
 2. build     — the CUDA kernels, built from ``src/repro_torch/kernels/csrc``
                (one nvcc per source, all started together);
-3. kernel    — the polarized-matmul kernel against its plain PyTorch version
-               at every full-width qwen2-1.5b projection shape, at M=4
-               (decode) and M=64 (prefill), with CUDA-event times of the
+3. kernel    — the f32 polarized-matmul kernel against its plain PyTorch
+               version at every full-width qwen2-1.5b projection shape, at
+               M=4 (decode) and M=64 (prefill), with CUDA-event times of the
                kernel, the plain version and one library call, beside the
-               card's bound;
-4. skip      — its block-skip launch at the same shapes with 0%, 50% and
+               card's bound; then the tensor-core kernel on bf16 x at M=16,
+               32, 64 and 256 and a ragged shape (two launches equal bit for
+               bit), timed at M=32 and 64 beside the f32 and bf16 library
+               calls and its bf16 bound; and the M crossover of the two
+               kernels on bf16 x at M=1 to 64 (TC_MIN_ROWS);
+4. skip      — the block-skip launches at the same shapes with 0%, 50% and
                100% of the K slices of x zero: equal to the dense launch
-               bit for bit, timed at 50%; fragment compaction at M=1 and 4,
-               where it engages and where it falls back, its output equal
+               bit for bit, timed at 50% (f32 x at M=4 and 64, bf16 x on the
+               tensor-core kernel at M=64); fragment compaction at M=1 and
+               4, where it engages and where it falls back, its output equal
                bit for bit to the launch the device flag chose;
 5. bitserial — the bit-serial crossbar kernel at M=4 and full-width shapes,
                16-bit inputs, ideal and 4-bit ADCs and a result that wraps
                int32: acc and eic equal to the plain version exactly;
-6. small     — a reduced qwen2 served on the card and on the CPU: prefill
-               logits agree (the CPU runs the plain versions);
+6. small     — a reduced qwen2 (f32 activations, so the f32 kernels) on
+               the card and on the CPU: prefill logits agree (the CPU runs
+               the plain versions), and zero_skip="block" gives the card's
+               dense logits bit for bit;
 7. slice     — full-width qwen2-1.5b (random weights from a seed), compressed
                by FORMS and served through ``ServingEngine``: every request
-               returns its tokens, the kernel's launch count is 196 per model
-               call, and three timed runs give the same tokens; each run's
-               decode ms per step beside the step's byte bound;
+               returns its tokens, the kernels' launch counts are 196 per
+               model call (the tensor-core kernel at prefill, the f32 one at
+               decode, as the route picks by M), and three timed runs give
+               the same tokens; each
+               run's decode ms per step beside the step's byte bound; then
+               the route check: the same requests with the route forced to
+               the f32 kernel give the same greedy tokens (or differ only at
+               a near-tie), with the largest prefill-logit difference;
 8. zero_skip — the same model with ReLU and 50% fragment sparsity, one tree
                compressed once, served with zero_skip off, block and compact:
                block gives off's tokens through the skip kernel, compact's
@@ -72,11 +84,15 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores: the
-                               # kernel's contract keeps f32 products
+                               # f32 kernel's contract keeps f32 products
+BF16_FLOPS = 989e12            # H100 SXM bf16 tensor cores, dense
 INT8_OPS = 1979e12             # H100 SXM int8 tensor cores, dense: the least
                                # time any design could take for integer MACs
 REL_TOL = 1e-4                 # both sides sum in f32, in different orders
 DECODE_M, PREFILL_M = 4, 64
+# bf16 x on the tensor-core route: checked at these M, timed at the last two
+TC_CHECK_M, TC_TIMED_M = (16, 256), (32, 64)
+CROSSOVER_M = (1, 2, 4, 8, 16, 32, 64)
 # qwen2-1.5b projections per layer: (K, N) -> calls per layer
 LAYER_SHAPES = {(1536, 1536): 2, (1536, 256): 2, (1536, 8960): 2, (8960, 1536): 1}
 SLICE_RUNS = 3
@@ -132,10 +148,21 @@ def bound(M: int, K: int, N: int, mag_bytes: int, m: int = 8):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def kernel_inputs(gen, M, K, N, m=8, mag_dtype=None, levels=256):
+def bound_tc(M: int, K: int, N: int, m: int = 8, live_rows=None):
+    """The bf16 product's bound: bf16 x, uint8 codes, int8 signs, f32 scale
+    and y, each once, over HBM; its MACs at the bf16 tensor-core rate.
+    ``live_rows`` counts only the code rows a skip launch reads."""
+    rows = K if live_rows is None else live_rows
+    nbytes = M * K * 2 + rows * N + -(-rows // m) * N + N * 4 + M * N * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * M * rows * N / BF16_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def kernel_inputs(gen, M, K, N, m=8, mag_dtype=None, levels=256, x_dtype=None):
     import torch
     mag_dtype = mag_dtype or torch.uint8
-    x = torch.randn((M, K), generator=gen, device="cuda")
+    x = torch.randn((M, K), generator=gen, device="cuda").to(x_dtype or torch.float32)
     mags = torch.randint(0, levels, (K, N), generator=gen, device="cuda").to(mag_dtype)
     signs = (torch.randint(0, 2, (K // m, N), generator=gen, device="cuda") * 2 - 1
              ).to(torch.int8)
@@ -190,6 +217,101 @@ def phase_kernels():
     return rows, worst_abs, worst_rel
 
 
+def phase_kernels_tc():
+    """The tensor-core kernel on bf16 x through the route of
+    ``pm.polarized_matmul``: against the plain version within REL_TOL, two
+    launches equal bit for bit, at M=16, 32, 64 and 256 and a ragged shape;
+    timed at M=32 and 64 beside the f32 and bf16 library calls.  Then the
+    crossover: both kernels on bf16 x at M=4..64, summed per layer."""
+    import torch
+    from repro_torch.kernels import polarized_matmul as pm
+    from repro_torch.kernels.ref import ref_polarized_matmul_fast
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    scrub = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    flush = lambda: scrub.zero_()
+    rows = []
+    worst_abs = worst_rel = 0.0
+
+    def check(label, M, K, N, time_it=False):
+        nonlocal worst_abs, worst_rel
+        x, mags, signs, scale = kernel_inputs(gen, M, K, N, x_dtype=torch.bfloat16)
+        before = pm.polarized_matmul_tc.launches
+        got = pm.polarized_matmul(x, mags, signs, scale, 8)
+        again = pm.polarized_matmul(x, mags, signs, scale, 8)
+        took = pm.polarized_matmul_tc.launches - before
+        want = ref_polarized_matmul_fast(x, mags, signs, scale, 8)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"{label} M={M} K={K} N={N}: two launches differ")
+        if took != 2:
+            raise AssertionError(f"{label} M={M}: the route launched the tensor-core "
+                                 f"kernel {took} times for 2 calls")
+        abs_err = float((got - want).abs().max())
+        rel_err = abs_err / float(want.abs().max())
+        worst_abs, worst_rel = max(worst_abs, abs_err), max(worst_rel, rel_err)
+        group = pm.tc_group(M, N, K, torch.cuda.get_device_properties(0).multi_processor_count)
+        rec = {"case": label, "M": M, "K": K, "N": N, "x": "bfloat16",
+               "grid": [-(-N // pm._TC_BN), -(-M // pm._TC_BM), -(-(-(-K // pm._KC)) // group)],
+               "max_abs_err": abs_err, "max_rel_err": rel_err}
+        if time_it:
+            xf = x.float()
+            w = mags.float() * signs.float().repeat_interleave(8, dim=0)
+            wb = w.to(torch.bfloat16)   # exact: codes <= 255 and signs +-1
+            rec["kernel_ms"] = timed_ms(lambda: pm.polarized_matmul(x, mags, signs, scale, 8), flush)
+            rec["plain_ms"] = timed_ms(lambda: ref_polarized_matmul_fast(x, mags, signs, scale, 8), flush)
+            rec["library_f32_ms"] = timed_ms(lambda: torch.matmul(xf, w), flush)
+            rec["library_ms"] = timed_ms(lambda: torch.matmul(x, wb), flush)
+            rec["bound_ms"], rec["bound_by"] = bound_tc(M, K, N)
+        emit("kernel_tc", **rec)
+        if not rel_err <= REL_TOL:
+            raise AssertionError(f"the tensor-core kernel disagrees with its plain version: {rec}")
+        return rec
+
+    for M in TC_CHECK_M + TC_TIMED_M:
+        for (K, N) in LAYER_SHAPES:
+            rec = check("qwen2-1.5b", M, K, N, time_it=M in TC_TIMED_M)
+            if M in TC_TIMED_M:
+                rows.append(rec)
+    check("ragged edges, prefill", 67, 264, 1030)
+    # the timing method's own floor: a spin kernel of 0 cycles, timed as
+    # every kernel here is (every per-layer sum holds 7 of these)
+    floor_ms = timed_ms(lambda: torch.cuda._sleep(0), flush)
+    emit("timing_floor", ms=floor_ms)
+
+    crossover = []
+    for M in CROSSOVER_M:
+        rec = {"M": M, "tc_ms": 0.0, "f32_ms": 0.0, "f32_kernel_ms": 0.0,
+               "route": "tc" if pm.uses_tensor_cores(torch.bfloat16, torch.uint8, "cuda", M)
+               else "f32"}
+        for (K, N), calls in LAYER_SHAPES.items():
+            x, mags, signs, scale = kernel_inputs(gen, M, K, N, x_dtype=torch.bfloat16)
+            rec["tc_ms"] += calls * timed_ms(
+                lambda: pm.polarized_matmul_tc(x, mags, signs, scale, 8), flush)
+            # the f32 route widens bf16 x first: that copy is part of its
+            # cost; f32_kernel_ms is the f32 kernel alone on the widened x
+            xf = x.float()
+            rec["f32_ms"] += calls * timed_ms(
+                lambda: pm.polarized_matmul(x.float(), mags, signs, scale, 8), flush)
+            rec["f32_kernel_ms"] += calls * timed_ms(
+                lambda: pm.polarized_matmul(xf, mags, signs, scale, 8), flush)
+        emit("crossover", per="the 7 projections of one qwen2-1.5b layer, bf16 x", **rec)
+        crossover.append(rec)
+    return rows, worst_abs, worst_rel, crossover, floor_ms
+
+
+def route_split(per_call, prefill_rows, steps, slots):
+    """The launches a bf16 FORMS model's prefills (M = each prompt's bucket)
+    and decode steps (M = slots) make on the [f32, tensor-core] kernels."""
+    import torch
+    from repro_torch.kernels import polarized_matmul as pm
+    out = [0, 0]
+    for M in prefill_rows + [slots] * steps:
+        out[pm.uses_tensor_cores(torch.bfloat16, torch.uint8, "cuda", M)] += per_call
+    return out
+
+
 def per_layer(rows, M, key):
     return sum(r[key] * LAYER_SHAPES[(r["K"], r["N"])] for r in rows if r["M"] == M)
 
@@ -200,6 +322,8 @@ def _wrappers():
     from repro_torch.kernels import polarized_matmul as pm
     return {"polarized_matmul": pm.polarized_matmul,
             "polarized_matmul_skip": pm.polarized_matmul_skip,
+            "polarized_matmul_tc": pm.polarized_matmul_tc,
+            "polarized_matmul_tc_skip": pm.polarized_matmul_tc_skip,
             "bitserial_crossbar": bx.bitserial_crossbar,
             "admm_polarize": ap.admm_polarize}
 
@@ -226,12 +350,18 @@ def dead_slices(x, frac: float):
     return x
 
 
+def live_rows(mask, K: int) -> int:
+    """The code rows a skip launch reads: a K slice's, when any row tile is
+    live in it."""
+    from repro_torch.kernels.polarized_matmul import _KC
+    live = mask.any(dim=0).tolist()
+    return sum(min(_KC, K - k * _KC) for k, on in enumerate(live) if on)
+
+
 def skip_bound(mask, M: int, K: int, N: int, mag_bytes: int, m: int = 8):
     """The skip launch's bound for this mask: a K slice's weights are read
     when any row tile is live in it; x, y, scale and the mask once."""
-    from repro_torch.kernels.polarized_matmul import _KC
-    live = mask.any(dim=0).tolist()
-    rows = sum(min(_KC, K - k * _KC) for k, on in enumerate(live) if on)
+    rows = live_rows(mask, K)
     nbytes = (M * K * 4 + M * N * 4 + N * 4 + mask.numel() * 4
               + rows * N * mag_bytes + -(-rows // m) * N)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -241,7 +371,10 @@ def skip_bound(mask, M: int, K: int, N: int, mag_bytes: int, m: int = 8):
 
 def phase_skip():
     """Kernel #2: the block-skip launch equals the dense one bit for bit at
-    0/50/100% dead K slices, timed at 50%; then fragment compaction."""
+    0/50/100% dead K slices, timed at 50%, on the f32 kernel (f32 x at M=4
+    and 64) and on the tensor-core kernel (bf16 x at M=64, its 64-row
+    tiles); then fragment compaction.  Returns the f32 kernel's timed rows,
+    the tensor-core kernel's, and the worst error."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels import polarized_matmul as pm
@@ -251,35 +384,53 @@ def phase_skip():
     gen.manual_seed(1)
     scrub = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
     flush = lambda: scrub.zero_()
-    rows = []
+    rows, tc_rows = [], []
     worst = 0.0
-    for M in (DECODE_M, PREFILL_M):
+    for M, x_dtype in ((DECODE_M, torch.float32), (PREFILL_M, torch.float32),
+                       (PREFILL_M, torch.bfloat16)):
+        tc = pm.uses_tensor_cores(x_dtype, torch.uint8, "cuda", M)
+        counter = pm.polarized_matmul_tc_skip if tc else pm.polarized_matmul_skip
+        bm = pm.tile_rows(M, tc)
         for (K, N) in LAYER_SHAPES:
-            x0, mags, signs, scale = kernel_inputs(gen, M, K, N)
+            x0, mags, signs, scale = kernel_inputs(gen, M, K, N, x_dtype=x_dtype)
             for frac in (0.0, 0.5, 1.0):
                 x = dead_slices(x0.clone(), frac)
-                mask = pm.tile_mask(x)
+                mask = pm.tile_mask(x, mags.dtype)
                 dense = pm.polarized_matmul(x, mags, signs, scale, 8)
+                before = counter.launches
                 skip = pm.polarized_matmul_skip(x, mags, signs, scale, 8, mask=mask)
-                want = ref_polarized_matmul_skip(x, mags, signs, scale, mask, 8,
-                                                 pm.tile_rows(M), pm._KC)
+                took = counter.launches - before
+                want = ref_polarized_matmul_skip(x, mags, signs, scale, mask, 8, bm, pm._KC)
                 torch.cuda.synchronize()
                 equal = torch.equal(skip, dense)
                 abs_err = float((skip - want).abs().max())
                 top = float(want.abs().max())
-                rec = {"M": M, "K": K, "N": N, "dead_tiles": float(1 - mask.float().mean()),
+                rec = {"M": M, "K": K, "N": N, "x": str(x_dtype).split(".")[-1],
+                       "kernel": "tc" if tc else "f32", "tile_rows": bm,
+                       "dead_tiles": float(1 - mask.float().mean()),
                        "equal_dense": equal, "max_abs_err": abs_err}
                 if frac == 0.5:
                     w = mags.float() * signs.float().repeat_interleave(8, dim=0)
+                    xf = x.float()
                     rec["kernel_ms"] = timed_ms(
                         lambda: pm.polarized_matmul_skip(x, mags, signs, scale, 8, mask=mask), flush)
                     rec["dense_ms"] = timed_ms(lambda: pm.polarized_matmul(x, mags, signs, scale, 8), flush)
                     rec["plain_ms"] = timed_ms(lambda: ref_polarized_matmul_skip(
-                        x, mags, signs, scale, mask, 8, pm.tile_rows(M), pm._KC), flush)
-                    rec["library_ms"] = timed_ms(lambda: torch.matmul(x, w), flush)
-                    rec["bound_ms"], rec["bound_by"] = skip_bound(mask, M, K, N, 1)
-                    rows.append(rec)
+                        x, mags, signs, scale, mask, 8, bm, pm._KC), flush)
+                    rec["library_ms"] = timed_ms(lambda: torch.matmul(xf, w), flush)
+                    if tc:
+                        wb = w.to(torch.bfloat16)
+                        rec["library_f32_ms"] = rec["library_ms"]
+                        rec["library_ms"] = timed_ms(lambda: torch.matmul(x, wb), flush)
+                        rec["bound_ms"], rec["bound_by"] = bound_tc(
+                            M, K, N, live_rows=live_rows(mask, K))
+                        tc_rows.append(rec)
+                    else:
+                        rec["bound_ms"], rec["bound_by"] = skip_bound(mask, M, K, N, 1)
+                        rows.append(rec)
                 emit("skip", **rec)
+                if took != 1:
+                    raise AssertionError(f"the skip call did not launch its kernel once: {rec}")
                 if not equal:
                     raise AssertionError(f"the skip launch differs from the dense one: {rec}")
                 if top and abs_err > REL_TOL * top:
@@ -291,12 +442,13 @@ def phase_skip():
     # product sums in another order than the full one
     K, N = 8960, 1536
     _, mags, signs, scale = kernel_inputs(gen, 1, K, N)
-    for M in (1, DECODE_M):
+    for M, x_dtype in ((1, torch.float32), (DECODE_M, torch.float32),
+                       (PREFILL_M, torch.bfloat16)):
         for engage in (True, False):
-            x = torch.randn((M, K), generator=gen, device="cuda")
+            x = torch.randn((M, K), generator=gen, device="cuda").to(x_dtype)
             if engage:   # 70% of the fragments dead in every row: the union too
                 live = torch.rand((K // 8,), generator=gen, device="cuda") >= 0.7
-                x = x * live.repeat_interleave(8).float()
+                x = x * live.repeat_interleave(8).to(x_dtype)
             xg, mg, sg, n_live, keep = ops.gather_live_fragments(x, mags, signs, 8, 0.5)
             y = ops.polarized_matmul(x, mags, signs, scale, m=8, zero_skip="compact",
                                      zero_skip_keep=0.5)
@@ -307,7 +459,8 @@ def phase_skip():
             rel = float((y - want).abs().max()) / float(want.abs().max())
             took = {(True, False): "compact", (False, True): "full"}.get(
                 (torch.equal(y, gathered), torch.equal(y, full)), "neither")
-            rec = {"M": M, "K": K, "N": N, "live_fragments": int(n_live), "keep": keep,
+            rec = {"M": M, "K": K, "N": N, "x": str(x_dtype).split(".")[-1],
+                   "live_fragments": int(n_live), "keep": keep,
                    "engages": int(n_live) <= keep, "branch": took, "max_rel_err": rel,
                    "compact_ms": timed_ms(lambda: ops.polarized_matmul(
                        x, mags, signs, scale, m=8, zero_skip="compact", zero_skip_keep=0.5), flush),
@@ -317,7 +470,7 @@ def phase_skip():
                 raise AssertionError(f"compaction disagrees with the plain version: {rec}")
             if took != ("compact" if engage else "full"):
                 raise AssertionError(f"compaction took the wrong launch: {rec}")
-    return rows, worst
+    return rows, tc_rows, worst
 
 
 def bitserial_bound(M: int, K: int, N: int, bits: int = 16, C: int = 4, m: int = 8):
@@ -414,7 +567,7 @@ def phase_small():
     import numpy as np
     import torch
     from repro_torch.configs import get_reduced
-    from repro_torch.forms import FormsLinearParams, FormsSpec, compress_tree
+    from repro_torch.forms import FormsLinearParams, FormsSpec, compress_tree, default_spec
     from repro_torch.models.registry import build
 
     def to(tree, dev):
@@ -429,19 +582,30 @@ def phase_small():
     params, _ = compress_tree(build(cfg, device="cpu").init(0), FormsSpec(m=8, bits=8))
     toks = torch.from_numpy(np.random.RandomState(0).randint(0, cfg.vocab_size, (1, 16)))
     out = {}
-    for dev in ("cpu", "cuda"):
+    counts = {}
+    for dev, zero_skip in (("cpu", "off"), ("cuda", "off"), ("cuda", "block")):
         model = build(cfg, device=dev)
         cache = model.init_paged_cache(3, 8)
-        with torch.inference_mode():
+        reset_counts()
+        with torch.inference_mode(), default_spec(FormsSpec(m=8, bits=8, zero_skip=zero_skip)):
             logits, _ = model.prefill_paged(to(params, dev), toks.to(dev), cache,
                                             torch.tensor([1, 2], device=dev), 0, 16)
-        out[dev] = logits.float().cpu()
-    err = float((out["cpu"] - out["cuda"]).abs().max())
-    top = float(out["cpu"].abs().max())
+        out[dev, zero_skip] = logits.float().cpu()
+        counts.update({k: v for k, v in launch_counts().items() if v})
+    cpu, card = out["cpu", "off"], out["cuda", "off"]
+    err = float((cpu - card).abs().max())
+    top = float(cpu.abs().max())
+    block_equal = torch.equal(out["cuda", "block"], card)
     emit("small", arch=cfg.name, max_abs_err=err, max_logit=top,
-         argmax_equal=bool(out["cpu"].argmax() == out["cuda"].argmax()))
-    if not (torch.isfinite(out["cuda"]).all() and err <= 1e-4 * max(top, 1.0)):
+         argmax_equal=bool(cpu.argmax() == card.argmax()), block_equals_off=block_equal,
+         launches=counts)
+    if not (torch.isfinite(card).all() and err <= 1e-4 * max(top, 1.0)):
         raise AssertionError(f"card and CPU logits disagree: {err} (max |logit| {top})")
+    per_call = 7 * cfg.num_layers
+    if not block_equal or counts != {"polarized_matmul": per_call,
+                                     "polarized_matmul_skip": per_call}:
+        raise AssertionError(f"the f32 kernels' prefill: block equal {block_equal}, {counts}")
+    return counts
 
 
 def phase_slice():
@@ -473,20 +637,25 @@ def phase_slice():
         results = engine.run(reqs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-        launches = launch_counts()["polarized_matmul"]
+        counts = launch_counts()
+        launches = {k: counts[k] for k in ("polarized_matmul", "polarized_matmul_tc")}
         steps = (engine.scheduler.rounds - rounds0) * engine.decode_block
         return results, launches, len(results) + steps, wall, steps
 
     runs = [run() for _ in range(SLICE_RUNS)]
     tokens = [{r.uid: r.tokens for r in res} for res, *_ in runs]
-    for (results, launches, calls, wall, _), toks in zip(runs, tokens):
+    per_call = 7 * cfg.num_layers
+    buckets = [engine.runner.bucket_for(len(p)) for p in prompts]
+    for (results, launches, calls, wall, steps), toks in zip(runs, tokens):
         for uid, t in toks.items():
             if len(t) != n_new or not all(0 <= v < cfg.vocab_size for v in t):
                 raise AssertionError(f"request {uid} returned {t}")
-        per_call = 7 * cfg.num_layers
-        if launches != per_call * calls:
-            raise AssertionError(f"polarized_matmul launched {launches} times for "
-                                 f"{calls} model calls; expected {per_call} per call")
+        f32, tc = route_split(per_call, buckets, steps, engine.slots)
+        want = {"polarized_matmul": f32, "polarized_matmul_tc": tc}
+        if launches != want:
+            raise AssertionError(f"the kernels launched {launches} times for "
+                                 f"{len(results)} prefills and {steps} decode steps; "
+                                 f"expected {want}")
     if any(t != tokens[0] for t in tokens):
         raise AssertionError(f"the runs gave other tokens: {tokens}")
     # a decode step reads every FORMS plane and the bf16 tied head once (the
@@ -505,14 +674,65 @@ def phase_slice():
          setup_s=setup_s, prompt_lens=[len(p) for p in prompts],
          prefill_ms=[r.prefill_ms for r in results],
          mean_prefill_ms=float(np.mean([r.prefill_ms for r in results])),
+         mean_prefill_ms_runs=[float(np.mean([r.prefill_ms for r in res]))
+                               for res, *_ in runs],
          decode_steps=steps, decode_step_ms=step_ms,
          decode_step_bound_ms=step_bytes / HBM_BYTES_PER_S * 1e3,
          decode_step_bytes=step_bytes, decode_tok_s=tok_s, wall_s=wall,
          model_calls=calls, kernel_launches=launches,
-         launches_per_call=launches // calls, pages=engine.stats()["pages"],
+         launches_per_call=sum(launches.values()) / calls, pages=engine.stats()["pages"],
          tokens=tokens[-1], peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     profile_decode(engine, prompts)
+    route_check(cfg, engine, prompts, tokens[0], n_new)
     return launches
+
+
+def route_check(cfg, engine, prompts, tokens, n_new) -> None:
+    """The same requests served with the route forced to the f32 kernel
+    (``uses_tensor_cores`` patched here, not a flag): the greedy tokens must
+    equal the tensor-core route's, or differ first at a near-tie -- a top-2
+    logit margin below the largest prefill-logit difference of the routes."""
+    import torch
+    from repro_torch.forms import default_spec
+    from repro_torch.kernels import polarized_matmul as pm
+    from repro_torch.serving.engine import Request
+
+    def logits_of(seq):
+        with torch.inference_mode(), default_spec(engine.runner.spec):
+            return engine.runner.model.forward(engine.params, {"tokens": seq})[0][0].float()
+
+    route = pm.uses_tensor_cores
+    pm.uses_tensor_cores = lambda *args: False
+    try:
+        reqs = [Request(uid=i, prompt=p, max_new_tokens=n_new) for i, p in enumerate(prompts)]
+        reset_counts()
+        f32_tokens = {r.uid: r.tokens for r in engine.run(reqs)}
+        f32_counts = launch_counts()
+        f32_logits = [logits_of(torch.tensor(p, device="cuda")[None]) for p in prompts]
+    finally:
+        pm.uses_tensor_cores = route
+    tc_logits = [logits_of(torch.tensor(p, device="cuda")[None]) for p in prompts]
+    diff = max(float((a - b).abs().max()) for a, b in zip(tc_logits, f32_logits))
+    top = max(float(b.abs().max()) for b in f32_logits)
+    firsts = [(uid, next(i for i, (a, b) in enumerate(zip(tokens[uid], f32_tokens[uid]))
+                         if a != b))
+              for uid in tokens if tokens[uid] != f32_tokens[uid]]
+    divergence = None
+    if firsts:
+        uid, i = min(firsts, key=lambda u: u[1])
+        seq = torch.tensor(list(prompts[uid]) + tokens[uid][:i], device="cuda")[None]
+        top2 = torch.topk(logits_of(seq)[-1], 2).values
+        divergence = {"uid": uid, "step": i, "tc_token": tokens[uid][i],
+                      "f32_token": f32_tokens[uid][i],
+                      "top2_margin": float(top2[0] - top2[1])}
+    emit("route_check", tokens_equal=tokens == f32_tokens, max_prefill_logit_diff=diff,
+         max_abs_logit=top, first_divergence=divergence,
+         f32_route_launches={k: v for k, v in f32_counts.items() if v})
+    if f32_counts["polarized_matmul_tc"] or not f32_counts["polarized_matmul"]:
+        raise AssertionError(f"the forced f32 route launched {f32_counts}")
+    if divergence is not None and not divergence["top2_margin"] < diff:
+        raise AssertionError(f"the tensor-core route changed a greedy token away from a "
+                             f"near-tie: {divergence}, logit difference {diff}")
 
 
 def phase_zero_skip():
@@ -520,7 +740,8 @@ def phase_zero_skip():
     once and served with zero_skip off, block and compact (in the order
     off, block, compact, compact, block, off), then once more in block mode
     with the sparsity meter on.  Returns the compressed tree, the prompts
-    and the skip kernel's launches in the first block run."""
+    and the skip kernels' launches in the first block run (the f32 kernel's
+    at decode, the tensor-core kernel's at prefill)."""
     import dataclasses
 
     import torch
@@ -543,13 +764,14 @@ def phase_zero_skip():
                                    page_size=16, batch_slots=4, max_len=256, decode_block=4,
                                    device="cuda")
                for mode in ("off", "block", "compact", "block+stats")}
-    tile_mask = pm.tile_mask
+    tile_mask = pm._tile_mask
     dead = {}
 
-    def counting_mask(x):
-        """tile_mask, also counting the down projection's (K = d_ff) dead
-        tiles on the device."""
-        mask = tile_mask(x)
+    def counting_mask(x, bm):
+        """The skip wrappers' mask, also counting the down projection's
+        (K = d_ff) dead tiles on the device (64-row tiles at prefill, 4-row
+        ones at decode)."""
+        mask = tile_mask(x, bm)
         if x.shape[1] == cfg.d_ff:
             dead["tiles"] = dead.get("tiles", 0) + (mask == 0).sum()
             dead["of"] = dead.get("of", 0) + mask.numel()
@@ -560,7 +782,7 @@ def phase_zero_skip():
         rounds0 = engine.scheduler.rounds
         reqs = [Request(uid=i, prompt=p, max_new_tokens=n_new) for i, p in enumerate(prompts)]
         if mode.endswith("+stats"):
-            pm.tile_mask = counting_mask
+            pm._tile_mask = counting_mask
         reset_counts()
         try:
             t = time.perf_counter()
@@ -568,12 +790,15 @@ def phase_zero_skip():
             torch.cuda.synchronize()
             wall = time.perf_counter() - t
         finally:
-            pm.tile_mask = tile_mask
+            pm._tile_mask = tile_mask
         counts = launch_counts()
         steps = (engine.scheduler.rounds - rounds0) * engine.decode_block
         calls = len(results) + steps
-        if mode.startswith("block") and (counts["polarized_matmul_skip"] != per_call * calls
-                                         or counts["polarized_matmul"]):
+        want = route_split(per_call, [engine.runner.bucket_for(len(p)) for p in prompts],
+                           steps, engine.slots)
+        skips = [counts["polarized_matmul_skip"], counts["polarized_matmul_tc_skip"]]
+        if mode.startswith("block") and (skips != want or counts["polarized_matmul"]
+                                         or counts["polarized_matmul_tc"]):
             raise AssertionError(f"block mode did not run every projection through the "
                                  f"skip kernel: {counts}, {calls} model calls")
         return {"tokens": {r.uid: r.tokens for r in results}, "wall_s": wall,
@@ -627,7 +852,7 @@ def phase_zero_skip():
          block_equals_off=block == off, compact_tokens_equal_off=same,
          tokens_total=sum(len(t) for t in off.values()), compact_divergence=divergence,
          runs=runs)
-    return tree, cfg, prompts, runs["block"]["launches"]["polarized_matmul_skip"]
+    return tree, cfg, prompts, runs["block"]["launches"]
 
 
 def sync_free_decode(model, engine) -> dict:
@@ -641,7 +866,8 @@ def sync_free_decode(model, engine) -> dict:
     tok = torch.zeros((slots, 1), dtype=torch.int32, device="cuda")
     pos = torch.zeros((slots,), dtype=torch.int32, device="cuda")
     tables = torch.zeros((slots, engine.scheduler.n_tables), dtype=torch.int32, device="cuda")
-    before = launch_counts()["polarized_matmul"]
+    kernels = ("polarized_matmul", "polarized_matmul_tc")
+    before = sum(launch_counts()[k] for k in kernels)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -653,7 +879,7 @@ def sync_free_decode(model, engine) -> dict:
     if not torch.isfinite(logits).all():
         raise AssertionError("the compact decode call gave non-finite logits")
     return {"logits_shape": list(logits.shape),
-            "polarized_matmul_launches": launch_counts()["polarized_matmul"] - before}
+            "polarized_matmul_launches": sum(launch_counts()[k] for k in kernels) - before}
 
 
 def phase_fidelity(tree, cfg, prompts):
@@ -980,8 +1206,14 @@ def profile_decode(engine, prompts) -> None:
     device_ms = sum(getattr(e, dev_attr) for e in kernels) / 1e3
     host = sorted(ka, key=lambda e: -e.self_cpu_time_total)[:12]
     launches = sum(e.count for e in ka if e.key == "cudaLaunchKernel")
+    # the two polarized-matmul kernels by name (the tensor-core one serves
+    # the prefills, the f32 one the decode steps)
+    pmm = {name: {"ms": sum(getattr(e, dev_attr) for e in kernels if name + "<" in e.key)
+                  / 1e3, "count": sum(e.count for e in kernels if name + "<" in e.key)}
+           for name in ("polarized_matmul_tc_kernel", "polarized_matmul_kernel")}
     emit("profile", wall_ms=wall_ms, device_busy_ms=device_ms,
          device_idle_share=1 - device_ms / wall_ms, kernel_launches=launches,
+         polarized_matmul_device=pmm,
          top_device=[{"name": e.key[:80], "ms": getattr(e, dev_attr) / 1e3,
                       "count": e.count} for e in kernels[:15]],
          top_host=[{"name": e.key[:80], "self_ms": e.self_cpu_time_total / 1e3,
@@ -1007,15 +1239,17 @@ def main() -> int:
 
     from repro_torch.kernels import build
     t0 = time.perf_counter()
-    build.build(["polarized_matmul", "bitserial_crossbar", "admm_polarize"])
+    build.build(["polarized_matmul", "polarized_matmul_tc", "bitserial_crossbar",
+                 "admm_polarize"])
     emit("build", seconds=time.perf_counter() - t0,
          ptxas={k: v["ptxas"] for k, v in build.BUILD_LOG.items()})
 
     rows, worst_abs, worst_rel = phase_kernels()
-    skip_rows, skip_err = phase_skip()
+    tc_rows, tc_abs, tc_rel, crossover, floor_ms = phase_kernels_tc()
+    skip_rows, tc_skip_rows, skip_err = phase_skip()
     bit_rows = phase_bitserial()
     pol_rows = phase_polarize()
-    phase_small()
+    small_launches = phase_small()
     phase_train_small()
     launches = phase_slice()
     torch.cuda.empty_cache()
@@ -1024,7 +1258,17 @@ def main() -> int:
     del tree          # the serving trees go before the training state comes
     torch.cuda.empty_cache()
     pol_launches = phase_train()
-    if not (launches and skip_launches and bit_launches and pol_launches):
+    # the f32 kernels serve what the tensor-core route does not take (f32
+    # activations, int32 codes): their path is the reduced f32 model's
+    # prefill where the bf16 slice leaves them no launch
+    small = "the reduced f32 qwen2's prefill on the card (phase small)"
+    f32_path = {"polarized_matmul": (launches["polarized_matmul"], "the slice-1 run")
+                if launches["polarized_matmul"] else (small_launches["polarized_matmul"], small),
+                "polarized_matmul_skip": (skip_launches["polarized_matmul_skip"], "the block run")
+                if skip_launches["polarized_matmul_skip"]
+                else (small_launches["polarized_matmul_skip"], small)}
+    if not (launches["polarized_matmul_tc"] and skip_launches["polarized_matmul_tc_skip"]
+            and all(n for n, _ in f32_path.values()) and bit_launches and pol_launches):
         raise AssertionError("a kernel of a path was never launched on it")
 
     def total(rows, key):
@@ -1039,24 +1283,28 @@ def main() -> int:
         "name": "polarized_matmul", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/polarized_matmul.cu",
         "replaces": "src/repro/kernels/polarized_matmul.py:45",
-        "launches": launches, "max_abs_err": worst_abs, "max_rel_err": worst_rel,
+        "launches": f32_path["polarized_matmul"][0],
+        "launches_path": f32_path["polarized_matmul"][1],
+        "max_abs_err": worst_abs, "max_rel_err": worst_rel,
         "ms": per_layer(rows, DECODE_M, "kernel_ms"),
         "plain_ms": per_layer(rows, DECODE_M, "plain_ms"),
         "bound_ms": per_layer(rows, DECODE_M, "bound_ms"),
         "bound_by": bound_by([r for r in rows if r["M"] == DECODE_M]),
         "library_ms": per_layer(rows, DECODE_M, "library_ms"),
-        "per": "the 7 projections of one qwen2-1.5b layer at decode, M=4",
+        "per": "the 7 projections of one qwen2-1.5b layer at M=4, f32 x",
     }, {
         "name": "polarized_matmul_skip", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/polarized_matmul.cu",
         "replaces": "src/repro/kernels/polarized_matmul.py:68",
-        "launches": skip_launches, "max_abs_err": skip_err,
+        "launches": f32_path["polarized_matmul_skip"][0],
+        "launches_path": f32_path["polarized_matmul_skip"][1],
+        "max_abs_err": skip_err,
         "ms": per_layer(skip_rows, DECODE_M, "kernel_ms"),
         "plain_ms": per_layer(skip_rows, DECODE_M, "plain_ms"),
         "bound_ms": per_layer(skip_rows, DECODE_M, "bound_ms"),
         "bound_by": bound_by([r for r in skip_rows if r["M"] == DECODE_M]),
         "library_ms": per_layer(skip_rows, DECODE_M, "library_ms"),
-        "per": "the 7 projections of one qwen2-1.5b layer at decode, M=4, every other "
+        "per": "the 7 projections of one qwen2-1.5b layer at M=4, f32 x, every other "
                "K slice of x zero",
     }, {
         "name": "bitserial_crossbar", "route": "cuda",
@@ -1082,6 +1330,33 @@ def main() -> int:
                         "the entries that disagree with it",
         "per": "one fresh Z-update of qwen2-1.5b: its 7 stacked leaves (1.31 G f32 "
                "elements), m=8, sum rule",
+    }, {
+        "name": "polarized_matmul_tc", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/polarized_matmul_tc.cu",
+        "replaces": "src/repro/kernels/polarized_matmul.py:45 and :68 (bf16 x, uint8 "
+                    "codes, M >= TC_MIN_ROWS)",
+        "launches": launches["polarized_matmul_tc"],
+        "skip_launches": skip_launches["polarized_matmul_tc_skip"],
+        "max_abs_err": tc_abs, "max_rel_err": tc_rel,
+        "ms": per_layer(tc_rows, PREFILL_M, "kernel_ms"),
+        "plain_ms": per_layer(tc_rows, PREFILL_M, "plain_ms"),
+        "bound_ms": per_layer(tc_rows, PREFILL_M, "bound_ms"),
+        "bound_by": bound_by([r for r in tc_rows if r["M"] == PREFILL_M]),
+        "library_ms": per_layer(tc_rows, PREFILL_M, "library_ms"),
+        "library_f32_ms": per_layer(tc_rows, PREFILL_M, "library_f32_ms"),
+        "f32_kernel_ms": per_layer(rows, PREFILL_M, "kernel_ms"),
+        "m32": {k: per_layer(tc_rows, 32, k) for k in
+                ("kernel_ms", "plain_ms", "bound_ms", "library_ms", "library_f32_ms")},
+        "skip_ms": per_layer(tc_skip_rows, PREFILL_M, "kernel_ms"),
+        "skip_bound_ms": per_layer(tc_skip_rows, PREFILL_M, "bound_ms"),
+        "crossover": [{k: r[k] for k in ("M", "tc_ms", "f32_ms", "f32_kernel_ms", "route")}
+                      for r in crossover],
+        "timing_floor_ms": floor_ms,
+        "library_note": "library_ms: one bf16 torch.matmul of x and the pre-folded bf16 "
+                        "weight; library_f32_ms: the f32 one (TF32 off); f32_kernel_ms: "
+                        "polarized_matmul.cu on f32 x",
+        "per": "the 7 projections of one qwen2-1.5b layer at prefill, M=64, bf16 x; "
+               "launches: the slice-1 run's; skip_launches: the block run's",
     }]}
     print(json.dumps(kernels), flush=True)
     print(smi, flush=True)

@@ -111,9 +111,10 @@ def _resolve_spec(p: FormsLinearParams, spec: Optional[FormsSpec]) -> FormsSpec:
 
 
 def _flatten_pad(x: torch.Tensor, kp: int) -> Tuple[torch.Tensor, Tuple[int, ...]]:
-    """Flatten leading dims of ``(..., K)`` to 2-D f32 and zero-pad K to Kp."""
+    """Flatten leading dims of ``(..., K)`` to 2-D and zero-pad K to Kp, in
+    x's dtype (bf16 activations reach the tensor-core kernel as they are)."""
     lead = tuple(x.shape[:-1])
-    x2 = x.reshape(-1, x.shape[-1]).float()
+    x2 = x.reshape(-1, x.shape[-1])
     pad = kp - x2.shape[-1]
     if pad:
         x2 = torch.nn.functional.pad(x2, (0, pad))
@@ -195,7 +196,7 @@ def apply_simulated(p: FormsLinearParams, x: torch.Tensor,
         raise ValueError(
             f"apply_simulated() needs a 2-D weight, got rank {p.mags.ndim}")
     spec = _resolve_spec(p, spec)
-    x2, lead = _flatten_pad(x, p.mags.shape[0])
+    x2, lead = _flatten_pad(x.float(), p.mags.shape[0])
     x_codes, x_scale = quantmod.quantize_activations(x2, spec.input_bits)
     cells = quantmod.slice_to_cells(p.mags, spec.quant)
     acc, eic = kops.bitserial_crossbar(x_codes, cells, p.signs, spec=spec)

@@ -2,8 +2,9 @@
 
 ``polarized_matmul`` checks the fragment geometry with the JAX package's
 messages, picks the zero-skip route, then hands the operands to the kernel
-wrappers, which run the CUDA kernels on CUDA tensors and the plain PyTorch
-versions on CPU tensors.  The CUDA kernels mask ragged M/N/K edges
+wrappers, which run the CUDA kernels on CUDA tensors (the tensor-core one
+for bf16 x and uint8 codes at prefill M, the f32 one otherwise) and the
+plain PyTorch versions on CPU tensors.  The CUDA kernels mask ragged M/N/K edges
 themselves, so nothing is padded here.  ``bitserial_crossbar`` is the
 entry of the bit-serial crossbar simulator, ``admm_polarize`` that of the
 fragment-polarization projection (the ADMM Z-update), which pads K to
@@ -125,7 +126,9 @@ def polarized_matmul(x: torch.Tensor, mags: torch.Tensor, signs: torch.Tensor,
             f"zero_skip must be one of {VALID_ZERO_SKIP}, got "
             f"{zero_skip!r} (FormsSpec(zero_skip=...) / --zero-skip)")
     _validate_polarized_geometry(x, mags, signs, m)
-    x = x.float().contiguous()
+    # bf16 x stays bf16, for the tensor-core kernel (the kernel wrappers
+    # widen it for the f32 kernel and the CPU); other dtypes widen to f32
+    x = (x if x.dtype == torch.bfloat16 else x.float()).contiguous()
     if zero_skip == "block":
         return _skip_kernel(x, mags, signs, scale, m)
     if zero_skip == "compact":

@@ -4,7 +4,11 @@
 // __syncthreads and for each warp shuffle.  Enough to check a kernel's
 // indexing, masking and reductions against its plain version; it says
 // nothing about speed, and the kernel runs on the card only after nvcc.
+// A kernel's inline PTX sits behind __device__ helpers guarded by
+// __CUDA_ARCH__; under CUDA_HOST_EMULATION they call the host_* stand-ins
+// below instead (cp.async, mma.sync).
 #pragma once
+#define CUDA_HOST_EMULATION 1
 #include <algorithm>
 #include <barrier>
 #include <cstddef>
@@ -16,6 +20,7 @@
 using std::min;
 #define __global__
 #define __device__
+#define __host__
 #define __forceinline__ inline
 #define __launch_bounds__(...)
 #define __shared__ static
@@ -57,7 +62,62 @@ inline float fmaf(float a, float b, float c) { return a * b + c; }
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __uint_as_float(unsigned u) { float f; std::memcpy(&f, &u, sizeof f); return f; }
+inline unsigned __float_as_uint(float f) { unsigned u; std::memcpy(&u, &f, sizeof u); return u; }
+// byte i of the result is byte (s >> 4i) & 7 of the pair (x, y), x's bytes first
+inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
+  const uint64_t v = (uint64_t(y) << 32) | x;
+  unsigned r = 0;
+  for (int i = 0; i < 4; ++i) r |= unsigned((v >> (8 * ((s >> (4 * i)) & 7))) & 0xFF) << (8 * i);
+  return r;
+}
+
+// bf16 as its 16 bits; widening to f32 is exact
+struct __nv_bfloat16 { uint16_t bits; };
+inline float __bfloat162float(__nv_bfloat16 h) { return __uint_as_float(unsigned(h.bits) << 16); }
+
+// cp.async of 16 bytes, done at once (zero-filled when !valid); the
+// commit/wait helpers have nothing to wait for
+inline void host_cp_async16(void* dst, const void* src, bool valid) {
+  if (valid) std::memcpy(dst, src, 16);
+  else std::memset(dst, 0, 16);
+}
+
+// mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 as a warp collective:
+// every lane posts its A and B fragments (the PTX ISA's layout: groupID =
+// lane / 4, threadID_in_group = lane % 4, the lower-indexed element in the
+// low 16 bits), the block meets (every warp of the kernel calls it alike),
+// each lane computes its four outputs of D (products exact, summed in k
+// order in f32), and the block meets again
+inline uint32_t mma_a_slots[1024][4];
+inline uint32_t mma_b_slots[1024][2];
+inline void host_mma_m16n8k16_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                   const uint32_t (&b)[2]) {
+  const unsigned t = threadIdx.x;
+  for (int i = 0; i < 4; ++i) mma_a_slots[t][i] = a[i];
+  for (int i = 0; i < 2; ++i) mma_b_slots[t][i] = b[i];
+  block_barrier->arrive_and_wait();
+  const unsigned base = t & ~31u, lane = t & 31u, gid = lane >> 2, tig = lane & 3;
+  auto half = [](uint32_t reg, int k) { return __bfloat162float({uint16_t(reg >> (16 * (k & 1)))}); };
+  auto A = [&](int r, int k) {
+    return half(mma_a_slots[base + (r % 8) * 4 + (k % 8) / 2][(r >= 8) + 2 * (k >= 8)], k);
+  };
+  auto B = [&](int k, int n) { return half(mma_b_slots[base + n * 4 + (k % 8) / 2][k >= 8], k); };
+  float out[4];
+  for (int e = 0; e < 4; ++e) {
+    const int r = gid + 8 * (e >> 1), n = 2 * tig + (e & 1);
+    float s = 0.f;
+    for (int k = 0; k < 16; ++k) s += A(r, k) * B(k, n);
+    out[e] = d[e] + s;
+  }
+  block_barrier->arrive_and_wait();
+  for (int e = 0; e < 4; ++e) d[e] = out[e];
+}
 inline int cudaGetLastError() { return 0; }
+constexpr int cudaErrorInvalidValue = 1;
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
+template <class F> int cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return 0; }
+// a kernel's dynamic shared memory: blocks run one at a time, so one buffer
+alignas(16) inline unsigned char host_dynamic_smem[256 * 1024];
 
 // stands in for kernel<<<grid, threads, 0, stream>>>(args...)
 template <class F> void host_launch(dim3 grid, int threads, F body) {

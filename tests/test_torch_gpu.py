@@ -58,6 +58,15 @@ def test_cuda_wrapper_raises_instead_of_falling_back():
         pm.polarized_matmul(x, mags.t().contiguous().t(), signs, scale, 8)
 
 
+def _split(per_call, prefills, steps, slots):
+    """Launches of the [f32, tensor-core] kernels for a bf16 model's
+    prefills (M = bucket, 8 here) and decode steps (M = slots), by the route."""
+    out = [0, 0]
+    for calls, M in ((prefills, 8), (steps, slots)):
+        out[pm.uses_tensor_cores(torch.bfloat16, torch.uint8, "cuda", M)] += per_call * calls
+    return out
+
+
 @pytest.mark.gpu
 @needs_card
 def test_engine_on_the_card_goes_through_the_kernel():
@@ -74,10 +83,12 @@ def test_engine_on_the_card_goes_through_the_kernel():
     rng = np.random.RandomState(0)
     reqs = [Request(uid=i, prompt=rng.randint(0, cfg.vocab_size, 5), max_new_tokens=5)
             for i in range(3)]
-    before = pm.polarized_matmul.launches
+    kernels = (pm.polarized_matmul, pm.polarized_matmul_tc)
+    before = [k.launches for k in kernels]
     results = eng.run(reqs)
-    calls = len(results) + eng.stats()["rounds"] * eng.decode_block
-    assert pm.polarized_matmul.launches - before == 7 * cfg.num_layers * calls
+    steps = eng.stats()["rounds"] * eng.decode_block
+    launched = [k.launches - b for k, b in zip(kernels, before)]
+    assert launched == _split(7 * cfg.num_layers, len(results), steps, eng.slots)
     assert all(len(r.tokens) == 5 and all(0 <= t < cfg.vocab_size for t in r.tokens)
                for r in results)
 
@@ -122,6 +133,53 @@ def test_forms_leaf_on_the_card_never_bypasses_the_kernel():
     before = pm.polarized_matmul.launches
     layers.linear({"up": leaf.layer(0)}, "up", x, torch.float32)
     assert pm.polarized_matmul.launches == before + 1
+
+
+@pytest.mark.parametrize("M,K,N,m", [(8, 1536, 256, 8), (64, 1536, 1536, 8),
+                                     (67, 264, 1030, 8), (256, 1536, 256, 16),
+                                     (20, 774, 40, 3)])
+@pytest.mark.gpu
+@needs_card
+def test_tensor_core_kernel_matches_plain(M, K, N, m):
+    """bf16 x at M >= TC_MIN_ROWS takes the tensor-core kernel: within 1e-4
+    of the plain version (the products are exact in bf16), two launches
+    equal bit for bit."""
+    dev = torch.device("cuda")
+    x, mags, signs, scale = [t.to(dev) for t in _torch(*_mk(9, M, K, N, m))]
+    x = x.to(torch.bfloat16)
+    before = (pm.polarized_matmul.launches, pm.polarized_matmul_tc.launches)
+    got = pm.polarized_matmul(x, mags, signs, scale, m)
+    again = pm.polarized_matmul(x, mags, signs, scale, m)
+    torch.cuda.synchronize()
+    assert (pm.polarized_matmul.launches, pm.polarized_matmul_tc.launches) == (
+        before[0], before[1] + 2)
+    assert torch.equal(got, again)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    want = ref.ref_polarized_matmul_fast(x, mags, signs, scale, m)
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("frac", [0.0, 0.5, 1.0])
+@pytest.mark.gpu
+@needs_card
+def test_tensor_core_skip_equals_dense(frac):
+    """The tensor-core kernel's mask (64-row tiles): with whole K slices of
+    x zero, the skip launch equals the dense one bit for bit."""
+    dev = torch.device("cuda")
+    M, K, N = 64, 8960, 1536
+    x, mags, signs, scale = [t.to(dev) for t in _torch(*_mk(10, M, K, N, 8))]
+    x = x.to(torch.bfloat16)
+    S = -(-K // pm._KC)
+    for k in ([] if frac == 0 else range(S) if frac == 1 else range(1, S, 2)):
+        x[:, k * pm._KC:(k + 1) * pm._KC] = 0
+    mask = pm.tile_mask(x, mags.dtype)
+    assert tuple(mask.shape) == (1, S)
+    before = pm.polarized_matmul_tc_skip.launches
+    skip = pm.polarized_matmul_skip(x, mags, signs, scale, 8, mask=mask)
+    dense = pm.polarized_matmul(x, mags, signs, scale, 8)
+    torch.cuda.synchronize()
+    assert pm.polarized_matmul_tc_skip.launches == before + 1
+    assert torch.equal(skip, dense)
 
 
 def _dead_tiles(x, frac):
@@ -242,12 +300,14 @@ def test_engine_block_skip_tokens_equal_dense_on_the_card():
     for mode in ("off", "block"):
         eng = ServingEngine(model, params, spec=FormsSpec(), zero_skip=mode, max_len=32,
                             batch_slots=2, page_size=8, decode_block=2, device="cuda")
-        before = pm.polarized_matmul_skip.launches
+        skip_kernels = (pm.polarized_matmul_skip, pm.polarized_matmul_tc_skip)
+        before = [k.launches for k in skip_kernels]
         res = eng.run([Request(uid=i, prompt=p, max_new_tokens=5) for i, p in enumerate(prompts)])
         tokens[mode] = {r.uid: r.tokens for r in res}
-        calls = len(res) + eng.stats()["rounds"] * eng.decode_block
-        skips = pm.polarized_matmul_skip.launches - before
-        assert skips == (7 * cfg.num_layers * calls if mode == "block" else 0)
+        steps = eng.stats()["rounds"] * eng.decode_block
+        skips = [k.launches - b for k, b in zip(skip_kernels, before)]
+        want = _split(7 * cfg.num_layers, len(res), steps, eng.slots)
+        assert skips == (want if mode == "block" else [0, 0])
     assert tokens["block"] == tokens["off"]
 
 
