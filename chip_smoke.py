@@ -22,9 +22,11 @@ Phases, each printing JSON lines:
                tensor-core kernel at M=64); fragment compaction at M=1 and
                4, where it engages and where it falls back, its output equal
                bit for bit to the launch the device flag chose;
-5. bitserial — the bit-serial crossbar kernel at M=4 and full-width shapes,
-               16-bit inputs, ideal and 4-bit ADCs and a result that wraps
-               int32: acc and eic equal to the plain version exactly;
+5. bitserial — the bit-serial crossbar kernel (int8 tensor cores) at M=4
+               and full-width shapes, 16-bit inputs, ideal and 4-bit ADCs,
+               each timed beside its grid and MMA count; then m=40, cells
+               past 2^cell_bits - 1, 5 cells of 4 bits and a result that
+               wraps int32: acc and eic equal to the plain version exactly;
 6. small     — a reduced qwen2 (f32 activations, so the f32 kernels) on
                the card and on the CPU: prefill logits agree (the CPU runs
                the plain versions), and zero_skip="block" gives the card's
@@ -46,7 +48,8 @@ Phases, each printing JSON lines:
                syncs forbidden;
 9. fidelity  — ``forms.apply_simulated`` on layer 0's wq/wk/wv/gate/up of
                that tree: the bit-serial kernel against its plain version,
-               mean EIC and cycle savings;
+               mean EIC and cycle savings; then the kernel alone on each
+               leaf's M=64 operands, exact at ideal and 4-bit ADCs, timed;
 10. polarize — the fragment-polarization kernel of the ADMM Z-update
                against its plain version at the seven stacked full-width
                qwen2-1.5b leaves, both sign rules, bit for bit (a case with
@@ -483,75 +486,112 @@ def bitserial_bound(M: int, K: int, N: int, bits: int = 16, C: int = 4, m: int =
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def bitserial_check(label, x, cells, signs, adc_bits, *, m=8, bits=16, cell_bits=2,
+                    mags=None, time_it=False, flush=None):
+    """One case of kernel #3 against its plain version: acc and eic equal
+    exactly, and with an ideal ADC and ``mags`` (the codes the cells slice)
+    acc equal to the exact integer product; timed with its launch plan when
+    ``time_it`` (and with an ideal ADC, one float64 ``torch.matmul`` of the
+    codes and signed weights as the library yardstick)."""
+    import torch
+    from repro_torch.core.zeroskip import fragment_eic
+    from repro_torch.kernels import bitserial_crossbar as bx
+    from repro_torch.kernels.ref import ref_bitserial_crossbar, ref_exact_int_matmul
+
+    kw = dict(m=m, input_bits=bits, cell_bits=cell_bits, adc_bits=adc_bits)
+    acc, eic = bx.bitserial_crossbar(x, cells, signs, **kw)
+    want, _ = ref_bitserial_crossbar(x, cells, signs, m, bits, cell_bits, adc_bits=adc_bits)
+    want_eic = fragment_eic(x, m, bits)
+    torch.cuda.synchronize()
+    M, K = x.shape
+    C, _, N = cells.shape
+    rec = {"case": label, "M": M, "K": K, "N": N, "m": m, "C": C, "cell_bits": cell_bits,
+           "cell_max": int(cells.max()), "adc_bits": adc_bits,
+           "acc_equal": torch.equal(acc, want), "eic_equal": torch.equal(eic, want_eic),
+           "max_abs_err": float((acc.double() - want.double()).abs().max())}
+    if adc_bits is None and mags is not None:
+        rec["exact_equal"] = torch.equal(acc, ref_exact_int_matmul(x, mags, signs, m))
+    if time_it:
+        plan = bx.plan(M, N, K, C, m=m, input_bits=bits, cell_bits=cell_bits,
+                       adc_bits=adc_bits)
+        rec["grid"], rec["mmas"], rec["clips"] = plan["grid"], plan["mmas"], plan["clips"]
+        rec["kernel_ms"] = timed_ms(lambda: bx.bitserial_crossbar(x, cells, signs, **kw), flush)
+        rec["plain_ms"] = timed_ms(lambda: ref_bitserial_crossbar(
+            x, cells, signs, m, bits, cell_bits, adc_bits=adc_bits), flush)
+        rec["library_ms"] = None   # no PyTorch call clips per fragment
+        if adc_bits is None and mags is not None:
+            # with an ideal ADC acc is the integer product (wrapped to
+            # int32), which one float64 matmul computes exactly below 2^53
+            xd = x.double()
+            wd = mags.double() * signs.double().repeat_interleave(m, dim=0)
+            lib = torch.matmul(xd, wd)
+            rec["library_equal"] = bool(((lib.long() - acc.long()) % 2 ** 32 == 0).all())
+            rec["library_ms"] = timed_ms(lambda: torch.matmul(xd, wd), flush)
+        rec["bound_ms"], rec["bound_by"] = bitserial_bound(M, K, N, bits, C, m)
+    if not (rec["acc_equal"] and rec["eic_equal"] and rec.get("exact_equal", True)
+            and rec.get("library_equal", True)):
+        raise AssertionError(f"the bit-serial kernel disagrees with its plain version: {rec}")
+    return rec
+
+
 def phase_bitserial():
-    """Kernel #3 at M=4: acc and eic equal to the plain version exactly (and
-    acc to the exact integer product with an ideal ADC), timed; plus a
-    result that wraps int32."""
+    """Kernel #3 at M=4 and the three full-width shapes, ideal and 4-bit
+    ADCs, each timed with its grid and MMA count: acc and eic equal to the
+    plain version exactly (and acc to the exact integer product with an
+    ideal ADC); then m=40, cells read whole past 2^cell_bits - 1, 20 weight
+    bits and a result that wraps int32.  Returns the ideal and the 4-bit
+    rows."""
     import torch
     from repro_torch.core.quantization import QuantSpec, slice_to_cells
-    from repro_torch.core.zeroskip import fragment_eic
-    from repro_torch.kernels.bitserial_crossbar import bitserial_crossbar
-    from repro_torch.kernels.ref import ref_bitserial_crossbar, ref_exact_int_matmul
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2)
     scrub = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
     flush = lambda: scrub.zero_()
-    M, m, bits = DECODE_M, 8, 16
-    rows = []
+    M, bits = DECODE_M, 16
+    ideal_rows, adc4_rows = [], []
 
-    def check(label, x, mags, signs, adc_bits, time_it):
-        cells = slice_to_cells(mags, QuantSpec(bits=8, cell_bits=2)).to(torch.uint8)
-        acc, eic = bitserial_crossbar(x, cells, signs, m=m, input_bits=bits, adc_bits=adc_bits)
-        want, _ = ref_bitserial_crossbar(x, cells, signs, m, bits, 2, adc_bits=adc_bits)
-        want_eic = fragment_eic(x, m, bits)
-        torch.cuda.synchronize()
-        K, N = mags.shape
-        rec = {"case": label, "M": M, "K": K, "N": N, "adc_bits": adc_bits,
-               "acc_equal": torch.equal(acc, want), "eic_equal": torch.equal(eic, want_eic),
-               "max_abs_err": float((acc.double() - want.double()).abs().max())}
-        if adc_bits is None:
-            rec["exact_equal"] = torch.equal(acc, ref_exact_int_matmul(x, mags, signs, m))
-        if time_it:
-            rec["kernel_ms"] = timed_ms(lambda: bitserial_crossbar(
-                x, cells, signs, m=m, input_bits=bits, adc_bits=adc_bits), flush)
-            rec["plain_ms"] = timed_ms(lambda: ref_bitserial_crossbar(
-                x, cells, signs, m, bits, 2, adc_bits=adc_bits), flush)
-            rec["library_ms"] = None   # no PyTorch call clips per fragment
-            if adc_bits is None:
-                # with an ideal ADC acc is the integer product (wrapped to
-                # int32), which one float64 matmul computes exactly below 2^53
-                xd = x.double()
-                wd = mags.double() * signs.double().repeat_interleave(m, dim=0)
-                lib = torch.matmul(xd, wd)
-                rec["library_equal"] = bool(((lib.long() - acc.long()) % 2 ** 32 == 0).all())
-                rec["library_ms"] = timed_ms(lambda: torch.matmul(xd, wd), flush)
-            rec["bound_ms"], rec["bound_by"] = bitserial_bound(M, K, N)
-        emit("bitserial", **rec)
-        if not (rec["acc_equal"] and rec["eic_equal"] and rec.get("exact_equal", True)
-                and rec.get("library_equal", True)):
-            raise AssertionError(f"the bit-serial kernel disagrees with its plain version: {rec}")
-        return rec
-
-    for (K, N) in BITSERIAL_SHAPES:
+    def operands(K, N, m):
         x = torch.randint(0, 2 ** bits, (M, K), generator=gen, device="cuda").to(torch.int32)
         live = torch.rand((M, K // m), generator=gen, device="cuda") >= 0.25
         x = x * live.repeat_interleave(m, dim=1)
         mags = torch.randint(0, 256, (K, N), generator=gen, device="cuda").to(torch.uint8)
         signs = (torch.randint(0, 2, (K // m, N), generator=gen, device="cuda") * 2 - 1
                  ).to(torch.int8)
-        for adc_bits in (None, 4):
-            rec = check("qwen2-1.5b", x, mags, signs, adc_bits, time_it=True)
-            if adc_bits is None:
-                rows.append(rec)
+        cells = slice_to_cells(mags, QuantSpec(bits=8, cell_bits=2)).to(torch.uint8)
+        return x, mags, cells, signs
+
+    for (K, N) in BITSERIAL_SHAPES:
+        x, mags, cells, signs = operands(K, N, 8)
+        for adc_bits, rows in ((None, ideal_rows), (4, adc4_rows)):
+            rec = bitserial_check("qwen2-1.5b", x, cells, signs, adc_bits, mags=mags,
+                                  time_it=True, flush=flush)
+            emit("bitserial", **rec)
+            rows.append(rec)
+    # a fragment of 40 inputs (its sums span two k32 chunks), cells read
+    # whole (0..255 with cell_bits = 2), and 5 cells of 4 bits (20 weight bits)
+    x, mags, cells, signs = operands(1520, 1536, 40)
+    for adc_bits in (None, 4):
+        emit("bitserial", **bitserial_check("m=40", x, cells, signs, adc_bits, m=40,
+                                            mags=mags))
+    x, mags, _, signs = operands(1536, 1536, 8)
+    wide = torch.randint(0, 256, (4, 1536, 1536), generator=gen, device="cuda").to(torch.uint8)
+    for adc_bits in (None, 7):
+        emit("bitserial", **bitserial_check("cells past 2^cell_bits - 1", x, wide, signs,
+                                            adc_bits))
+    planes = torch.randint(0, 16, (5, 1536, 1536), generator=gen, device="cuda").to(torch.uint8)
+    for adc_bits in (None, 5):
+        emit("bitserial", **bitserial_check("5 cells of 4 bits", x, planes, signs, adc_bits,
+                                            cell_bits=4))
     # every input at its top code, every weight 255, every sign +1: the sum,
     # 8960 * 65535 * 255, is far past 2^31 and wraps
     K, N = 8960, 1536
     x = torch.full((M, K), 2 ** bits - 1, dtype=torch.int32, device="cuda")
     mags = torch.full((K, N), 255, dtype=torch.uint8, device="cuda")
-    signs = torch.ones((K // m, N), dtype=torch.int8, device="cuda")
-    check("wraps int32", x, mags, signs, None, time_it=False)
-    return rows
+    signs = torch.ones((K // 8, N), dtype=torch.int8, device="cuda")
+    cells = slice_to_cells(mags, QuantSpec(bits=8, cell_bits=2)).to(torch.uint8)
+    emit("bitserial", **bitserial_check("wraps int32", x, cells, signs, None, mags=mags))
+    return ideal_rows, adc4_rows
 
 
 def slice_prompts(cfg):
@@ -885,7 +925,9 @@ def sync_free_decode(model, engine) -> dict:
 def phase_fidelity(tree, cfg, prompts):
     """``forms.apply_simulated`` on layer 0's wq/wk/wv/gate/up at full
     width: the bit-serial kernel against its plain version, exactly, and
-    the EIC statistics of the activations."""
+    the EIC statistics of the activations; then the kernel alone on the
+    same M=64 operands, held exactly at ideal and 4-bit ADCs and timed.
+    Returns the path's launches and the timed sums over the five leaves."""
     import torch
     from repro_torch.core.quantization import quantize_activations, slice_to_cells
     from repro_torch.core.zeroskip import eic_stats, fragment_eic
@@ -930,7 +972,28 @@ def phase_fidelity(tree, cfg, prompts):
          cycle_savings=sum(r["cycle_savings"] for r in recs.values()) / len(recs))
     if launches != len(recs):
         raise AssertionError(f"apply_simulated launched the kernel {launches} times")
-    return launches
+    # the kernel alone on each leaf's operands as the path gives them (M=64,
+    # 16-bit codes), timed, with the 4-bit ADC case held exactly too
+    scrub = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    timed = []
+    for grp, name in (("attn", "wq"), ("attn", "wk"), ("attn", "wv"), ("mlp", "gate"),
+                      ("mlp", "up")):
+        leaf = bp[grp][name]
+        codes, _ = quantize_activations(acts[grp], spec.input_bits)
+        codes = codes.to(torch.int32)
+        cells = slice_to_cells(leaf.mags, spec.quant).to(torch.uint8)
+        for adc_bits in (None, 4):
+            rec = bitserial_check(f"fidelity {name}", codes, cells, leaf.signs, adc_bits,
+                                  mags=leaf.mags, time_it=adc_bits is None,
+                                  flush=lambda: scrub.zero_())
+            if adc_bits is None:
+                timed.append(rec)
+    row = {k: sum(r[k] for r in timed) for k in ("kernel_ms", "plain_ms", "library_ms",
+                                                  "bound_ms")}
+    emit("fidelity_kernel", rows=timed[0]["M"], leaves=[
+        {k: r[k] for k in ("case", "K", "N", "grid", "mmas", "kernel_ms", "plain_ms",
+                           "library_ms", "bound_ms", "bound_by")} for r in timed], **row)
+    return launches, row
 
 
 def polarize_bound(shape, m: int = 8):
@@ -1247,14 +1310,14 @@ def main() -> int:
     rows, worst_abs, worst_rel = phase_kernels()
     tc_rows, tc_abs, tc_rel, crossover, floor_ms = phase_kernels_tc()
     skip_rows, tc_skip_rows, skip_err = phase_skip()
-    bit_rows = phase_bitserial()
+    bit_rows, bit_adc4_rows = phase_bitserial()
     pol_rows = phase_polarize()
     small_launches = phase_small()
     phase_train_small()
     launches = phase_slice()
     torch.cuda.empty_cache()
     tree, cfg, prompts, skip_launches = phase_zero_skip()
-    bit_launches = phase_fidelity(tree, cfg, prompts)
+    bit_launches, fidelity_row = phase_fidelity(tree, cfg, prompts)
     del tree          # the serving trees go before the training state comes
     torch.cuda.empty_cache()
     pol_launches = phase_train()
@@ -1310,13 +1373,19 @@ def main() -> int:
         "name": "bitserial_crossbar", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/bitserial_crossbar.cu",
         "replaces": "src/repro/kernels/bitserial_crossbar.py:43",
-        "launches": bit_launches, "max_abs_err": max(r["max_abs_err"] for r in bit_rows),
+        "launches": bit_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in bit_rows + bit_adc4_rows),
         "ms": total(bit_rows, "kernel_ms"), "plain_ms": total(bit_rows, "plain_ms"),
         "bound_ms": total(bit_rows, "bound_ms"), "bound_by": bound_by(bit_rows),
         "library_ms": total(bit_rows, "library_ms"),
+        "adc4_ms": total(bit_adc4_rows, "kernel_ms"),
+        "adc4_plain_ms": total(bit_adc4_rows, "plain_ms"),
+        "fidelity_m64": fidelity_row,
         "library_note": "one float64 torch.matmul of the codes and the signed "
                         "weights: the exact integer product of the ideal ADC",
-        "per": "M=4 at 1536x1536, 1536x8960 and 8960x1536, 16-bit inputs, ideal ADC",
+        "per": "M=4 at 1536x1536, 1536x8960 and 8960x1536, 16-bit inputs, ideal ADC "
+               "(adc4_ms: the same with a 4-bit ADC; fidelity_m64: the five leaves of "
+               "the fidelity path at M=64, ideal ADC)",
     }, {
         "name": "admm_polarize", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/admm_polarize.cu",

@@ -199,6 +199,8 @@ def apply_simulated(p: FormsLinearParams, x: torch.Tensor,
     x2, lead = _flatten_pad(x.float(), p.mags.shape[0])
     x_codes, x_scale = quantmod.quantize_activations(x2, spec.input_bits)
     cells = quantmod.slice_to_cells(p.mags, spec.quant)
+    if spec.cell_bits <= 8:     # planes masked to cell_bits fit the kernel's uint8 cells
+        cells = cells.to(torch.uint8)
     acc, eic = kops.bitserial_crossbar(x_codes, cells, p.signs, spec=spec)
     y = acc.float() * x_scale * p.scale
     return y.reshape(*lead, p.n), eic, x_scale

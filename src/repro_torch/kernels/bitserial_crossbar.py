@@ -17,7 +17,7 @@ raises.  ``bitserial_crossbar.launches`` counts kernel launches.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -28,21 +28,35 @@ from repro_torch.kernels.ref import ref_bitserial_crossbar
 _SOURCE = "bitserial_crossbar"
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
              + [ctypes.c_uint, ctypes.c_void_p])
-# the kernel packs a fragment's m inputs, and a magnitude's weight bits, into
-# 32-bit masks: m <= 32 and cells * cell_bits <= 16
-_MAX_M, _MAX_WBITS = 32, 16
+_PLAN_ARGTYPES = [ctypes.c_int] * 7 + [ctypes.c_uint, ctypes.POINTER(ctypes.c_longlong)]
 
 
 def _entry():
     lib = build.load(_SOURCE)
     fn = lib.forms_bitserial_crossbar
     if fn.argtypes is None:
-        if lib.forms_bitserial_max_m() != _MAX_M:
-            raise RuntimeError("csrc/bitserial_crossbar.cu and its wrapper disagree "
-                               "on the largest fragment")
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
     return fn
+
+
+def _adc_max(adc_bits: Optional[int]) -> int:
+    return 0xFFFFFFFF if adc_bits is None else (1 << adc_bits) - 1
+
+
+def plan(M: int, N: int, K: int, C: int, *, m: int = 8, input_bits: int = 16,
+         cell_bits: int = 2, adc_bits: Optional[int] = None) -> Dict[str, object]:
+    """The launch :func:`bitserial_crossbar` makes with these arguments on
+    the current device: its grid, threads per block, dynamic shared memory,
+    the m16n8k32 MMAs it issues, the padded fragment rows and whether it
+    clips (builds the kernel; card only)."""
+    fn = build.load(_SOURCE).forms_bitserial_plan
+    fn.argtypes, fn.restype = _PLAN_ARGTYPES, ctypes.c_int
+    out = (ctypes.c_longlong * 8)()
+    if fn(M, N, K, C, m, input_bits, cell_bits, _adc_max(adc_bits), out) != 0:
+        raise ValueError(f"no bit-serial launch for ({M}, {K}, {N}), C={C}, m={m}")
+    return {"grid": list(out[:3]), "threads": out[3], "smem_bytes": out[4], "mmas": out[5],
+            "padded_m": out[6], "clips": bool(out[7])}
 
 
 def bitserial_crossbar(x_codes: torch.Tensor, cell_planes: torch.Tensor,
@@ -52,8 +66,11 @@ def bitserial_crossbar(x_codes: torch.Tensor, cell_planes: torch.Tensor,
     """Returns (acc (M, N) int32, eic (M, K/m) int32).
 
     ``x_codes`` holds integer codes (floats, as ``quantize_activations``
-    makes them, are truncated to int32); ``cell_planes`` holds
-    ``cell_bits``-bit values (as ``slice_to_cells`` makes them).
+    makes them, are truncated to int32).  Each cell is read whole, as the
+    reference reads it, whatever ``cell_bits`` is.  The kernel reads uint8
+    cells, so on the card ``cell_planes`` must be uint8 (another dtype is
+    refused, not cut to its low byte); the plain version takes any integer
+    planes.
     """
     devices = {t.device for t in (x_codes, cell_planes, signs)}
     if len(devices) != 1:
@@ -71,6 +88,8 @@ def bitserial_crossbar(x_codes: torch.Tensor, cell_planes: torch.Tensor,
         raise ValueError(f"input_bits={input_bits} must be in [1, 32]")
     if adc_bits is not None and not 1 <= adc_bits <= 32:
         raise ValueError(f"adc_bits={adc_bits} must be in [1, 32] or None")
+    if cell_bits < 1:
+        raise ValueError(f"cell_bits={cell_bits} must be at least 1")
     if dev.type == "cpu":
         acc, _ = ref_bitserial_crossbar(x_codes, cell_planes, signs, m, input_bits,
                                         cell_bits, adc_bits=adc_bits)
@@ -78,22 +97,19 @@ def bitserial_crossbar(x_codes: torch.Tensor, cell_planes: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"bitserial_crossbar runs on cpu or cuda tensors, got {dev}")
 
-    if m > _MAX_M:
-        raise ValueError(f"the bit-serial kernel packs a fragment into one 32-bit "
-                         f"mask: m={m} > {_MAX_M}")
-    if not 1 <= cell_bits <= 8 or C * cell_bits > _MAX_WBITS:
-        raise ValueError(f"{C} cells of {cell_bits} bits exceed the kernel's "
-                         f"{_MAX_WBITS} weight bits")
-    if max(M, N, K) >= 2 ** 31 or N == 0 and M * K > 0:
-        raise ValueError(f"shape ({M}, {K}, {N}) is outside the kernel's range")
+    if max(M, N, K) >= 2 ** 31 or M * input_bits >= 2 ** 31 or (N == 0 or C == 0) and M * K:
+        raise ValueError(f"shape ({M}, {K}, {N}) with {C} cell planes is outside the "
+                         f"kernel's range")
+    if cell_planes.dtype != torch.uint8:
+        raise ValueError(f"the kernel reads uint8 cells, got {cell_planes.dtype} planes")
     x32 = x_codes.to(torch.int32).contiguous()
-    cells8 = cell_planes.to(torch.uint8).contiguous()
+    cells8 = cell_planes.contiguous()
     signs8 = signs.to(torch.int8).contiguous()
     acc = torch.zeros((M, N), dtype=torch.int32, device=dev)
     eic = torch.empty((M, K // m), dtype=torch.int32, device=dev)
     if M == 0 or K == 0:
         return acc, eic
-    adc_max = 0xFFFFFFFF if adc_bits is None else (1 << adc_bits) - 1
+    adc_max = _adc_max(adc_bits)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = _entry()(x32.data_ptr(), cells8.data_ptr(), signs8.data_ptr(), acc.data_ptr(),

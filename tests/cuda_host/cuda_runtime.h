@@ -17,6 +17,7 @@
 #include <thread>
 #include <vector>
 
+using std::max;
 using std::min;
 #define __global__
 #define __device__
@@ -30,6 +31,7 @@ typedef void* cudaStream_t;
 struct uchar4 { unsigned char x, y, z, w; };
 struct char4 { signed char x, y, z, w; };
 struct int4 { int x, y, z, w; };
+struct uint4 { unsigned x, y, z, w; };
 struct float4 { float x, y, z, w; };
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 struct dim3 {
@@ -44,9 +46,11 @@ template <class T> T __ldg(const T* p) { return *p; }
 template <class T> T __ldcg(const T* p) { return *p; }
 inline void __syncthreads() { block_barrier->arrive_and_wait(); }
 inline void __threadfence() {}
-// blocks run one at a time, so a plain add is atomic
-inline int atomicAdd(int* p, int v) { int old = *p; *p += v; return old; }
-inline unsigned atomicAdd(unsigned* p, unsigned v) { unsigned old = *p; *p += v; return old; }
+// the threads of a block run at once: shared-memory atomics must be atomic
+inline int atomicAdd(int* p, int v) { return __atomic_fetch_add(p, v, __ATOMIC_RELAXED); }
+inline unsigned atomicAdd(unsigned* p, unsigned v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_RELAXED);
+}
 inline int __clz(unsigned v) { return v ? __builtin_clz(v) : 32; }
 inline int __popc(unsigned v) { return __builtin_popcount(v); }
 inline float __shfl_xor_sync(unsigned, float v, int lane_mask) {
@@ -112,7 +116,55 @@ inline void host_mma_m16n8k16_bf16(float (&d)[4], const uint32_t (&a)[4],
   block_barrier->arrive_and_wait();
   for (int e = 0; e < 4; ++e) d[e] = out[e];
 }
+// mma.sync.aligned.m16n8k32.row.col.s32.u8.u8.s32 as a warp collective,
+// written from the PTX ISA's figures for .u8/.s8 m16n8k32 (groupID = lane / 4,
+// threadID_in_group = lane % 4, the lower-indexed element in the low byte):
+//   A (16 x 32, row), 4 registers of 4 bytes: a0 row groupID, a1 row
+//     groupID + 8, a2 and a3 the same rows 16 columns on; the columns of a
+//     register are threadID_in_group * 4 + 0..3;
+//   B (32 x 8, col), 2 registers: b0 rows threadID_in_group * 4 + 0..3,
+//     b1 the same rows + 16, column groupID;
+//   C and D (16 x 8, s32): c0, c1 row groupID, c2, c3 row groupID + 8,
+//     columns threadID_in_group * 2 + 0..1.
+// Products of unsigned bytes summed exactly, then added to C, wrapping as
+// the s32 accumulator does
+inline void host_mma_m16n8k32_u8(int (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2],
+                                 const int (&c)[4]) {
+  const unsigned t = threadIdx.x;
+  int cin[4];
+  for (int i = 0; i < 4; ++i) cin[i] = c[i];
+  for (int i = 0; i < 4; ++i) mma_a_slots[t][i] = a[i];
+  for (int i = 0; i < 2; ++i) mma_b_slots[t][i] = b[i];
+  block_barrier->arrive_and_wait();
+  const unsigned base = t & ~31u, lane = t & 31u, gid = lane >> 2, tig = lane & 3;
+  auto byte = [](uint32_t reg, int k) { return (reg >> (8 * (k % 4))) & 0xFFu; };
+  // element (r, k) of A lies with lane (r % 8) * 4 + (k % 16) / 4, register
+  // (r >= 8) + 2 * (k >= 16); element (k, n) of B with lane n * 4 + (k % 16) / 4,
+  // register (k >= 16)
+  auto A = [&](int r, int k) {
+    return byte(mma_a_slots[base + (r % 8) * 4 + (k % 16) / 4][(r >= 8) + 2 * (k >= 16)], k);
+  };
+  auto B = [&](int k, int n) { return byte(mma_b_slots[base + n * 4 + (k % 16) / 4][k >= 16], k); };
+  int out[4];
+  for (int e = 0; e < 4; ++e) {
+    const int r = gid + 8 * (e >> 1), n = 2 * tig + (e & 1);
+    uint32_t s = static_cast<uint32_t>(cin[e]);
+    for (int k = 0; k < 32; ++k) s += A(r, k) * B(k, n);
+    out[e] = static_cast<int>(s);
+  }
+  block_barrier->arrive_and_wait();
+  for (int e = 0; e < 4; ++e) d[e] = out[e];
+}
 inline int cudaGetLastError() { return 0; }
+// the device the emulation reports: two SMs
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount };
+inline int cudaGetDevice(int* d) { *d = 0; return 0; }
+inline int cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) { *v = 2; return 0; }
+// one resident block per SM
+template <class F> int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t) {
+  *n = 1;
+  return 0;
+}
 constexpr int cudaErrorInvalidValue = 1;
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 template <class F> int cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return 0; }

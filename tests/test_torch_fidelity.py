@@ -110,6 +110,41 @@ def test_bitserial_plain_equals_pallas_and_oracle(m, input_bits, adc_bits):
     _eq(got_eic, peic)
 
 
+@pytest.mark.parametrize("m,K,C,cell_bits,cell_top,adc_bits", [
+    (40, 80, 4, 2, 3, None),      # a fragment past 32 inputs
+    (40, 80, 4, 2, 3, 4),
+    (8, 32, 4, 2, 255, None),     # cells read whole, past 2^cell_bits - 1
+    (8, 32, 5, 4, 15, 5),         # 20 weight bits
+])
+def test_bitserial_plain_equals_pallas_wide_fragments_and_cells(m, K, C, cell_bits, cell_top,
+                                                                adc_bits):
+    """Fragments of more than 32 inputs, cells read whole past
+    2^cell_bits - 1 and 20 weight bits: the plain version (the CPU route of
+    the wrapper) equals the reference's Pallas kernel in interpret mode and
+    its oracle, acc and eic."""
+    M, N, input_bits = 8, 16, 8
+    rng = np.random.RandomState(11)
+    xc = rng.randint(0, 2 ** input_bits, (M, K)).astype(np.int32)
+    xc[:, :m] = 0
+    cells = rng.randint(0, cell_top + 1, (C, K, N)).astype(np.int32)
+    signs = np.where(rng.rand(K // m, N) < 0.5, 1, -1).astype(np.int32)
+    jx, jc, js = map(jnp.asarray, (xc, cells, signs))
+    pacc, peic = pallas_bitserial(jx, jc, js, m=m, input_bits=input_bits, cell_bits=cell_bits,
+                                  adc_bits=adc_bits, bm=8, bn=16, interpret=True)
+    jacc, _ = jref.ref_bitserial_crossbar(jx, jc, js, m, input_bits, cell_bits,
+                                          adc_bits=adc_bits)
+    _eq(torch.from_numpy(np.asarray(pacc)), jacc)
+    acc, eic = ops.bitserial_crossbar(*map(torch.from_numpy, (xc, cells, signs)), m=m,
+                                      input_bits=input_bits, cell_bits=cell_bits,
+                                      adc_bits=adc_bits)
+    _eq(acc, pacc)
+    _eq(eic, peic)
+    if adc_bits is not None:     # the ADC clips in these cases
+        ideal, _ = ops.bitserial_crossbar(*map(torch.from_numpy, (xc, cells, signs)), m=m,
+                                          input_bits=input_bits, cell_bits=cell_bits)
+        assert not torch.equal(acc, ideal)
+
+
 def test_bitserial_wraps_int32_as_the_reference():
     """16-bit inputs at K = 1024 push the shift-add past 2^31: the plain
     version wraps as the reference's int32 does, and with an ideal ADC it is
@@ -179,6 +214,8 @@ def test_bitserial_wrapper_checks_shapes():
         ops.bitserial_crossbar(xc, cells, signs[:1], m=8)
     with pytest.raises(ValueError, match="input_bits"):
         ops.bitserial_crossbar(xc, cells, signs, m=8, input_bits=40)
+    with pytest.raises(ValueError, match="cell_bits"):
+        ops.bitserial_crossbar(xc, cells, signs, m=8, cell_bits=0)
     spec = tforms.FormsSpec(m=8, input_bits=8, adc_bits=2)
     acc, _ = ops.bitserial_crossbar(xc, cells, signs, spec=spec)
     want, _ = ref.ref_bitserial_crossbar(xc, cells, signs, 8, 8, 2, adc_bits=2)

@@ -246,15 +246,28 @@ def test_compact_on_the_card_never_syncs(M, dead):
     assert torch.equal(got, chosen) and not torch.equal(got, other)
 
 
-@pytest.mark.parametrize("M,K,N,m,input_bits,adc_bits", [
-    (4, 1536, 1536, 8, 16, None), (4, 8960, 256, 8, 16, 4), (5, 200, 70, 4, 8, 3),
-    (3, 512, 64, 16, 12, None),
+def _bitserial_case(*values, id=None):
+    return pytest.param(*values, id=id or "-".join(map(str, values[:6])))
+
+
+@pytest.mark.parametrize("M,K,N,m,input_bits,adc_bits,cells_of", [
+    _bitserial_case(4, 1536, 1536, 8, 16, None, "codes"),
+    _bitserial_case(4, 8960, 256, 8, 16, 4, "codes"),
+    _bitserial_case(5, 200, 70, 4, 8, 3, "codes"),
+    _bitserial_case(3, 512, 64, 16, 12, None, "codes"),
+    _bitserial_case(4, 1520, 256, 40, 16, None, "codes", id="m40"),
+    _bitserial_case(4, 1520, 256, 40, 16, 4, "codes", id="m40-clipped"),
+    _bitserial_case(4, 1536, 256, 8, 16, 7, "wide", id="cells-past-cell-bits"),
+    _bitserial_case(4, 1536, 256, 8, 16, 5, "20bits", id="20-weight-bits"),
+    _bitserial_case(64, 1536, 8960, 8, 16, None, "codes", id="M64-1536x8960"),
 ])
 @pytest.mark.gpu
 @needs_card
-def test_bitserial_kernel_equals_plain(M, K, N, m, input_bits, adc_bits):
+def test_bitserial_kernel_equals_plain(M, K, N, m, input_bits, adc_bits, cells_of):
     """acc and eic equal the plain version exactly, including results that
-    wrap int32; with an ideal ADC acc is the exact integer product."""
+    wrap int32; with an ideal ADC and 2-bit cells of the codes acc is the
+    exact integer product.  Also m = 40 (a fragment over two k32 chunks),
+    cells past 2^cell_bits - 1 (read whole) and 5 cells of 4 bits."""
     from repro_torch.core.zeroskip import fragment_eic
     from repro_torch.kernels import bitserial_crossbar as bx
 
@@ -263,18 +276,43 @@ def test_bitserial_kernel_equals_plain(M, K, N, m, input_bits, adc_bits):
     x = rng.randint(0, 2 ** input_bits, (M, K)).astype(np.float32)
     x[:, :m] = 0.0
     mcodes = rng.randint(0, 256, (K, N)).astype(np.int32)
-    cells = np.stack([(mcodes >> (2 * c)) & 3 for c in range(4)])
+    cell_bits = 2
+    if cells_of == "codes":
+        cells = np.stack([(mcodes >> (2 * c)) & 3 for c in range(4)])
+    elif cells_of == "wide":
+        cells = rng.randint(0, 256, (4, K, N)).astype(np.int32)
+    else:
+        cell_bits = 4
+        cells = rng.randint(0, 16, (5, K, N)).astype(np.int32)
     signs = np.where(rng.rand(K // m, N) < 0.5, 1, -1).astype(np.int8)
-    tx, tm, tc, ts = [t.to(dev) for t in _torch(x, mcodes, cells, signs)]
+    tx, tm, tc, ts = [t.to(dev) for t in _torch(x, mcodes, cells.astype(np.uint8), signs)]
     before = bx.bitserial_crossbar.launches
-    acc, eic = bx.bitserial_crossbar(tx, tc, ts, m=m, input_bits=input_bits, adc_bits=adc_bits)
+    acc, eic = bx.bitserial_crossbar(tx, tc, ts, m=m, input_bits=input_bits,
+                                     cell_bits=cell_bits, adc_bits=adc_bits)
     torch.cuda.synchronize()
     assert bx.bitserial_crossbar.launches == before + 1
-    want, _ = ref.ref_bitserial_crossbar(tx, tc, ts, m, input_bits, 2, adc_bits=adc_bits)
+    want, _ = ref.ref_bitserial_crossbar(tx, tc, ts, m, input_bits, cell_bits,
+                                         adc_bits=adc_bits)
     assert torch.equal(acc, want)
     assert torch.equal(eic, fragment_eic(tx, m, input_bits))
-    if adc_bits is None:
+    if adc_bits is None and cells_of == "codes":
         assert torch.equal(acc, ref.ref_exact_int_matmul(tx, tm, ts, m))
+
+
+@pytest.mark.gpu
+@needs_card
+def test_bitserial_kernel_refuses_cells_that_are_not_uint8():
+    """The kernel reads uint8 cells: a plane of a wider dtype is refused on
+    the card, not cut to its low byte."""
+    from repro_torch.kernels import bitserial_crossbar as bx
+
+    dev = torch.device("cuda")
+    x = torch.ones((2, 16), dtype=torch.int32, device=dev)
+    cells = torch.ones((4, 16, 8), dtype=torch.uint8, device=dev)
+    signs = torch.ones((2, 8), dtype=torch.int8, device=dev)
+    bx.bitserial_crossbar(x, cells, signs, m=8, input_bits=4)
+    with pytest.raises(ValueError, match="uint8 cells"):
+        bx.bitserial_crossbar(x, cells.to(torch.int32), signs, m=8, input_bits=4)
 
 
 @pytest.mark.gpu

@@ -215,29 +215,51 @@ def test_skip_kernel_under_host_emulation(tmp_path, M, K, N, m, levels, fast, de
     assert np.array_equal(run(None, open_.ctypes.data, y=y), want)
 
 
-@pytest.mark.parametrize("M,K,N,m,input_bits,cell_bits,C,adc_bits", [
-    (5, 96, 40, 8, 8, 2, 4, None),     # 2 row tiles, 2 column tiles, ragged both
-    (3, 80, 33, 4, 8, 2, 4, 3),        # ADC clipping
-    (4, 1040, 8, 8, 16, 2, 4, None),   # 5 K ranges: wraps int32 on its way
-    (2, 64, 16, 16, 4, 1, 8, 2),       # one-bit cells, m = 16
+@pytest.fixture(scope="module")
+def bitserial_host_lib(tmp_path_factory):
+    """``csrc/bitserial_crossbar.cu`` under the host stand-in, compiled once
+    for every case."""
+    return host_library(tmp_path_factory.mktemp("bitserial"), "bitserial_crossbar",
+                        "bitserial_crossbar_kernel<Multi, Clip>")
+
+
+def _case(*values, id=None):
+    return pytest.param(*values, id=id or "-".join(map(str, values[:-1])))
+
+
+@pytest.mark.parametrize("M,K,N,m,input_bits,cell_bits,C,adc_bits,cell_top", [
+    _case(5, 96, 40, 8, 8, 2, 4, None, None),      # 2 column tiles, ragged both
+    _case(3, 80, 33, 4, 8, 2, 4, 3, None),         # ADC clipping
+    _case(4, 1040, 8, 8, 16, 2, 4, None, None),    # 2 K ranges: wraps int32 on its way
+    _case(2, 64, 16, 16, 4, 1, 8, 2, None),        # one-bit cells, m = 16, two plane groups
+    _case(5, 96, 24, 3, 12, 2, 4, None, None, id="m3-padded-fragments-two-pair-tiles"),
+    _case(2, 160, 16, 40, 8, 2, 4, None, None, id="m40-fragment-spans-chunks"),
+    _case(2, 160, 16, 40, 8, 2, 4, 5, 255, id="m40-wide-cells-clipped"),
+    _case(3, 128, 24, 8, 8, 2, 4, None, 255, id="cells-past-cell-bits"),
+    _case(2, 64, 16, 8, 8, 4, 5, None, None, id="20-weight-bits"),
+    _case(4, 128, 16, 16, 8, 2, 4, 4, None, id="m16-clipped"),
 ])
-def test_bitserial_source_under_host_emulation(tmp_path, M, K, N, m, input_bits, cell_bits,
-                                               C, adc_bits):
-    """``csrc/bitserial_crossbar.cu`` under the host stand-in: ``acc`` and
+def test_bitserial_source_under_host_emulation(bitserial_host_lib, M, K, N, m, input_bits,
+                                               cell_bits, C, adc_bits, cell_top):
+    """``csrc/bitserial_crossbar.cu`` (int8 tensor cores, the m16n8k32 MMA
+    emulated as a warp collective) under the host stand-in: ``acc`` and
     ``eic`` equal the plain version exactly (integers), for clipped and
-    ideal ADCs, ragged tiles, several K ranges and a result that wraps."""
+    ideal ADCs, ragged tiles, several K ranges, plane groups and pair tiles,
+    a result that wraps, padded fragments (m = 3), fragments that span k32
+    chunks (m = 40), cells read whole past ``cell_bits`` and 20 weight
+    bits."""
     from repro_torch.core.zeroskip import fragment_eic
     from repro_torch.kernels import bitserial_crossbar as bx
 
-    lib = host_library(tmp_path, "bitserial_crossbar", "bitserial_crossbar_kernel")
-    assert lib.forms_bitserial_max_m() == bx._MAX_M
+    lib = bitserial_host_lib
     rng = np.random.RandomState(9)
     x = rng.randint(0, 2 ** input_bits, (M, K)).astype(np.int32)
     x[:, :m] = 0                                     # a dead fragment
     x[0, m:2 * m] = 1                                # an EIC of 1
     x[-1, 2 * m] = 2 ** input_bits + 5               # a bit above the streamed ones
     x[-1, 3 * m] = -7                                # two's-complement bits
-    cells = rng.randint(0, 2 ** cell_bits, (C, K, N)).astype(np.uint8)
+    top = 2 ** cell_bits - 1 if cell_top is None else cell_top
+    cells = rng.randint(0, top + 1, (C, K, N)).astype(np.uint8)
     signs = np.where(rng.rand(K // m, N) < 0.5, 1, -1).astype(np.int8)
     acc = np.zeros((M, N), np.int32)
     eic = np.full((M, K // m), -1, np.int32)
