@@ -9,19 +9,24 @@ Phases, each printing JSON lines:
                (one nvcc per source, all started together);
 3. kernel    — the f32 polarized-matmul kernel against its plain PyTorch
                version at every full-width qwen2-1.5b projection shape, at
-               M=4 (decode) and M=64 (prefill), with CUDA-event times of the
-               kernel, the plain version and one library call, beside the
-               card's bound; then the tensor-core kernel on bf16 x at M=16,
+               M=1, 4, 8 and 64, int32 codes and ragged edges: two launches
+               equal bit for bit and, below TC_MIN_ROWS, bf16 x (one launch,
+               widened in the kernel) equal bit for bit to the f32 launch on
+               x.float(); timed at M=4 (f32 and bf16 x, beside the f32 and
+               bf16 library calls, the bounds and the achieved TB/s) and at
+               M=64 (f32 x); then the tensor-core kernel on bf16 x at M=16,
                32, 64 and 256 and a ragged shape (two launches equal bit for
                bit), timed at M=32 and 64 beside the f32 and bf16 library
                calls and its bf16 bound; and the M crossover of the two
-               kernels on bf16 x at M=1 to 64 (TC_MIN_ROWS);
+               kernels on bf16 x at M=1 to 64, with the least M at which the
+               tensor-core kernel wins (TC_MIN_ROWS);
 4. skip      — the block-skip launches at the same shapes with 0%, 50% and
                100% of the K slices of x zero: equal to the dense launch
-               bit for bit, timed at 50% (f32 x at M=4 and 64, bf16 x on the
-               tensor-core kernel at M=64); fragment compaction at M=1 and
-               4, where it engages and where it falls back, its output equal
-               bit for bit to the launch the device flag chose;
+               bit for bit, timed at 50% (f32 x at M=4 and 64, bf16 x at
+               M=4 on the f32 kernel and at M=64 on the tensor-core kernel);
+               fragment compaction at M=1 and 4, where it engages and where
+               it falls back, its output equal bit for bit to the launch the
+               device flag chose;
 5. bitserial — the bit-serial crossbar kernel (int8 tensor cores) at M=4
                and full-width shapes, 16-bit inputs, ideal and 4-bit ADCs,
                each timed beside its grid and MMA count; then m=40, cells
@@ -45,7 +50,8 @@ Phases, each printing JSON lines:
                compressed once, served with zero_skip off, block and compact:
                block gives off's tokens through the skip kernel, compact's
                tokens are compared, one compact decode call runs with host
-               syncs forbidden;
+               syncs forbidden; the batch-union dead share of the decode
+               activations (M=4) in m-row fragments and in 256-row slices;
 9. fidelity  — ``forms.apply_simulated`` on layer 0's wq/wk/wv/gate/up of
                that tree: the bit-serial kernel against its plain version,
                mean EIC and cycle savings; then the kernel alone on each
@@ -144,9 +150,13 @@ def timed_ms(fn, flush, reps: int = 30) -> float:
     return statistics.median(times)
 
 
-def bound(M: int, K: int, N: int, mag_bytes: int, m: int = 8):
-    nbytes = M * K * 4 + K * N * mag_bytes + (K // m) * N + N * 4 + M * N * 4
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+def bound_bytes(M: int, K: int, N: int, mag_bytes: int, m: int = 8, x_bytes: int = 4) -> int:
+    """The f32 kernel's bytes: x, the codes, the signs, scale and y, once each."""
+    return M * K * x_bytes + K * N * mag_bytes + (K // m) * N + N * 4 + M * N * 4
+
+
+def bound(M: int, K: int, N: int, mag_bytes: int, m: int = 8, x_bytes: int = 4):
+    t_bytes = bound_bytes(M, K, N, mag_bytes, m, x_bytes) / HBM_BYTES_PER_S * 1e3
     t_ops = 2 * M * K * N / F32_FLOPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -174,7 +184,14 @@ def kernel_inputs(gen, M, K, N, m=8, mag_dtype=None, levels=256, x_dtype=None):
 
 
 def phase_kernels():
+    """The f32 kernel against its plain version at every full-width
+    projection shape: two launches equal bit for bit, and, on bf16 x below
+    TC_MIN_ROWS, the bf16 launch (one launch, x widened in the kernel) equal
+    bit for bit to the f32 launch on x.float().  Timed at M=4 (f32 and bf16
+    x, beside the f32 and bf16 library calls, the bounds and the achieved
+    TB/s) and at M=64 (f32 x)."""
     import torch
+    from repro_torch.kernels import polarized_matmul as pm
     from repro_torch.kernels.polarized_matmul import polarized_matmul
     from repro_torch.kernels.ref import ref_polarized_matmul_fast
 
@@ -198,14 +215,38 @@ def phase_kernels():
         abs_err = float((got - want).abs().max())
         rel_err = abs_err / float(want.abs().max())
         worst_abs, worst_rel = max(worst_abs, abs_err), max(worst_rel, rel_err)
+        group, splits = pm.decode_split(M, N, K, torch.cuda.get_device_properties(0)
+                                        .multi_processor_count)
         rec = {"case": label, "M": M, "K": K, "N": N, "mags": str(mags.dtype),
+               "grid": [-(-N // pm._BN), -(-M // pm.tile_rows(M)), splits], "group": group,
                "max_abs_err": abs_err, "max_rel_err": rel_err}
+        xb = x.to(torch.bfloat16)
+        if not pm.uses_tensor_cores(xb.dtype, mags.dtype, "cuda", M):
+            # bf16 x straight into the kernel: one launch, the f32 launch's bits
+            before = polarized_matmul.launches
+            got_b = polarized_matmul(xb, mags, signs, scale, 8)
+            took = polarized_matmul.launches - before
+            rec["bf16_equals_widened"] = torch.equal(
+                got_b, polarized_matmul(xb.float(), mags, signs, scale, 8))
+            if took != 1 or not rec["bf16_equals_widened"]:
+                raise AssertionError(f"bf16 x: {took} launches, equal to the f32 launch on "
+                                     f"the widened x: {rec['bf16_equals_widened']}")
         if time_it:
             w = (mags.float() * signs.float().repeat_interleave(8, dim=0))
             rec["kernel_ms"] = timed_ms(lambda: polarized_matmul(x, mags, signs, scale, 8), flush)
             rec["plain_ms"] = timed_ms(lambda: ref_polarized_matmul_fast(x, mags, signs, scale, 8), flush)
             rec["library_ms"] = timed_ms(lambda: torch.matmul(x, w), flush)
             rec["bound_ms"], rec["bound_by"] = bound(M, K, N, mags.element_size())
+            rec["tb_s"] = bound_bytes(M, K, N, mags.element_size()) / rec["kernel_ms"] / 1e9
+            if "bf16_equals_widened" in rec:
+                wb = w.to(torch.bfloat16)   # exact: codes <= 255 and signs +-1
+                rec["bf16_ms"] = timed_ms(lambda: polarized_matmul(xb, mags, signs, scale, 8), flush)
+                rec["bf16_plain_ms"] = timed_ms(
+                    lambda: ref_polarized_matmul_fast(xb, mags, signs, scale, 8), flush)
+                rec["bf16_library_ms"] = timed_ms(lambda: torch.matmul(xb, wb), flush)
+                rec["bf16_bound_ms"], _ = bound(M, K, N, mags.element_size(), x_bytes=2)
+                rec["bf16_tb_s"] = (bound_bytes(M, K, N, mags.element_size(), x_bytes=2)
+                                    / rec["bf16_ms"] / 1e9)
         emit("kernel", **rec)
         if not rel_err <= REL_TOL:
             raise AssertionError(f"kernel disagrees with its plain version: {rec}")
@@ -214,7 +255,11 @@ def phase_kernels():
     for M in (DECODE_M, PREFILL_M):
         for (K, N) in LAYER_SHAPES:
             rows.append(check("qwen2-1.5b", M, K, N, time_it=True))
+    for M in (1, 8):
+        for (K, N) in LAYER_SHAPES:
+            check("qwen2-1.5b", M, K, N)
     check("int32 mags (bits > 8)", DECODE_M, 1536, 1536, mag_dtype=torch.int32, levels=1024)
+    check("int32 mags (bits > 8)", 8, 8960, 1536, mag_dtype=torch.int32, levels=1024)
     check("ragged edges", 7, 1544, 250)
     check("ragged edges, prefill", 67, 264, 1030)
     return rows, worst_abs, worst_rel
@@ -284,23 +329,31 @@ def phase_kernels_tc():
     emit("timing_floor", ms=floor_ms)
 
     crossover = []
+    route = pm.uses_tensor_cores
     for M in CROSSOVER_M:
         rec = {"M": M, "tc_ms": 0.0, "f32_ms": 0.0, "f32_kernel_ms": 0.0,
-               "route": "tc" if pm.uses_tensor_cores(torch.bfloat16, torch.uint8, "cuda", M)
-               else "f32"}
+               "route": "tc" if route(torch.bfloat16, torch.uint8, "cuda", M) else "f32"}
         for (K, N), calls in LAYER_SHAPES.items():
             x, mags, signs, scale = kernel_inputs(gen, M, K, N, x_dtype=torch.bfloat16)
             rec["tc_ms"] += calls * timed_ms(
                 lambda: pm.polarized_matmul_tc(x, mags, signs, scale, 8), flush)
-            # the f32 route widens bf16 x first: that copy is part of its
-            # cost; f32_kernel_ms is the f32 kernel alone on the widened x
+            # the f32 route on bf16 x (forced here at every M, the route
+            # patched as route_check does): one launch that widens x in the
+            # kernel; f32_kernel_ms is the same kernel on f32 x
             xf = x.float()
-            rec["f32_ms"] += calls * timed_ms(
-                lambda: pm.polarized_matmul(x.float(), mags, signs, scale, 8), flush)
+            pm.uses_tensor_cores = lambda *args: False
+            try:
+                rec["f32_ms"] += calls * timed_ms(
+                    lambda: pm.polarized_matmul(x, mags, signs, scale, 8), flush)
+            finally:
+                pm.uses_tensor_cores = route
             rec["f32_kernel_ms"] += calls * timed_ms(
                 lambda: pm.polarized_matmul(xf, mags, signs, scale, 8), flush)
         emit("crossover", per="the 7 projections of one qwen2-1.5b layer, bf16 x", **rec)
         crossover.append(rec)
+    # TC_MIN_ROWS is the least M at which the tensor-core route wins
+    wins = [r["M"] for r in crossover if r["tc_ms"] < r["f32_ms"]]
+    emit("crossover_min_rows", measured=wins[0] if wins else None, TC_MIN_ROWS=pm.TC_MIN_ROWS)
     return rows, worst_abs, worst_rel, crossover, floor_ms
 
 
@@ -361,11 +414,11 @@ def live_rows(mask, K: int) -> int:
     return sum(min(_KC, K - k * _KC) for k, on in enumerate(live) if on)
 
 
-def skip_bound(mask, M: int, K: int, N: int, mag_bytes: int, m: int = 8):
+def skip_bound(mask, M: int, K: int, N: int, mag_bytes: int, m: int = 8, x_bytes: int = 4):
     """The skip launch's bound for this mask: a K slice's weights are read
     when any row tile is live in it; x, y, scale and the mask once."""
     rows = live_rows(mask, K)
-    nbytes = (M * K * 4 + M * N * 4 + N * 4 + mask.numel() * 4
+    nbytes = (M * K * x_bytes + M * N * 4 + N * 4 + mask.numel() * 4
               + rows * N * mag_bytes + -(-rows // m) * N)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = 2 * M * rows * N / F32_FLOPS * 1e3
@@ -375,9 +428,10 @@ def skip_bound(mask, M: int, K: int, N: int, mag_bytes: int, m: int = 8):
 def phase_skip():
     """Kernel #2: the block-skip launch equals the dense one bit for bit at
     0/50/100% dead K slices, timed at 50%, on the f32 kernel (f32 x at M=4
-    and 64) and on the tensor-core kernel (bf16 x at M=64, its 64-row
-    tiles); then fragment compaction.  Returns the f32 kernel's timed rows,
-    the tensor-core kernel's, and the worst error."""
+    and 64, bf16 x at M=4) and on the tensor-core kernel (bf16 x at M=64,
+    its 64-row tiles); then fragment compaction.  Returns the f32 kernel's
+    timed rows on f32 x, on bf16 x, the tensor-core kernel's, and the worst
+    error."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels import polarized_matmul as pm
@@ -387,10 +441,10 @@ def phase_skip():
     gen.manual_seed(1)
     scrub = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
     flush = lambda: scrub.zero_()
-    rows, tc_rows = [], []
+    rows, bf16_rows, tc_rows = [], [], []
     worst = 0.0
-    for M, x_dtype in ((DECODE_M, torch.float32), (PREFILL_M, torch.float32),
-                       (PREFILL_M, torch.bfloat16)):
+    for M, x_dtype in ((DECODE_M, torch.float32), (DECODE_M, torch.bfloat16),
+                       (PREFILL_M, torch.float32), (PREFILL_M, torch.bfloat16)):
         tc = pm.uses_tensor_cores(x_dtype, torch.uint8, "cuda", M)
         counter = pm.polarized_matmul_tc_skip if tc else pm.polarized_matmul_skip
         bm = pm.tile_rows(M, tc)
@@ -421,16 +475,18 @@ def phase_skip():
                     rec["plain_ms"] = timed_ms(lambda: ref_polarized_matmul_skip(
                         x, mags, signs, scale, mask, 8, bm, pm._KC), flush)
                     rec["library_ms"] = timed_ms(lambda: torch.matmul(xf, w), flush)
-                    if tc:
+                    if x_dtype == torch.bfloat16:
                         wb = w.to(torch.bfloat16)
                         rec["library_f32_ms"] = rec["library_ms"]
                         rec["library_ms"] = timed_ms(lambda: torch.matmul(x, wb), flush)
+                    if tc:
                         rec["bound_ms"], rec["bound_by"] = bound_tc(
                             M, K, N, live_rows=live_rows(mask, K))
                         tc_rows.append(rec)
                     else:
-                        rec["bound_ms"], rec["bound_by"] = skip_bound(mask, M, K, N, 1)
-                        rows.append(rec)
+                        rec["bound_ms"], rec["bound_by"] = skip_bound(
+                            mask, M, K, N, 1, x_bytes=x.element_size())
+                        (rows if x_dtype == torch.float32 else bf16_rows).append(rec)
                 emit("skip", **rec)
                 if took != 1:
                     raise AssertionError(f"the skip call did not launch its kernel once: {rec}")
@@ -473,7 +529,7 @@ def phase_skip():
                 raise AssertionError(f"compaction disagrees with the plain version: {rec}")
             if took != ("compact" if engage else "full"):
                 raise AssertionError(f"compaction took the wrong launch: {rec}")
-    return rows, tc_rows, worst
+    return rows, bf16_rows, tc_rows, worst
 
 
 def bitserial_bound(M: int, K: int, N: int, bits: int = 16, C: int = 4, m: int = 8):
@@ -788,6 +844,7 @@ def phase_zero_skip():
     from repro_torch.configs import get_config
     from repro_torch.forms import FormsSpec, compress_tree, default_spec
     from repro_torch.kernels import polarized_matmul as pm
+    from repro_torch.kernels import sparsity
     from repro_torch.models.registry import build
     from repro_torch.serving.engine import Request, ServingEngine
 
@@ -807,14 +864,25 @@ def phase_zero_skip():
     tile_mask = pm._tile_mask
     dead = {}
 
+    def count(key, n_dead, n):
+        dead[key] = dead.get(key, 0) + n_dead
+        dead[key + "_of"] = dead.get(key + "_of", 0) + n
+
     def counting_mask(x, bm):
-        """The skip wrappers' mask, also counting the down projection's
-        (K = d_ff) dead tiles on the device (64-row tiles at prefill, 4-row
-        ones at decode)."""
+        """The skip wrappers' mask, also counting on the device the down
+        projection's (K = d_ff) dead tiles (64-row tiles at prefill, 4-row
+        ones at decode) and, at decode (M = the 4 slots), the batch-union
+        dead share of m-row fragments and of 256-row slices, for the down
+        projection and for every projection."""
         mask = tile_mask(x, bm)
-        if x.shape[1] == cfg.d_ff:
-            dead["tiles"] = dead.get("tiles", 0) + (mask == 0).sum()
-            dead["of"] = dead.get("of", 0) + mask.numel()
+        down = x.shape[1] == cfg.d_ff
+        if down:
+            count("tiles", (mask == 0).sum(), mask.numel())
+        if x.shape[0] == DECODE_M:
+            frags = (~sparsity.fragment_occupancy(x, spec.m)).sum()
+            for key in ("all", "down") if down else ("all",):
+                count("decode_fragments_" + key, frags, x.shape[1] // spec.m)
+                count("decode_slices_" + key, (mask == 0).sum(), mask.numel())
         return mask
 
     def run(mode):
@@ -858,7 +926,10 @@ def phase_zero_skip():
     runs["block+stats"].update(
         fragment_sparsity={t: v["fragment_sparsity"] for t, v in sp["layers"].items()},
         elem_sparsity={t: v["elem_sparsity"] for t, v in sp["layers"].items()},
-        down_dead_tile_share=int(dead["tiles"]) / dead["of"])
+        down_dead_tile_share=int(dead["tiles"]) / dead["tiles_of"],
+        decode_dead_share={f"{unit}_{key}": int(dead[f"decode_{unit}_{key}"])
+                           / dead[f"decode_{unit}_{key}_of"]
+                           for unit in ("fragments", "slices") for key in ("down", "all")})
     runs["compact"]["sync_free_decode_call"] = sync_free_decode(model, engines["compact"])
     del engines
     torch.cuda.empty_cache()
@@ -1309,7 +1380,7 @@ def main() -> int:
 
     rows, worst_abs, worst_rel = phase_kernels()
     tc_rows, tc_abs, tc_rel, crossover, floor_ms = phase_kernels_tc()
-    skip_rows, tc_skip_rows, skip_err = phase_skip()
+    skip_rows, skip_bf16_rows, tc_skip_rows, skip_err = phase_skip()
     bit_rows, bit_adc4_rows = phase_bitserial()
     pol_rows = phase_polarize()
     small_launches = phase_small()
@@ -1354,7 +1425,11 @@ def main() -> int:
         "bound_ms": per_layer(rows, DECODE_M, "bound_ms"),
         "bound_by": bound_by([r for r in rows if r["M"] == DECODE_M]),
         "library_ms": per_layer(rows, DECODE_M, "library_ms"),
-        "per": "the 7 projections of one qwen2-1.5b layer at M=4, f32 x",
+        "bf16_x": {k: per_layer(rows, DECODE_M, "bf16_" + k)
+                   for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        "per": "the 7 projections of one qwen2-1.5b layer at M=4, f32 x (bf16_x: the same "
+               "on bf16 x, widened in the kernel, as the served decode gives it; its "
+               "library_ms is one bf16 torch.matmul with the pre-folded bf16 weight)",
     }, {
         "name": "polarized_matmul_skip", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/polarized_matmul.cu",
@@ -1367,8 +1442,10 @@ def main() -> int:
         "bound_ms": per_layer(skip_rows, DECODE_M, "bound_ms"),
         "bound_by": bound_by([r for r in skip_rows if r["M"] == DECODE_M]),
         "library_ms": per_layer(skip_rows, DECODE_M, "library_ms"),
+        "bf16_x": {k: per_layer(skip_bf16_rows, DECODE_M, k) for k in
+                   ("kernel_ms", "dense_ms", "plain_ms", "bound_ms", "library_ms")},
         "per": "the 7 projections of one qwen2-1.5b layer at M=4, f32 x, every other "
-               "K slice of x zero",
+               "K slice of x zero (bf16_x: the same on bf16 x)",
     }, {
         "name": "bitserial_crossbar", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/bitserial_crossbar.cu",

@@ -12,7 +12,9 @@ the card and how its design answers that:
   M >= :data:`TC_MIN_ROWS`: the prefill of a bf16 served model;
 * ``csrc/polarized_matmul.cu`` — f32 on the CUDA cores
   (:func:`polarized_matmul`, :func:`polarized_matmul_skip`), for everything
-  else: decode, int32 codes (bits > 8) and f32 activations.
+  else: decode, int32 codes (bits > 8) and f32 activations.  It takes bf16 x
+  as it is and widens it in the kernel (exactly), and its launch geometry is
+  :func:`decode_split`'s plan.
 
 :func:`polarized_matmul` and :func:`polarized_matmul_skip` are the entry
 points: :func:`uses_tensor_cores` picks the kernel from x's dtype, the codes'
@@ -37,28 +39,33 @@ from repro_torch.kernels.ref import ref_polarized_matmul_fast, ref_polarized_mat
 from repro_torch.kernels.sparsity import block_mask
 
 _SOURCE = "polarized_matmul"
-_ENTRY = {torch.uint8: "forms_polarized_matmul_u8",
-          torch.int32: "forms_polarized_matmul_i32"}
+# the f32 kernel's C entry per (x dtype, code dtype)
+_ENTRY = {(torch.float32, torch.uint8): "forms_polarized_matmul_u8",
+          (torch.float32, torch.int32): "forms_polarized_matmul_i32",
+          (torch.bfloat16, torch.uint8): "forms_polarized_matmul_u8_bf16",
+          (torch.bfloat16, torch.int32): "forms_polarized_matmul_i32_bf16"}
+_MAG_DTYPES = (torch.uint8, torch.int32)
 _TC_SOURCE, _TC_ENTRY = "polarized_matmul_tc", "forms_polarized_matmul_tc"
-# x, mags, signs, scale, mask, gate, y, work, tickets; M, N, K, m, fast; stream
-_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-# the tensor-core entry takes one more int before the stream: the group
-_TC_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-# the f32 kernel's tiling, as csrc/polarized_matmul.cu fixes it: 32 output
-# columns by 4 (M <= 4) or 8 rows per block, K cut into slices of 256 rows
-_BN, _KC = 32, 256
+# x, mags, signs, scale, mask, gate, y, work, tickets; M, N, K, m, fast,
+# group; stream (both kernels' entries)
+_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+# the zero-skip mask's K slice, as both sources fix it
+_KC = 256
+# the f32 kernel's tiling, as csrc/polarized_matmul.cu fixes it: 128 output
+# columns by 4 (M <= 4) or 8 rows per block, each block summing ``group``
+# (at most 32) K slices
+_BN, _MAX_GROUP = 128, 32
 # the tensor-core kernel's, as csrc/polarized_matmul_tc.cu fixes it: 64
 # rows by 64 columns per block, the zero-skip mask in the same K slices of
 # 256 rows, each block summing a group of at most 64 of them
 _TC_BM, _TC_BN, _TC_MAX_GROUP = 64, 64, 64
 
 #: the least M that takes the tensor-core kernel (bf16 x, uint8 codes).
-#: Measured on an H100 (PERF.md, the M crossover table): at M = 4 the f32
-#: kernel alone is 15% faster than the tensor-core one (the served decode
-#: steps' device time agrees), and only the bf16 -> f32 copy its route adds
-#: tips a single timed launch the other way; from M = 8 the tensor-core
-#: kernel ties the f32 kernel alone and beats its route.
-TC_MIN_ROWS = 8
+#: Measured on an H100 (PERF.md, the M crossover table): with bf16 x
+#: widened inside the f32 kernel, the f32 kernel is faster per layer up to
+#: M = 8 (0.123 against 0.154 ms) and the tensor-core kernel from M = 16
+#: (0.156 against 0.163 ms).
+TC_MIN_ROWS = 16
 
 # per (device, stream): the kernel's per-tile ticket counters, all zero
 # between launches (the kernel resets what it uses), grown on demand.  One
@@ -85,9 +92,9 @@ def _int8_signs(signs: torch.Tensor) -> torch.Tensor:
                     f"{signs.dtype}")
 
 
-def _entry(mag_dtype: torch.dtype):
+def _entry(x_dtype: torch.dtype, mag_dtype: torch.dtype):
     lib = build.load(_SOURCE)
-    fn = getattr(lib, _ENTRY[mag_dtype])
+    fn = getattr(lib, _ENTRY[x_dtype, mag_dtype])
     if fn.argtypes is None:
         if lib.forms_polarized_matmul_kc() != _KC:
             raise RuntimeError("csrc/polarized_matmul.cu and its wrapper disagree "
@@ -105,7 +112,7 @@ def _tc_entry():
         if tile != (_TC_BM, _TC_BN, _KC, _TC_MAX_GROUP):
             raise RuntimeError(f"csrc/polarized_matmul_tc.cu tiles by {tile}, its wrapper "
                                f"by {(_TC_BM, _TC_BN, _KC, _TC_MAX_GROUP)}")
-        fn.argtypes = _TC_ARGTYPES
+        fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
     return fn
 
@@ -122,6 +129,25 @@ def tc_group(M: int, N: int, K: int, sms: int) -> int:
     while group < -(-ktiles // splits):
         group *= 2
     return min(_TC_MAX_GROUP, group)
+
+
+def decode_split(M: int, N: int, K: int, sms: int) -> Tuple[int, int]:
+    """The f32 kernel's plan on a card of ``sms`` SMs: ``(group, splits)``.
+    A block covers :func:`tile_rows` rows, 128 columns and ``group`` K
+    slices of 256 rows, so the grid is ceil(N / 128) x ceil(M / rows) x
+    ``splits``.  The group is the one whose busiest SM (blocks spread
+    evenly over the SMs) has the least to do, counting a slice of codes as
+    4 and a split block's partial, written and summed again, as 1; of
+    equals, the largest (timed on an H100, PERF.md)."""
+    tiles = -(-N // _BN) * -(-M // tile_rows(M))
+    S = -(-K // _KC)
+
+    def busiest(g: int) -> int:
+        splits = -(-S // g)
+        return -(-tiles * splits // sms) * (4 * g + (splits > 1))
+
+    group = min(range(1, min(S, _MAX_GROUP) + 1), key=lambda g: (busiest(g), -g))
+    return group, -(-S // group)
 
 
 def uses_tensor_cores(x_dtype: torch.dtype, mag_dtype: torch.dtype, device_type: str,
@@ -172,11 +198,6 @@ def _tensor_cores(x: torch.Tensor, mags: torch.Tensor, dev: torch.device) -> boo
     return x.ndim == 2 and uses_tensor_cores(x.dtype, mags.dtype, dev.type, x.shape[0])
 
 
-def _widened(x: torch.Tensor) -> torch.Tensor:
-    """bf16 x for the f32 kernel, widened (exactly); other dtypes as they are."""
-    return x.float() if x.dtype == torch.bfloat16 else x
-
-
 def polarized_matmul(x: torch.Tensor, mags: torch.Tensor, signs: torch.Tensor,
                      scale: torch.Tensor, m: int, *, gate: Optional[torch.Tensor] = None,
                      out: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -197,7 +218,7 @@ def polarized_matmul(x: torch.Tensor, mags: torch.Tensor, signs: torch.Tensor,
         return ref_polarized_matmul_fast(x, mags, signs, scale, m)
     if _tensor_cores(x, mags, dev):
         return polarized_matmul_tc(x, mags, signs, scale, m, gate=gate, out=out)
-    y = _launch(_widened(x), mags, signs, scale, m, None, gate, out, tc=False)
+    y = _launch(x, mags, signs, scale, m, None, gate, out, tc=False)
     polarized_matmul.launches += 1
     return y
 
@@ -251,7 +272,7 @@ def polarized_matmul_skip(x: torch.Tensor, mags: torch.Tensor, signs: torch.Tens
     _check_mask(mask, x, bm, m)
     if dev.type == "cpu":
         return ref_polarized_matmul_skip(x, mags, signs, scale, mask, m, bm, _KC)
-    y = _launch(_widened(x), mags, signs, scale, m, mask, None, None, tc=False)
+    y = _launch(x, mags, signs, scale, m, mask, None, None, tc=False)
     polarized_matmul_skip.launches += 1
     return y
 
@@ -289,9 +310,9 @@ def _launch(x, mags, signs, scale, m, mask, gate, out, *, tc: bool) -> torch.Ten
     if tc and (x.dtype != torch.bfloat16 or mags.dtype != torch.uint8):
         raise TypeError(f"the tensor-core kernel takes bf16 x and uint8 mags, got "
                         f"{x.dtype} and {mags.dtype}")
-    if not tc and x.dtype != torch.float32:
-        raise TypeError(f"x must be float32, got {x.dtype}")
-    if mags.dtype not in _ENTRY:
+    if not tc and x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    if mags.dtype not in _MAG_DTYPES:
         raise TypeError(f"mags must be uint8 or int32, got {mags.dtype}")
     if scale.dtype != torch.float32 or scale.numel() != N:
         raise TypeError(f"scale must be float32 with N={N} entries, got "
@@ -319,25 +340,21 @@ def _launch(x, mags, signs, scale, m, mask, gate, out, *, tc: bool) -> torch.Ten
         if gate is None:
             return y.zero_()
         return y.masked_fill_(gate.reshape(1, 1) != 0, 0.0)  # no host read
+    # 16-byte cp.async needs whole 8-element rows of x, 16-column rows of
+    # codes and signs, and aligned bases; anything else stages element by
+    # element
+    fast = int(K % 8 == 0 and N % 16 == 0
+               and all(t.data_ptr() % 16 == 0 for t in (x, mags, signs)))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     if tc:
-        # 16-byte cp.async needs whole 8-element rows of x, 16-column rows
-        # of codes and signs, and aligned bases; anything else stages
-        # element by element
-        fast = int(K % 8 == 0 and N % 16 == 0
-                   and all(t.data_ptr() % 16 == 0 for t in (x, mags, signs)))
         fn = _tc_entry()
         tiles = -(-N // _TC_BN) * -(-M // _TC_BM)
-        group = tc_group(M, N, K, torch.cuda.get_device_properties(dev).multi_processor_count)
+        group = tc_group(M, N, K, sms)
         slices = -(-(-(-K // _KC)) // group)
     else:
-        # the vector-load instantiation needs whole 4-column and 8-row
-        # groups and aligned rows; anything else takes the masked scalar one
-        fast = int(N % 4 == 0 and K % 8 == 0
-                   and mags.data_ptr() % (4 * mags.element_size()) == 0
-                   and signs.data_ptr() % 4 == 0)
-        fn = _entry(mags.dtype)
+        fn = _entry(x.dtype, mags.dtype)
+        group, slices = decode_split(M, N, K, sms)
         tiles = -(-N // _BN) * -(-M // tile_rows(M))
-        slices = -(-K // _KC)
     stream = torch.cuda.current_stream(dev).cuda_stream
     key = (dev, stream)
     work = tickets = None
@@ -350,7 +367,7 @@ def _launch(x, mags, signs, scale, m, mask, gate, out, *, tc: bool) -> torch.Ten
     args = [x.data_ptr(), mags.data_ptr(), signs.data_ptr(), scale.data_ptr(),
             ptr(mask), ptr(gate), y.data_ptr(), ptr(work), ptr(tickets), M, N, K, m, fast]
     with torch.cuda.device(dev):
-        err = fn(*args, group, stream) if tc else fn(*args, stream)
+        err = fn(*args, group, stream)
     if err != 0:
         # a launch that failed may leave tickets raised: the next launch on
         # this stream starts from fresh zeros

@@ -14,6 +14,7 @@
 #include <cstddef>
 #include <cstdint>
 #include <cstring>
+#include <memory>
 #include <thread>
 #include <vector>
 
@@ -41,10 +42,14 @@ struct dim3 {
 inline thread_local dim3 threadIdx, blockIdx;
 inline dim3 gridDim;
 inline std::barrier<>* block_barrier = nullptr;
+// one barrier per warp of the running block, for __syncwarp: the warps of a
+// kernel may meet a different number of them
+inline std::vector<std::barrier<>*> warp_barriers;
 inline float shuffle_slots[1024];
 template <class T> T __ldg(const T* p) { return *p; }
 template <class T> T __ldcg(const T* p) { return *p; }
 inline void __syncthreads() { block_barrier->arrive_and_wait(); }
+inline void __syncwarp(unsigned = 0xffffffffu) { warp_barriers[threadIdx.x / 32]->arrive_and_wait(); }
 inline void __threadfence() {}
 // the threads of a block run at once: shared-memory atomics must be atomic
 inline int atomicAdd(int* p, int v) { return __atomic_fetch_add(p, v, __ATOMIC_RELAXED); }
@@ -179,6 +184,12 @@ template <class F> void host_launch(dim3 grid, int threads, F body) {
       for (unsigned x = 0; x < grid.x; ++x) {
         std::barrier<> bar(threads);
         block_barrier = &bar;
+        std::vector<std::unique_ptr<std::barrier<>>> warps;
+        warp_barriers.clear();
+        for (int w = 0; w < (threads + 31) / 32; ++w) {
+          warps.push_back(std::make_unique<std::barrier<>>(std::min(32, threads - 32 * w)));
+          warp_barriers.push_back(warps.back().get());
+        }
         std::vector<std::thread> ts;
         for (int t = 0; t < threads; ++t)
           ts.emplace_back([=] { threadIdx = dim3(t); blockIdx = dim3(x, y, z); body(); });

@@ -47,6 +47,41 @@ def test_cuda_kernel_matches_plain(M, K, N, levels):
     assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
 
 
+@pytest.mark.parametrize("M,K,N,levels", [(1, 1536, 1536, 256), (4, 1536, 256, 256),
+                                          (4, 1536, 8960, 256), (4, 8960, 1536, 256),
+                                          (4, 1536, 1536, 1024), (7, 1544, 250, 256),
+                                          (8, 8960, 1536, 256)])
+@pytest.mark.gpu
+@needs_card
+def test_f32_kernel_takes_bf16_x_in_one_launch_with_the_widened_bits(M, K, N, levels):
+    """Below TC_MIN_ROWS, bf16 x goes straight into the f32 kernel: one
+    launch and no widening copy (the profiler sees one kernel launch per
+    call), its result equal bit for bit to the f32 launch on x.float(), two
+    launches equal, and the skip launch on half-dead x equal to the dense
+    one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    assert M < pm.TC_MIN_ROWS
+    dev = torch.device("cuda")
+    x, mags, signs, scale = [t.to(dev) for t in _torch(*_mk(11, M, K, N, 8, levels))]
+    x[:, 256:512] = 0.0
+    xb = x.to(torch.bfloat16)
+    got = pm.polarized_matmul(xb, mags, signs, scale, 8)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        before = pm.polarized_matmul.launches
+        again = pm.polarized_matmul(xb, mags, signs, scale, 8)
+        torch.cuda.synchronize()
+    assert pm.polarized_matmul.launches == before + 1
+    assert sum(e.count for e in prof.key_averages() if e.key == "cudaLaunchKernel") == 1
+    assert torch.equal(got, again)
+    assert torch.equal(got, pm.polarized_matmul(xb.float(), mags, signs, scale, 8))
+    assert torch.equal(pm.polarized_matmul_skip(xb, mags, signs, scale, 8), got)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    want = ref.ref_polarized_matmul_fast(xb, mags, signs, scale, 8)
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
 @pytest.mark.gpu
 @needs_card
 def test_cuda_wrapper_raises_instead_of_falling_back():
@@ -135,7 +170,7 @@ def test_forms_leaf_on_the_card_never_bypasses_the_kernel():
     assert pm.polarized_matmul.launches == before + 1
 
 
-@pytest.mark.parametrize("M,K,N,m", [(8, 1536, 256, 8), (64, 1536, 1536, 8),
+@pytest.mark.parametrize("M,K,N,m", [(16, 1536, 256, 8), (64, 1536, 1536, 8),
                                      (67, 264, 1030, 8), (256, 1536, 256, 16),
                                      (20, 774, 40, 3)])
 @pytest.mark.gpu

@@ -122,6 +122,10 @@ def test_kernel_source_carries_its_note_and_c_interface():
     assert pm.build.library_path("polarized_matmul").parent == pm.build.BUILD_DIR
 
 
+def _case(*values, id=None):
+    return pytest.param(*values, id=id or "-".join(map(str, values[:-1])))
+
+
 def host_library(tmp_path, name: str, kernel: str):
     """``csrc/<name>.cu`` compiled with g++ against a host stand-in for the
     CUDA names (``tests/cuda_host``), its one launch of ``kernel`` run block
@@ -146,73 +150,122 @@ def host_library(tmp_path, name: str, kernel: str):
     return ctypes.CDLL(str(lib_path))
 
 
-def test_cuda_source_under_host_emulation(tmp_path):
-    """The kernel source itself, compiled with g++ against a host stand-in
-    for the CUDA names (``tests/cuda_host``) and run block by block on the
-    CPU, matches the plain version: its tiling, masks, vector and scalar
-    paths, K slices and ticketed slice sum (tickets back at zero after)."""
-    lib = host_library(tmp_path, "polarized_matmul", "polarized_matmul_kernel<BM, Fast, MagT>")
-    kc = lib.forms_polarized_matmul_kc()
-    assert kc == pm._KC
-    # the vector path at BM=8 (uint8), the masked scalar path at BM=4 with
-    # ragged N and int32 codes; both cut K into slices
-    for M, K, N, m, levels, fast in [(9, 520, 36, 4, 256, 1), (3, 272, 70, 8, 1024, 0)]:
-        x, mags, signs, scale = _mk(7, M, K, N, m, levels)
-        bm, slices = (4 if M <= 4 else 8), -(-K // kc)
-        y = np.zeros((M, N), np.float32)
-        work = np.zeros(slices * M * N, np.float32)
-        tickets = np.zeros(-(-N // pm._BN) * -(-M // bm), np.int32)
-        fn = getattr(lib, pm._ENTRY[torch.int32 if levels > 256 else torch.uint8])
-        fn.argtypes, fn.restype = pm._ARGTYPES, ctypes.c_int
-        assert fn(*(a.ctypes.data for a in (x, mags, signs, scale)), None, None,
-                  *(a.ctypes.data for a in (y, work, tickets)), M, N, K, m, fast, None) == 0
-        want = ref.ref_polarized_matmul_fast(*_torch(x, mags, signs, scale), m).numpy()
-        np.testing.assert_allclose(y, want, rtol=1e-5, atol=1e-4 * np.abs(want).max())
-        assert not tickets.any()
+@pytest.fixture(scope="module")
+def f32_host_lib(tmp_path_factory):
+    """``csrc/polarized_matmul.cu`` under the host stand-in, compiled once
+    for every case."""
+    return host_library(tmp_path_factory.mktemp("polarized_matmul"), "polarized_matmul",
+                        "polarized_matmul_kernel<BM, Frag, MagT, XT>")
 
 
-@pytest.mark.parametrize("M,K,N,m,levels,fast,dead", [
-    (9, 776, 36, 4, 256, 1, ((0, 1), (1, 0), (1, 2))),   # BM=8, vector loads, 2x4 tiles
-    (3, 520, 70, 8, 1024, 0, ((0, 1),)),                 # BM=4, scalar loads
-    (4, 200, 12, 8, 256, 1, ((0, 0),)),                  # one slice, all dead
+def _f32_run(lib, x, mags, signs, scale, m, sms, mask=None, gate=None, y=None, fast=None):
+    """One launch of the f32 kernel's entry for x's dtype (f32, or bf16 as
+    uint16 bits) and the codes' on numpy buffers, at the wrapper's plan for
+    a card of ``sms`` SMs; checks that the ticket counters come back to
+    zero."""
+    M, K = x.shape
+    N = mags.shape[1]
+    x_t = torch.bfloat16 if x.dtype == np.uint16 else torch.float32
+    mag_t = torch.int32 if mags.dtype == np.int32 else torch.uint8
+    fn = getattr(lib, pm._ENTRY[x_t, mag_t])
+    fn.argtypes, fn.restype = pm._ARGTYPES, ctypes.c_int
+    if fast is None:
+        fast = int(K % 8 == 0 and N % 16 == 0)
+    group, splits = pm.decode_split(M, N, K, sms)
+    y = np.zeros((M, N), np.float32) if y is None else y
+    work = np.zeros(splits * M * N, np.float32)
+    tickets = np.zeros(-(-N // pm._BN) * -(-M // pm.tile_rows(M)), np.int32)
+    ptr = lambda a: None if a is None else a.ctypes.data
+    assert fn(*(a.ctypes.data for a in (x, mags, signs, scale)), ptr(mask), ptr(gate),
+              y.ctypes.data, work.ctypes.data, tickets.ctypes.data, M, N, K, m, fast,
+              group, None) == 0
+    assert not tickets.any()
+    return y
+
+
+@pytest.mark.parametrize("M,K,N,m,levels,sms", [
+    _case(1, 1040, 160, 8, 256, 3, id="M1-ragged-K-two-column-tiles-2-slices-a-block-3-splits"),
+    _case(4, 1536, 256, 8, 256, 4, id="M4-ring-wraps-3-slices-a-block-2-splits"),
+    _case(8, 776, 72, 8, 256, 2, id="M8-ragged-N-element-staging-2-splits"),
+    _case(9, 528, 48, 16, 1024, 4, id="M9-two-row-tiles-int32-m16"),
+    _case(4, 768, 48, 3, 256, 2, id="m3-signs-per-code"),
+    _case(5, 264, 40, 4, 1024, 2, id="M5-int32-m4-element-staging"),
 ])
-def test_skip_kernel_under_host_emulation(tmp_path, M, K, N, m, levels, fast, dead):
+def test_cuda_source_under_host_emulation(f32_host_lib, M, K, N, m, levels, sms):
+    """``csrc/polarized_matmul.cu`` compiled with g++ against a host stand-in
+    for the CUDA names (cp.async done at once) and run block by block on the
+    CPU, at the wrapper's plan (:func:`decode_split`): equal to the plain
+    version across ring wraps, K splits, ragged K and N, both staging paths,
+    int32 codes and fragment signs applied per partial or per code; and the
+    bf16-x entry equals the f32 entry on the widened x bit for bit."""
+    lib = f32_host_lib
+    assert lib.forms_polarized_matmul_kc() == pm._KC
+    x, mags, signs, scale = _mk(7, M, K, N, m, levels)
+    xbits, xf = _bf16(x)
+    y32 = _f32_run(lib, xf.numpy(), mags, signs, scale, m, sms)
+    y16 = _f32_run(lib, xbits, mags, signs, scale, m, sms)
+    assert np.array_equal(y16, y32)
+    want = ref.ref_polarized_matmul_fast(xf, *_torch(mags, signs, scale), m).numpy()
+    np.testing.assert_allclose(y32, want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
+    y = _f32_run(lib, x, mags, signs, scale, m, sms)
+    want = ref.ref_polarized_matmul_fast(*_torch(x, mags, signs, scale), m).numpy()
+    np.testing.assert_allclose(y, want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
+
+
+def test_f32_kernel_plan():
+    """:func:`decode_split` gives the grids PERF.md reports for qwen2-1.5b at
+    M = 4 on 132 SMs -- the busiest SM streams as few K slices as any split
+    allows, with the fewest splits -- and stays within the kernel's limit of
+    32 slices a block."""
+    def grid(M, K, N):
+        group, splits = pm.decode_split(M, N, K, 132)
+        return group, -(-N // pm._BN) * -(-M // pm.tile_rows(M)) * splits
+    assert [grid(4, K, N) for K, N in ((1536, 1536), (1536, 256), (1536, 8960),
+                                       (8960, 1536))] == [(1, 72), (1, 12), (2, 210), (4, 108)]
+    for M in (1, 4, 8, 9, 64, 4096):
+        for K in (8, 256, 8960, 10 ** 6):
+            for N in (1, 256, 8960):
+                group, splits = pm.decode_split(M, N, K, 132)
+                assert splits == -(-(-(-K // pm._KC)) // group)
+                assert 1 <= group <= 32
+
+
+@pytest.mark.parametrize("M,K,N,m,levels,sms,x_dtype,dead", [
+    # BM=8, two row tiles, 4 slices a block: dead slices inside one block's
+    # range, and the whole range of the second block (row tile 0) dead
+    (9, 1552, 48, 8, 256, 4, "f32", ((0, 1), (1, 0), (1, 2), (0, 4), (0, 5), (0, 6))),
+    (9, 1552, 48, 8, 256, 4, "bf16", ((0, 1), (1, 0), (1, 2), (0, 4), (0, 5), (0, 6))),
+    (3, 520, 70, 8, 1024, 64, "f32", ((0, 1),)),         # BM=4, element staging, int32
+    (4, 200, 12, 8, 256, 2, "f32", ((0, 0),)),           # one slice, all dead
+])
+def test_skip_kernel_under_host_emulation(f32_host_lib, M, K, N, m, levels, sms, x_dtype,
+                                          dead):
     """The block-skip entry of the same source, under the host stand-in: with
     whole (row tile, K slice) tiles of x zeroed, the masked launch equals the
     dense launch bit for bit, ticket counters return to zero, and a gate
     reading 0 leaves the output untouched."""
-    lib = host_library(tmp_path, "polarized_matmul", "polarized_matmul_kernel<BM, Fast, MagT>")
+    lib = f32_host_lib
     x, mags, signs, scale = _mk(8, M, K, N, m, levels)
     bm, kc = pm.tile_rows(M), pm._KC
     for i, k in dead:
         x[i * bm:(i + 1) * bm, k * kc:(k + 1) * kc] = 0.0
+    xbits, xf = _bf16(x)
+    xk = xbits if x_dtype == "bf16" else x
     mask = pm.tile_mask(torch.from_numpy(x)).numpy()
     assert int(mask.size - mask.sum()) == len(dead)
-    slices = -(-K // kc)
-    mag_t = torch.int32 if levels > 256 else torch.uint8
-    fn = getattr(lib, pm._ENTRY[mag_t])
-    fn.argtypes, fn.restype = pm._ARGTYPES, ctypes.c_int
+    run = lambda **kw: _f32_run(lib, xk, mags, signs, scale, m, sms, **kw)
 
-    def run(mask, gate, y=None):
-        y = np.zeros((M, N), np.float32) if y is None else y
-        work = np.zeros(slices * M * N, np.float32)
-        tickets = np.zeros(-(-N // pm._BN) * -(-M // bm), np.int32)
-        ptrs = [a.ctypes.data for a in (x, mags, signs, scale)]
-        assert fn(*ptrs, mask, gate, y.ctypes.data, work.ctypes.data, tickets.ctypes.data,
-                  M, N, K, m, fast, None) == 0
-        assert not tickets.any()
-        return y
-
-    want = run(None, None)
-    got = run(mask.ctypes.data, None)
+    want = run()
+    got = run(mask=mask)
     assert np.array_equal(got, want)
-    plain = ref.ref_polarized_matmul_skip(*_torch(x, mags, signs, scale), torch.from_numpy(mask),
+    xp = xf if x_dtype == "bf16" else torch.from_numpy(x)
+    plain = ref.ref_polarized_matmul_skip(xp, *_torch(mags, signs, scale), torch.from_numpy(mask),
                                           m, bm, kc).numpy()
     np.testing.assert_allclose(got, plain, rtol=1e-5, atol=1e-4 * np.abs(plain).max())
     closed, open_ = np.zeros(1, np.int32), np.ones(1, np.int32)
     y = np.full((M, N), 7.0, np.float32)
-    assert (run(None, closed.ctypes.data, y=y) == 7.0).all()
-    assert np.array_equal(run(None, open_.ctypes.data, y=y), want)
+    assert (run(gate=closed, y=y) == 7.0).all()
+    assert np.array_equal(run(gate=open_, y=y), want)
 
 
 @pytest.fixture(scope="module")
@@ -221,10 +274,6 @@ def bitserial_host_lib(tmp_path_factory):
     for every case."""
     return host_library(tmp_path_factory.mktemp("bitserial"), "bitserial_crossbar",
                         "bitserial_crossbar_kernel<Multi, Clip>")
-
-
-def _case(*values, id=None):
-    return pytest.param(*values, id=id or "-".join(map(str, values[:-1])))
 
 
 @pytest.mark.parametrize("M,K,N,m,input_bits,cell_bits,C,adc_bits,cell_top", [
@@ -282,7 +331,7 @@ def _bf16(x):
 
 def _tc_fn(lib):
     fn = getattr(lib, pm._TC_ENTRY)
-    fn.argtypes, fn.restype = pm._TC_ARGTYPES, ctypes.c_int
+    fn.argtypes, fn.restype = pm._ARGTYPES, ctypes.c_int
     return fn
 
 
