@@ -1,6 +1,6 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-  python3 chip_smoke.py
+  python3 chip_smoke.py [--trace-speculate]
 
 Phases, each printing JSON lines:
 
@@ -46,32 +46,50 @@ Phases, each printing JSON lines:
                the route check: the same requests with the route forced to
                the f32 kernel give the same greedy tokens (or differ only at
                a near-tie), with the largest prefill-logit difference;
-8. zero_skip — the same model with ReLU and 50% fragment sparsity, one tree
+8. speculate — the slice's target served self-speculatively (a 4-bit FORMS
+               draft of its weights on its fragments, full depth, K=4,
+               adaptive K): two greedy runs agree; the token rule: their
+               tokens equal the plain engine's or part first at a near-tie
+               below the measured threshold (the largest logit difference
+               of the target's decode at T=1 and T=kk+1), and every emitted
+               token, teacher-forced on the target's plain decode, lies
+               within that threshold of its row's largest logit; the
+               kernels' launches equal those reckoned from the recorded
+               round widths, one round runs with host syncs forbidden, a
+               temperature run repeats from its seed; an int-grid draft (8
+               bits, every other layer) and the dense slot cache under the
+               same token rule; acceptance, tokens per round, ms per emitted
+               token beside the plain engine's, peak memory; the verify's
+               projections at M = 8, 12, 16 and 20 held against the plain
+               version and timed beside it, the bf16 library call and the
+               bound; with ``--trace-speculate``, one speculative run traced
+               (device busy vs idle);
+9. zero_skip — the same model with ReLU and 50% fragment sparsity, one tree
                compressed once, served with zero_skip off, block and compact:
                block gives off's tokens through the skip kernel, compact's
                tokens are compared, one compact decode call runs with host
                syncs forbidden; the batch-union dead share of the decode
                activations (M=4) in m-row fragments and in 256-row slices;
-9. fidelity  — ``forms.apply_simulated`` on layer 0's wq/wk/wv/gate/up of
+10. fidelity — ``forms.apply_simulated`` on layer 0's wq/wk/wv/gate/up of
                that tree: the bit-serial kernel against its plain version,
                mean EIC and cycle savings; then the kernel alone on each
                leaf's M=64 operands, exact at ideal and 4-bit ADCs, timed;
-10. polarize — the fragment-polarization kernel of the ADMM Z-update
+11. polarize — the fragment-polarization kernel of the ADMM Z-update
                against its plain version at the seven stacked full-width
                qwen2-1.5b leaves, both sign rules, bit for bit (a case with
                zero-sum fragments, -0.0 and NaN too), with CUDA-event times
                of the kernel and the plain version beside the byte bound;
-11. train_small — a reduced qwen2 (f32) trained two steps plus one fresh
+12. train_small — a reduced qwen2 (f32) trained two steps plus one fresh
                Z-update on the card and on the CPU from the same params:
                losses agree, every Z leaf is polarized;
-12. train    — full-width qwen2-1.5b (random weights from a seed) trained
+13. train    — full-width qwen2-1.5b (random weights from a seed) trained
                through ``repro_torch.training`` with ADMM: 6 steps of 8 x
                256 tokens, Z-updates after steps 2 (fresh), 4 (fresh, sign
                refresh) and 6 (frozen); per-step ms, tokens/s, peak memory,
                Z-update ms, the kernel's launches (14) and every Z leaf's
                violation (0); one traced step and one step with host syncs
                forbidden;
-13. kernels  — one JSON object summarising every kernel of the main paths.
+14. kernels  — one JSON object summarising every kernel of the main paths.
 
 Then the card's ``nvidia-smi`` line and, last, ``{"ok": true, ...}``.  Any
 failure raises and the script exits non-zero; without CUDA it exits 1 and
@@ -105,6 +123,9 @@ CROSSOVER_M = (1, 2, 4, 8, 16, 32, 64)
 # qwen2-1.5b projections per layer: (K, N) -> calls per layer
 LAYER_SHAPES = {(1536, 1536): 2, (1536, 256): 2, (1536, 8960): 2, (8960, 1536): 1}
 SLICE_RUNS = 3
+# the speculate phase: the draft's K, and the verify's M = 4 slots x (kk+1)
+SPEC_K = 4
+VERIFY_M = (8, 12, 16, 20)
 # the bit-serial kernel's shapes (M=4) and the zero-skip slice's model
 BITSERIAL_SHAPES = [(1536, 1536), (1536, 8960), (8960, 1536)]
 SPARSE = dict(mlp_act="relu", act_sparsity=0.5, act_fragment=8)
@@ -155,9 +176,16 @@ def bound_bytes(M: int, K: int, N: int, mag_bytes: int, m: int = 8, x_bytes: int
     return M * K * x_bytes + K * N * mag_bytes + (K // m) * N + N * 4 + M * N * 4
 
 
+def ops_rate(mag_bytes: int, x_bytes: int) -> float:
+    """The peak rate of the function, whichever kernel serves it: bf16 x on
+    uint8 codes is exact in bf16 (codes <= 255, signs +-1), so its products
+    run at the bf16 tensor-core rate; f32 x, or int32 codes, keep f32."""
+    return BF16_FLOPS if x_bytes == 2 and mag_bytes == 1 else F32_FLOPS
+
+
 def bound(M: int, K: int, N: int, mag_bytes: int, m: int = 8, x_bytes: int = 4):
     t_bytes = bound_bytes(M, K, N, mag_bytes, m, x_bytes) / HBM_BYTES_PER_S * 1e3
-    t_ops = 2 * M * K * N / F32_FLOPS * 1e3
+    t_ops = 2 * M * K * N / ops_rate(mag_bytes, x_bytes) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -421,7 +449,7 @@ def skip_bound(mask, M: int, K: int, N: int, mag_bytes: int, m: int = 8, x_bytes
     nbytes = (M * K * x_bytes + M * N * 4 + N * 4 + mask.numel() * 4
               + rows * N * mag_bytes + -(-rows // m) * N)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 2 * M * rows * N / F32_FLOPS * 1e3
+    t_ops = 2 * M * rows * N / ops_rate(mag_bytes, x_bytes) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -780,7 +808,31 @@ def phase_slice():
          tokens=tokens[-1], peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     profile_decode(engine, prompts)
     route_check(cfg, engine, prompts, tokens[0], n_new)
-    return launches
+    return launches, engine, tokens[0]
+
+
+def target_logits(engine, seq):
+    """The served target's full-sequence logits (S, V) of one token list."""
+    import torch
+    from repro_torch.forms import default_spec
+    with torch.inference_mode(), default_spec(engine.runner.spec):
+        ids = torch.tensor(seq, device="cuda")[None]
+        return engine.runner.model.forward(engine.params, {"tokens": ids})[0][0].float()
+
+
+def first_divergence(engine, prompts, want, got):
+    """Where two greedy token sets first part (the earliest step over the
+    requests), with the served target's top-2 logit margin there; None when
+    they are equal."""
+    import torch
+    firsts = [(uid, next(i for i, (a, b) in enumerate(zip(want[uid], got[uid])) if a != b))
+              for uid in want if want[uid] != got[uid]]
+    if not firsts:
+        return None
+    uid, i = min(firsts, key=lambda u: u[1])
+    top2 = torch.topk(target_logits(engine, list(prompts[uid]) + want[uid][:i])[-1], 2).values
+    return {"uid": uid, "step": i, "want_token": want[uid][i], "got_token": got[uid][i],
+            "top2_margin": float(top2[0] - top2[1])}
 
 
 def route_check(cfg, engine, prompts, tokens, n_new) -> None:
@@ -789,13 +841,11 @@ def route_check(cfg, engine, prompts, tokens, n_new) -> None:
     equal the tensor-core route's, or differ first at a near-tie -- a top-2
     logit margin below the largest prefill-logit difference of the routes."""
     import torch
-    from repro_torch.forms import default_spec
     from repro_torch.kernels import polarized_matmul as pm
     from repro_torch.serving.engine import Request
 
     def logits_of(seq):
-        with torch.inference_mode(), default_spec(engine.runner.spec):
-            return engine.runner.model.forward(engine.params, {"tokens": seq})[0][0].float()
+        return target_logits(engine, seq)
 
     route = pm.uses_tensor_cores
     pm.uses_tensor_cores = lambda *args: False
@@ -804,23 +854,13 @@ def route_check(cfg, engine, prompts, tokens, n_new) -> None:
         reset_counts()
         f32_tokens = {r.uid: r.tokens for r in engine.run(reqs)}
         f32_counts = launch_counts()
-        f32_logits = [logits_of(torch.tensor(p, device="cuda")[None]) for p in prompts]
+        f32_logits = [logits_of(list(p)) for p in prompts]
     finally:
         pm.uses_tensor_cores = route
-    tc_logits = [logits_of(torch.tensor(p, device="cuda")[None]) for p in prompts]
+    tc_logits = [logits_of(list(p)) for p in prompts]
     diff = max(float((a - b).abs().max()) for a, b in zip(tc_logits, f32_logits))
     top = max(float(b.abs().max()) for b in f32_logits)
-    firsts = [(uid, next(i for i, (a, b) in enumerate(zip(tokens[uid], f32_tokens[uid]))
-                         if a != b))
-              for uid in tokens if tokens[uid] != f32_tokens[uid]]
-    divergence = None
-    if firsts:
-        uid, i = min(firsts, key=lambda u: u[1])
-        seq = torch.tensor(list(prompts[uid]) + tokens[uid][:i], device="cuda")[None]
-        top2 = torch.topk(logits_of(seq)[-1], 2).values
-        divergence = {"uid": uid, "step": i, "tc_token": tokens[uid][i],
-                      "f32_token": f32_tokens[uid][i],
-                      "top2_margin": float(top2[0] - top2[1])}
+    divergence = first_divergence(engine, prompts, tokens, f32_tokens)
     emit("route_check", tokens_equal=tokens == f32_tokens, max_prefill_logit_diff=diff,
          max_abs_logit=top, first_divergence=divergence,
          f32_route_launches={k: v for k, v in f32_counts.items() if v})
@@ -829,6 +869,332 @@ def route_check(cfg, engine, prompts, tokens, n_new) -> None:
     if divergence is not None and not divergence["top2_margin"] < diff:
         raise AssertionError(f"the tensor-core route changed a greedy token away from a "
                              f"near-tie: {divergence}, logit difference {diff}")
+
+
+def prefilled(engine, prompts):
+    """A fresh paged cache holding the prompts, one slot each, prefilled as
+    the served target prefills them (its bucket, its route): (cache,
+    tables, positions, the first token's logits (slots, V)).  Runs under
+    the caller's inference mode and spec."""
+    import torch
+    from repro_torch.serving import kv_cache as KV
+
+    r = engine.runner
+    model, params, ps = r.model, r.params, r.page_size
+    slots, n_tables = len(prompts), KV.pages_for(r.max_len, r.page_size)
+    cache = model.init_paged_cache(slots * n_tables + 1, ps)
+    tables = torch.arange(1, slots * n_tables + 1, dtype=torch.int32,
+                          device="cuda").reshape(slots, n_tables)
+    pos = torch.tensor([len(p) for p in prompts], dtype=torch.int32, device="cuda")
+    first = []
+    for s, p in enumerate(prompts):
+        toks, n = r.padded_prompt(p)
+        logits, cache = model.prefill_paged(params, torch.tensor(toks, device="cuda"), cache,
+                                            tables[s, :KV.pages_for(toks.shape[1], ps)], s, n)
+        first.append(logits[0])
+    return cache, tables, pos, torch.stack(first)
+
+
+def verify_threshold(engine, prompts, tokens, widths):
+    """The largest |logit difference| between the target's ``decode_paged``
+    at T=1 (M = slots, the f32 route) and at T=kk+1 (M = slots x (kk+1),
+    the route ``uses_tensor_cores`` picks) over the same positions of one
+    cache state: the prompts prefilled, then the plain engine's greedy
+    tokens.  Returns the worst and the worst per width."""
+    import torch
+    from repro_torch.forms import default_spec
+    from repro_torch.serving import kv_cache as KV
+
+    r = engine.runner
+    model, params = r.model, r.params
+    seq = torch.tensor([tokens[i][:max(widths) + 1] for i in range(len(prompts))],
+                       device="cuda")
+    per = {}
+    with torch.inference_mode(), default_spec(r.spec):
+        cache, tables, pos, _ = prefilled(engine, prompts)
+
+        def fork():
+            return KV.PagedKVCache(pool={k: v.clone() for k, v in cache.pool.items()},
+                                   page_size=cache.page_size)
+
+        for kk in widths:
+            ver = seq[:, :kk + 1]
+            wide, _ = model.decode_paged(params, ver, fork(), pos, tables)
+            one, c = [], fork()
+            for t in range(kk + 1):
+                lg, c = model.decode_paged(params, ver[:, t:t + 1], c, pos + t, tables)
+                one.append(lg[:, 0])
+            per[kk] = float((wide.float() - torch.stack(one, dim=1).float()).abs().max())
+    return max(per.values()), per
+
+
+def teacher_forced_margins(engine, prompts, tokens):
+    """Every emitted greedy token under teacher forcing on the served
+    target's plain path (its prefill, then T=1 ``decode_paged`` steps at
+    M = slots over ``tokens``): each token's margin, its row's largest
+    logit less its own, as a (requests, tokens) tensor.  The plain engine's
+    own tokens have margin 0."""
+    import torch
+    from repro_torch.forms import default_spec
+
+    r = engine.runner
+    seq = torch.tensor([tokens[i] for i in range(len(prompts))], device="cuda")
+    with torch.inference_mode(), default_spec(r.spec):
+        cache, tables, pos, first = prefilled(engine, prompts)
+        rows = [first]
+        for t in range(seq.shape[1] - 1):
+            lg, cache = r.model.decode_paged(r.params, seq[:, t:t + 1], cache, pos + t, tables)
+            rows.append(lg[:, 0])
+        logits = torch.stack(rows, dim=1).float()
+        picked = logits.gather(2, seq[..., None].long())[..., 0]
+        return (logits.amax(dim=-1) - picked).cpu()
+
+
+def verify_shapes(gen, flush):
+    """The verify's seven projections per layer at M = slots x (kk+1) = 8,
+    12, 16 and 20 on bf16 x, through the route ``uses_tensor_cores`` picks:
+    two launches equal bit for bit and held against the plain version
+    within REL_TOL at every shape, then each timed beside the plain
+    version, the bf16 ``torch.matmul`` of the pre-folded weight and the
+    function's bound (bf16 x on uint8 codes: the tensor-core rate, whichever
+    kernel serves it); summed per layer."""
+    import torch
+    from repro_torch.kernels import polarized_matmul as pm
+    from repro_torch.kernels.ref import ref_polarized_matmul_fast
+
+    rows = []
+    for M in VERIFY_M:
+        tc = pm.uses_tensor_cores(torch.bfloat16, torch.uint8, "cuda", M)
+        rec = {"M": M, "route": "tc" if tc else "f32", "kernel_ms": 0.0, "plain_ms": 0.0,
+               "library_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0, "max_rel_err": 0.0}
+        bound_by = set()
+        for (K, N), calls in LAYER_SHAPES.items():
+            x, mags, signs, scale = kernel_inputs(gen, M, K, N, x_dtype=torch.bfloat16)
+            got = pm.polarized_matmul(x, mags, signs, scale, 8)
+            again = pm.polarized_matmul(x, mags, signs, scale, 8)
+            want = ref_polarized_matmul_fast(x, mags, signs, scale, 8)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"verify M={M} K={K} N={N}: two launches differ")
+            abs_err = float((got - want).abs().max())
+            rel_err = abs_err / float(want.abs().max())
+            rec["max_abs_err"] = max(rec["max_abs_err"], abs_err)
+            rec["max_rel_err"] = max(rec["max_rel_err"], rel_err)
+            if not rel_err <= REL_TOL:
+                raise AssertionError(f"verify M={M} K={K} N={N} ({rec['route']} route): the "
+                                     f"kernel disagrees with its plain version by {rel_err}")
+            wb = (mags.float() * signs.float().repeat_interleave(8, dim=0)).to(torch.bfloat16)
+            rec["kernel_ms"] += calls * timed_ms(
+                lambda: pm.polarized_matmul(x, mags, signs, scale, 8), flush)
+            rec["plain_ms"] += calls * timed_ms(
+                lambda: ref_polarized_matmul_fast(x, mags, signs, scale, 8), flush)
+            rec["library_ms"] += calls * timed_ms(lambda: torch.matmul(x, wb), flush)
+            b, by = bound_tc(M, K, N)
+            rec["bound_ms"] += calls * b
+            bound_by.add(by)
+        rec["bound_by"] = bound_by.pop() if len(bound_by) == 1 else "mixed"
+        emit("verify_shape", per="the 7 projections of one qwen2-1.5b layer, bf16 x", **rec)
+        rows.append(rec)
+    return rows
+
+
+def phase_speculate(model, cfg, prompts, plain_engine, plain_tokens, trace=False):
+    """Self-speculative serving of the slice's target (its compressed tree,
+    4 slots, page 16) with a 4-bit FORMS draft on the target's fragments,
+    full depth, K=4, adaptive K.  Checks: two greedy runs agree and pass
+    the token rule (``token_rule``: a near-tie below the measured threshold
+    of verify_threshold where they first part from the plain tokens, and
+    every token within it under teacher forcing), the launches equal those
+    reckoned from the round widths, one round runs with host syncs
+    forbidden, a temperature run repeats from its seed, an int-grid draft
+    (8 bits, every other layer) launches no FORMS kernel for the draft, and
+    it and the dense slot cache pass the token rule; then the verify
+    shapes, checked and timed; ``trace`` adds one traced speculative run.
+    Returns the greedy run's launches and the verify rows."""
+    import numpy as np
+    import torch
+    from repro_torch.forms import FormsSpec
+    from repro_torch.kernels import polarized_matmul as pm
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    spec = FormsSpec(m=8, bits=8, rule="energy")
+    tree = {k: v for k, v in plain_engine.params.items() if k != "head_cast"}
+    per_call = 7 * cfg.num_layers
+    n_new = 16
+    common = dict(spec=spec, batch_slots=4, max_len=256, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = ServingEngine(model, tree, page_size=16, speculate=True, draft_k=SPEC_K,
+                           draft_bits=4, draft_mode="forms", **common)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    runner = engine.runner
+    buckets = [runner.bucket_for(len(p)) for p in prompts]
+
+    def expected(widths, draft_layers):
+        """[f32, tensor-core] launches: two prefills per admission (the
+        draft's only with FORMS draft layers), kk + 1 draft calls at M =
+        slots and one verify at M = slots x (kk+1) per round."""
+        out = [2 * n for n in route_split(per_call, buckets, 0, 4)] if draft_layers \
+            else route_split(per_call, buckets, 0, 4)
+        for kk in widths:
+            out[0] += (kk + 1) * 7 * draft_layers
+            out[pm.uses_tensor_cores(torch.bfloat16, torch.uint8, "cuda", 4 * (kk + 1))] += \
+                per_call
+        return out
+
+    def serve(eng, temperature=0.0, seed=None):
+        reqs = [Request(uid=i, prompt=p, max_new_tokens=n_new, temperature=temperature)
+                for i, p in enumerate(prompts)]
+        if seed is not None:
+            eng.runner.generator.manual_seed(seed)
+        widths0 = len(getattr(eng.runner, "round_widths", []))
+        rounds0 = eng.scheduler.rounds
+        tallies = ("drafted", "accepted", "emitted", "participations")
+        tally0 = [getattr(eng.runner, k, 0) for k in tallies]
+        reset_counts()
+        t = time.perf_counter()
+        results = eng.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts = launch_counts()
+        toks = {r.uid: r.tokens for r in results}
+        for uid, tk in toks.items():
+            if len(tk) != n_new or not all(0 <= v < cfg.vocab_size for v in tk):
+                raise AssertionError(f"request {uid} returned {tk}")
+        decode_ms = sum(r.decode_ms for r in results)
+        emitted = sum(len(r.tokens) - 1 for r in results)
+        drafted, accepted, yielded, slot_rounds = (getattr(eng.runner, k, 0) - t0
+                                                   for k, t0 in zip(tallies, tally0))
+        spec = {"acceptance": accepted / max(1, drafted),
+                "tokens_per_round": yielded / max(1, slot_rounds)} if eng.speculative else {}
+        return {"tokens": toks, "wall_s": wall, **spec,
+                "wall_ms_per_token": wall * 1e3 / sum(len(r.tokens) for r in results),
+                "decode_ms_per_token": decode_ms / emitted,
+                "mean_prefill_ms": float(np.mean([r.prefill_ms for r in results])),
+                "rounds": eng.scheduler.rounds - rounds0,
+                "widths": list(getattr(eng.runner, "round_widths", []))[widths0:],
+                "launches": {k: counts[k] for k in ("polarized_matmul", "polarized_matmul_tc")}}
+
+    threshold, per_width = verify_threshold(engine, prompts, plain_tokens, (1, 2, 3, 4))
+
+    def token_rule(eng, got, label):
+        """The first divergence from the plain tokens lies at a near-tie, and
+        every emitted token, teacher-forced on the target's plain path, lies
+        within the threshold of its row's largest logit."""
+        div = first_divergence(eng, prompts, plain_tokens, got)
+        if div is not None and not div["top2_margin"] < threshold:
+            raise AssertionError(f"{label}: a greedy token parted from the plain engine's "
+                                 f"away from a near-tie: {div}, threshold {threshold}")
+        margins = teacher_forced_margins(plain_engine, prompts, got)
+        misses = int((margins > threshold).sum())
+        if misses:
+            raise AssertionError(f"{label}: {misses} of {margins.numel()} emitted tokens lie "
+                                 f"more than {threshold} below their row's largest logit "
+                                 f"under teacher forcing: {margins.tolist()}")
+        return {"divergence": div, "teacher_forced_tokens": margins.numel(),
+                "teacher_forced_misses": misses,
+                "teacher_forced_max_margin": float(margins.max())}
+
+    def check_launches(run, draft_layers, label):
+        want = expected(run["widths"], draft_layers)
+        got = [run["launches"]["polarized_matmul"], run["launches"]["polarized_matmul_tc"]]
+        run["launches_expected"] = want
+        if got != want:
+            raise AssertionError(f"{label}: the kernels launched {got} times, the round widths "
+                                 f"{run['widths']} give {want}")
+
+    plain = [serve(plain_engine)]
+    spec_runs = [serve(engine), serve(engine)]
+    plain.append(serve(plain_engine))
+    stats = engine.stats()["speculate"]
+    if spec_runs[0]["tokens"] != spec_runs[1]["tokens"]:
+        raise AssertionError("two greedy speculative runs gave other tokens")
+    if any(p["tokens"] != plain_tokens for p in plain):
+        raise AssertionError("the plain engine's tokens moved since the slice phase")
+    for run in spec_runs:
+        check_launches(run, cfg.num_layers, "speculate")
+    plain_rule = token_rule(plain_engine, plain_tokens, "plain")
+    spec_rule = token_rule(engine, spec_runs[0]["tokens"], "speculate")
+
+    # one round with every host sync an error, on device inputs (idle
+    # tables: every row goes to scratch)
+    tok = torch.zeros((4,), dtype=torch.int32, device="cuda")
+    tables = torch.zeros((4, engine.scheduler.n_tables), dtype=torch.int32, device="cuda")
+    k_el = torch.full((4,), SPEC_K, dtype=torch.int32, device="cuda")
+    temps = torch.zeros((4,), device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, n_emit = runner.speculate_round(SPEC_K, tok, tok, tables, k_el, temps)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    sync_free = {"grid_shape": list(out.shape), "counts": n_emit.tolist()}
+    if list(out.shape) != [4, SPEC_K + 1] or not ((n_emit >= 1) & (n_emit <= SPEC_K + 1)).all():
+        raise AssertionError(f"the sync-free round returned {sync_free}")
+
+    if trace:
+        profile_decode(engine, prompts, "profile_speculate")
+    temp_runs = [serve(engine, temperature=1.0, seed=11), serve(engine, temperature=1.0, seed=11)]
+    if temp_runs[0]["tokens"] != temp_runs[1]["tokens"]:
+        raise AssertionError("two temperature runs from one seed gave other tokens")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    engine_bytes = engine.cache_bytes()
+    del engine, runner
+    torch.cuda.empty_cache()
+
+    int_engine = ServingEngine(model, tree, page_size=16, speculate=True, draft_k=SPEC_K,
+                               draft_bits=8, draft_mode="int", draft_layer_step=2, **common)
+    int_run = serve(int_engine)
+    int_layers = int_engine.runner.draft_model.config.num_layers
+    int_stats = int_engine.stats()["speculate"]
+    check_launches(int_run, 0, "int draft")
+    int_rule = token_rule(int_engine, int_run["tokens"], "int draft")
+    del int_engine
+    torch.cuda.empty_cache()
+
+    dense_engine = ServingEngine(model, tree, page_size=0, decode_block=4, **common)
+    dense_run = serve(dense_engine)
+    steps = dense_run["rounds"] * dense_engine.decode_block
+    dense_want = route_split(per_call, buckets, steps, 4)
+    dense_got = [dense_run["launches"]["polarized_matmul"],
+                 dense_run["launches"]["polarized_matmul_tc"]]
+    dense_rule = token_rule(dense_engine, dense_run["tokens"], "dense cache")
+    dense_bytes = dense_engine.cache_bytes()
+    del dense_engine
+    torch.cuda.empty_cache()
+    if dense_got != dense_want:
+        raise AssertionError(f"the dense cache's run launched {dense_got}, expected {dense_want}")
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    scrub = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    shapes = verify_shapes(gen, lambda: scrub.zero_())
+    del scrub
+
+    def brief(run):
+        return {k: v for k, v in run.items() if k != "tokens"}
+
+    emit("speculate", arch=cfg.name, layers=cfg.num_layers, draft="forms, 4 bits, m=8, "
+         "full depth", k=SPEC_K, adaptive_k=True, build_s=build_s,
+         build_peak_mem_gb=build_peak_gb, peak_mem_gb=peak_gb, cache_bytes=engine_bytes,
+         spec_stats=stats, threshold=threshold, threshold_per_width=per_width,
+         tokens_equal_plain=spec_runs[0]["tokens"] == plain_tokens, token_rule=spec_rule,
+         plain_token_rule=plain_rule,
+         runs=[brief(r) for r in spec_runs], plain_runs=[brief(r) for r in plain],
+         sync_free_round=sync_free,
+         temperature_runs_equal=True, temperature_runs=[brief(r) for r in temp_runs],
+         int_draft={"layers": int_layers, "bits": 8, "spec_stats": int_stats,
+                    "tokens_equal_plain": int_run["tokens"] == plain_tokens,
+                    "token_rule": int_rule, **brief(int_run)},
+         dense_cache={"tokens_equal_plain": dense_run["tokens"] == plain_tokens,
+                      "token_rule": dense_rule, "cache_bytes": dense_bytes,
+                      "launches_expected": dense_want, **brief(dense_run)},
+         tokens=spec_runs[0]["tokens"])
+    return spec_runs[0]["launches"], shapes
 
 
 def phase_zero_skip():
@@ -1315,7 +1681,7 @@ def sync_free_train_step(step, state, batch) -> dict:
     return {"loss": loss, "host_enqueue_ms": enqueue_ms}
 
 
-def profile_decode(engine, prompts) -> None:
+def profile_decode(engine, prompts, phase: str = "profile") -> None:
     """Trace one more run with ``torch.profiler``: device time by kernel, the
     busiest host ops, and the card's idle share over the run's wall time."""
     import torch
@@ -1345,7 +1711,7 @@ def profile_decode(engine, prompts) -> None:
     pmm = {name: {"ms": sum(getattr(e, dev_attr) for e in kernels if name + "<" in e.key)
                   / 1e3, "count": sum(e.count for e in kernels if name + "<" in e.key)}
            for name in ("polarized_matmul_tc_kernel", "polarized_matmul_kernel")}
-    emit("profile", wall_ms=wall_ms, device_busy_ms=device_ms,
+    emit(phase, wall_ms=wall_ms, device_busy_ms=device_ms,
          device_idle_share=1 - device_ms / wall_ms, kernel_launches=launches,
          polarized_matmul_device=pmm,
          top_device=[{"name": e.key[:80], "ms": getattr(e, dev_attr) / 1e3,
@@ -1355,6 +1721,11 @@ def profile_decode(engine, prompts) -> None:
 
 
 def main() -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--trace-speculate", action="store_true",
+                    help="trace one more speculative run with torch.profiler")
+    args = ap.parse_args()
     try:
         import torch
     except ImportError:
@@ -1385,7 +1756,12 @@ def main() -> int:
     pol_rows = phase_polarize()
     small_launches = phase_small()
     phase_train_small()
-    launches = phase_slice()
+    launches, slice_engine, slice_tokens = phase_slice()
+    torch.cuda.empty_cache()
+    spec_launches, verify_rows = phase_speculate(slice_engine.model, slice_engine.cfg,
+                                                 slice_prompts(slice_engine.cfg), slice_engine,
+                                                 slice_tokens, trace=args.trace_speculate)
+    del slice_engine
     torch.cuda.empty_cache()
     tree, cfg, prompts, skip_launches = phase_zero_skip()
     bit_launches, fidelity_row = phase_fidelity(tree, cfg, prompts)
@@ -1402,7 +1778,8 @@ def main() -> int:
                 if skip_launches["polarized_matmul_skip"]
                 else (small_launches["polarized_matmul_skip"], small)}
     if not (launches["polarized_matmul_tc"] and skip_launches["polarized_matmul_tc_skip"]
-            and all(n for n, _ in f32_path.values()) and bit_launches and pol_launches):
+            and all(n for n, _ in f32_path.values()) and bit_launches and pol_launches
+            and all(spec_launches.values())):
         raise AssertionError("a kernel of a path was never launched on it")
 
     def total(rows, key):
@@ -1427,9 +1804,13 @@ def main() -> int:
         "library_ms": per_layer(rows, DECODE_M, "library_ms"),
         "bf16_x": {k: per_layer(rows, DECODE_M, "bf16_" + k)
                    for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        "speculate_launches": spec_launches["polarized_matmul"],
+        "verify": [r for r in verify_rows if r["route"] == "f32"],
         "per": "the 7 projections of one qwen2-1.5b layer at M=4, f32 x (bf16_x: the same "
                "on bf16 x, widened in the kernel, as the served decode gives it; its "
-               "library_ms is one bf16 torch.matmul with the pre-folded bf16 weight)",
+               "library_ms is one bf16 torch.matmul with the pre-folded bf16 weight; "
+               "verify: the speculative verify's M on bf16 x that this route takes); "
+               "speculate_launches: the first greedy speculative run's",
     }, {
         "name": "polarized_matmul_skip", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/polarized_matmul.cu",
@@ -1483,6 +1864,8 @@ def main() -> int:
                     "codes, M >= TC_MIN_ROWS)",
         "launches": launches["polarized_matmul_tc"],
         "skip_launches": skip_launches["polarized_matmul_tc_skip"],
+        "speculate_launches": spec_launches["polarized_matmul_tc"],
+        "verify": [r for r in verify_rows if r["route"] == "tc"],
         "max_abs_err": tc_abs, "max_rel_err": tc_rel,
         "ms": per_layer(tc_rows, PREFILL_M, "kernel_ms"),
         "plain_ms": per_layer(tc_rows, PREFILL_M, "plain_ms"),
@@ -1502,7 +1885,9 @@ def main() -> int:
                         "weight; library_f32_ms: the f32 one (TF32 off); f32_kernel_ms: "
                         "polarized_matmul.cu on f32 x",
         "per": "the 7 projections of one qwen2-1.5b layer at prefill, M=64, bf16 x; "
-               "launches: the slice-1 run's; skip_launches: the block run's",
+               "launches: the slice-1 run's; skip_launches: the block run's; "
+               "speculate_launches: the first greedy speculative run's; verify: the "
+               "speculative verify's M that this route takes",
     }]}
     print(json.dumps(kernels), flush=True)
     print(smi, flush=True)

@@ -1,10 +1,14 @@
-"""Serving launcher of the port: paged KV cache + bulk prefill + chunked
-decode, with optional FORMS compression.
+"""Serving launcher of the port: paged KV cache (or the dense slot cache)
++ bulk prefill + chunked decode, with optional FORMS compression and
+self-speculative decoding.
 
   python -m repro_torch.launch.serve --arch qwen2-1.5b --forms
   python -m repro_torch.launch.serve --arch qwen2-1.5b --reduced --device cpu
   python -m repro_torch.launch.serve --reduced --forms --device cpu \
       --mlp-act relu --act-sparsity 0.5 --zero-skip block --zero-skip-stats
+  python -m repro_torch.launch.serve --reduced --forms --device cpu \
+      --speculate --draft-bits 4 --draft-k 4
+  python -m repro_torch.launch.serve --reduced --forms --device cpu --page-size 0
 
 Weights are random, made from seed 0 on the device (the JAX launcher inits
 with ``PRNGKey(0)``).  With ``--forms`` the weights are compressed by
@@ -15,6 +19,13 @@ input tiles; ``compact``: live fragments are gathered into a smaller
 product) and ``--zero-skip-stats`` prints the decode path's measured
 per-layer input sparsity.  ``--mlp-act relu --act-sparsity FRAC`` give the
 model the fragment-sparse activations zero-skipping exploits.
+``--speculate`` (paged cache) serves with a low-bit draft derived from the
+served weights: ``--draft-bits``, ``--draft-mode`` (``forms`` or ``int``),
+``--draft-fragment`` and ``--draft-layer-step`` shape it, ``--draft-k``
+bounds the drafts verified per round, and per-slot adaptive K
+(``--no-adaptive-k`` turns it off) shrinks a slot's draft length when its
+acceptance drops.  ``--page-size 0`` serves on the dense slot cache, where
+``--speculate`` falls back to plain decoding.
 ``--device`` defaults to ``cuda`` and the launcher fails without a card
 unless ``--device cpu`` is given.  Requests are made as the JAX launcher
 makes them (``np.random.RandomState(0)``).
@@ -55,14 +66,33 @@ def main(argv=None) -> None:
     ap.add_argument("--prompt-len", type=int, default=None,
                     help="fixed prompt length (default: random 2-5)")
     ap.add_argument("--page-size", type=int, default=16, metavar="ROWS",
-                    help="KV-cache page size (the dense slot cache, 0, is not "
-                         "ported yet)")
+                    help="KV-cache page size (0: the dense slot cache)")
     ap.add_argument("--num-pages", type=int, default=None,
                     help="page-pool size (default: every slot can hold a "
                          "full max_len request)")
     ap.add_argument("--prefix-cache", action="store_true",
                     help="share page-aligned prompt prefixes across "
                          "concurrent requests")
+    ap.add_argument("--speculate", action="store_true",
+                    help="self-speculative decoding: low-bit draft + "
+                         "one-call verification (paged cache only)")
+    ap.add_argument("--draft-k", type=int, default=4,
+                    help="max draft tokens verified per speculative round")
+    ap.add_argument("--draft-bits", type=int, default=4,
+                    help="draft magnitude bits")
+    ap.add_argument("--draft-mode", default="forms", choices=("forms", "int"),
+                    help="draft weights: FORMS low-bit compression or the "
+                         "symmetric int grid")
+    ap.add_argument("--draft-fragment", type=int, default=None,
+                    help="forms-mode draft fragment size m (default: the "
+                         "target's geometry)")
+    ap.add_argument("--draft-layer-step", type=int, default=1,
+                    help="keep every n-th layer in the draft (1 = full depth)")
+    ap.add_argument("--no-adaptive-k", action="store_true",
+                    help="disable per-slot adaptive draft length")
+    ap.add_argument("--auto-draft", action="store_true",
+                    help="per-leaf draft bits from a sensitivity sweep (not "
+                         "ported yet: ROADMAP queue 1, item 8)")
     ap.add_argument("--zero-skip", default="off",
                     choices=("off", "block", "compact"),
                     help="activation zero-skipping in the compressed "
@@ -94,6 +124,9 @@ def main(argv=None) -> None:
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
+    if args.auto_draft:
+        raise SystemExit("--auto-draft is not ported yet (ROADMAP queue 1, item 8: "
+                         "auto mixed precision, forms/autobits.py)")
     if (args.zero_skip != "off" or args.zero_skip_stats) and not args.forms:
         raise SystemExit("--zero-skip/--zero-skip-stats act on the FORMS "
                          "matmul path: add --forms")
@@ -113,16 +146,33 @@ def main(argv=None) -> None:
                            decode_block=args.decode_block,
                            page_size=args.page_size, num_pages=args.num_pages,
                            prefix_cache=args.prefix_cache, device=args.device,
+                           speculate=args.speculate, draft_k=args.draft_k,
+                           draft_bits=args.draft_bits, draft_mode=args.draft_mode,
+                           draft_fragment=args.draft_fragment,
+                           draft_layer_step=args.draft_layer_step,
+                           adaptive_k=not args.no_adaptive_k,
                            zero_skip=args.zero_skip,
                            zero_skip_keep=args.zero_skip_keep,
                            zero_skip_stats=args.zero_skip_stats)
     del params
     if engine.compression_report is not None:
         print(f"forms: {engine.compression_report.summary()}")
-    alloc = engine.page_allocator
-    print(f"paged cache: {alloc.capacity} pages x {engine.page_size} rows "
-          f"(+1 scratch), {engine.cache_bytes() / 2**20:.1f} MiB, "
-          f"prefix_cache={'on' if engine.prefix_cache else 'off'}")
+    if engine.paged:
+        alloc = engine.page_allocator
+        print(f"paged cache: {alloc.capacity} pages x {engine.page_size} rows "
+              f"(+1 scratch), {engine.cache_bytes() / 2**20:.1f} MiB, "
+              f"prefix_cache={'on' if engine.prefix_cache else 'off'}")
+    else:
+        print(f"dense slot cache: {engine.slots} slots x {engine.max_len} rows, "
+              f"{engine.cache_bytes() / 2**20:.1f} MiB")
+    if engine.speculative:
+        detail = ("int grid" if args.draft_mode == "int"
+                  else engine.draft_report.summary())
+        print(f"speculate: k={args.draft_k}, {args.draft_bits}-bit "
+              f"{args.draft_mode} draft, layer_step={args.draft_layer_step} "
+              f"({detail})")
+    elif args.speculate:
+        print("speculate: unsupported on the dense cache — plain decode")
     rng = np.random.RandomState(0)
     plen = lambda: (args.prompt_len if args.prompt_len else rng.randint(2, 6))
     reqs = [Request(uid=i, prompt=rng.randint(0, cfg.vocab_size, size=plen()),
@@ -146,12 +196,18 @@ def main(argv=None) -> None:
           f"block={args.decode_block}, device={engine.device}); "
           f"mean prefill {pf:.1f}ms, mean decode share {dm:.1f}ms")
     stats = engine.stats()
-    pg = stats["pages"]
     parts = [f"rounds {stats['rounds']}",
-             f"max_concurrent {stats['max_concurrent']}",
-             f"pages hw {pg['high_water']}/{pg['capacity']} (shared {pg['shared']})"]
+             f"max_concurrent {stats['max_concurrent']}"]
+    if "pages" in stats:
+        pg = stats["pages"]
+        parts.append(f"pages hw {pg['high_water']}/{pg['capacity']} "
+                     f"(shared {pg['shared']})")
     if "prefix_hits" in stats:
         parts.append(f"prefix_hits {stats['prefix_hits']}")
+    if "speculate" in stats:
+        sp = stats["speculate"]
+        parts.append(f"acceptance {sp['acceptance']:.2f} "
+                     f"tok/round {sp['tokens_per_round']:.2f}")
     if "sparsity" in stats:
         ov = stats["sparsity"]["overall"]
         parts.append(f"sparsity elem {ov['elem_sparsity']:.2f} "

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from repro_torch.forms.linear import DTYPES, FormsLinearParams  # noqa: F401
 from repro_torch.forms.linear import apply as forms_apply
 from repro_torch.forms.linear import to_dense as forms_to_dense
+from repro_torch.serving.quant_weights import dequantize_leaf
 
 Params = Dict[str, torch.Tensor]
 
@@ -38,13 +39,17 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def wload(p: Params, name: str, dtype: torch.dtype) -> torch.Tensor:
-    """Weight read with decompression of FORMS leaves on the CPU.
+    """Weight read with decompression.
 
-    On the card a FORMS leaf is consumed by the polarized-matmul kernel
-    through :func:`linear`; rebuilding it densely there would serve around
-    the kernel, so that raises.
+    An int-grid leaf ``{"q": int8, "s": f32}`` (``serving/quant_weights``)
+    is dequantized, on any device, as in the reference.  A FORMS leaf is
+    rebuilt densely on the CPU only: on the card it is consumed by the
+    polarized-matmul kernel through :func:`linear`, and rebuilding it there
+    would serve around the kernel, so that raises.
     """
     v = p[name]
+    if isinstance(v, dict) and "q" in v:
+        return dequantize_leaf(v, dtype)
     if isinstance(v, FormsLinearParams):
         if v.mags.device.type != "cpu":
             raise NotImplementedError(
@@ -55,9 +60,11 @@ def wload(p: Params, name: str, dtype: torch.dtype) -> torch.Tensor:
 
 
 def linear(p: Params, name: str, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """``x @ W`` where ``W = p[name]`` is dense or FORMS-compressed; every
-    compressed weight goes through the polarized matmul, which takes 2-D
-    weights only (a stacked or conv leaf raises)."""
+    """``x @ W`` where ``W = p[name]`` is dense, int-grid or FORMS-compressed;
+    every compressed weight goes through the polarized matmul, which takes
+    2-D weights only (a stacked or conv leaf raises).  Dense and int-grid
+    weights are a ``torch.matmul`` (the reference's int path runs outside
+    any Pallas kernel too)."""
     v = p[name]
     if isinstance(v, FormsLinearParams):
         return forms_apply(v, x, tag=name).to(dtype)
@@ -210,15 +217,19 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
 def write_view(view: torch.Tensor, rows: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
     """Write ``rows`` (B, T, ...) into a (B, S, ...) cache view at the (B, T)
     position grid, in place; positions past S are dropped (JAX's scatter
-    semantics)."""
-    b = view.shape[0]
-    s = view.shape[1]
+    semantics).  A dropped write lands on row S-1 carrying that row's final
+    value, so the duplicate writes there agree whatever their order."""
+    b, s = view.shape[:2]
     bidx = torch.arange(b, device=view.device)[:, None].expand_as(grid)
-    live = grid < s
-    idx = grid.clamp(max=s - 1).long()
-    keep = view[bidx, idx]
-    sel = live.reshape(*live.shape, *([1] * (rows.ndim - 2)))
-    view[bidx, idx] = torch.where(sel, rows, keep)
+    tail = (-1,) + (1,) * (rows.ndim - 2)
+    live = (grid < s).reshape(*grid.shape, *tail[1:])
+    last = view[:, s - 1]
+    if grid.shape[1] > 1:
+        # a row of several tokens may write S-1 and drop others onto it
+        hit = grid == s - 1                               # at most one t per row
+        t_hit = hit.to(torch.int8).argmax(dim=1)
+        last = torch.where(hit.any(dim=1).reshape(tail), rows[bidx[:, 0], t_hit], last)
+    view[bidx, grid.clamp(max=s - 1).long()] = torch.where(live, rows, last[:, None])
     return view
 
 

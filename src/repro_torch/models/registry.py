@@ -25,11 +25,15 @@ class Model:
     ``init(seed)`` makes random params on the device; ``forward(params,
     batch, remat=, return_hidden=)`` is the full-sequence pass training
     takes; ``head_matrix(params)`` the LM head training reads (the tied
-    ``embed.T``, never the serving copy); ``prefill_paged(params,
-    tokens (1, S), cache, pages, slot, length)`` returns the logits (1, V) at
-    ``length - 1`` and writes the prompt's pages; ``decode_paged(params,
-    tokens (B, T), cache, pos (B,), block_tables)`` returns (B, T, V) logits
-    and commits the new tokens.
+    ``embed.T``, never the serving copy).  Serving has two caches: the
+    dense slot cache (``init_cache(batch, max_len)``; ``prefill(params,
+    tokens (1, S), cache, slot, length)`` and ``decode_step(params, tokens
+    (B, T), cache, pos (B,))``) and the paged one (``init_paged_cache``;
+    ``prefill_paged(params, tokens, cache, pages, slot, length)`` writes the
+    prompt's pages, ``decode_paged(params, tokens, cache, pos,
+    block_tables)`` commits the new tokens).  The prefills return the
+    logits (1, V) at ``length - 1``, the decodes (B, T, V): T is 1 in plain
+    decoding and K+1 in a speculative verify.
     """
 
     config: ModelConfig
@@ -37,10 +41,18 @@ class Model:
     init: Callable[..., Params]
     forward: Callable[..., Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
     head_matrix: Callable[[Params], Any]
+    init_cache: Callable[..., Any]
+    prefill: Callable[..., Tuple[torch.Tensor, Any]]
+    decode_step: Callable[..., Tuple[torch.Tensor, Any]]
     init_paged_cache: Callable[..., Any]
     prefill_paged: Callable[..., Tuple[torch.Tensor, Any]]
     decode_paged: Callable[..., Tuple[torch.Tensor, Any]]
     serving_params: Callable[[Params], Params]
+
+    @property
+    def supports_paged(self) -> bool:
+        return (self.init_paged_cache is not None and self.prefill_paged is not None
+                and self.decode_paged is not None)
 
 
 _NOT_PORTED = {
@@ -76,6 +88,12 @@ def build(cfg: ModelConfig, device: Union[str, torch.device, None] = DEFAULT_DEV
         init=init,
         forward=lambda params, batch, **kw: mod.forward(cfg, params, batch, **kw),
         head_matrix=lambda params: mod.head_matrix(cfg, params),
+        init_cache=lambda batch, max_len, dtype=torch.bfloat16:
+            mod.init_cache(cfg, batch, max_len, dev, dtype),
+        prefill=lambda params, tokens, cache, slot, length:
+            mod.prefill(cfg, params, tokens, cache, slot, length),
+        decode_step=lambda params, tokens, cache, pos:
+            mod.decode_step(cfg, params, tokens, cache, pos),
         init_paged_cache=lambda num_pages, page_size, dtype=torch.bfloat16:
             mod.init_paged_cache(cfg, num_pages, page_size, dev, dtype),
         prefill_paged=lambda params, tokens, cache, pages, slot, length:

@@ -150,6 +150,14 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor], *,
     return L.lm_logits(x, _serving_head(cfg, params), dtype), {}
 
 
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device,
+               dtype=torch.bfloat16) -> Dict[str, torch.Tensor]:
+    """The dense slot cache: ``(L, batch, max_len, kv, hd)`` per leaf."""
+    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.hd())
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
 def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
                      device, dtype=torch.bfloat16) -> KV.PagedKVCache:
     """Page-pool cache of ``(L, num_pages, page_size, kv, hd)`` per leaf.
@@ -179,6 +187,20 @@ def _prefill_core(cfg: ModelConfig, params: Params, tokens: torch.Tensor, length
     x_last = x[:, length - 1:length]
     logits = L.lm_logits(x_last, _serving_head(cfg, params), dtype)
     return logits[:, 0], {"k": torch.stack(ks), "v": torch.stack(vs)}
+
+
+def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+            cache: Dict[str, torch.Tensor], slot: int, length: int
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Bulk prefill of one slot of the dense cache: the (1, S) padded
+    prompt's rows are written at ``[:, slot, :S]`` in place.  Padded rows
+    sit past the slot's length and are rewritten before a mask admits
+    them."""
+    logits, rows = _prefill_core(cfg, params, tokens, length)
+    for name, arr in rows.items():
+        leaf = cache[name]
+        leaf[:, slot:slot + 1, :arr.shape[2]] = arr.to(leaf.dtype)
+    return logits, cache
 
 
 def prefill_paged(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
@@ -211,6 +233,19 @@ def _decode_core(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     logits = L.lm_logits(x, _serving_head(cfg, params), dtype)
     return logits, torch.stack(k_tok), torch.stack(v_tok)
+
+
+def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+                cache: Dict[str, torch.Tensor], pos: torch.Tensor
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Decode step on the dense cache.  tokens: (B, T); pos: (B,) positions
+    of the first token.  The attention layers write the new rows straight
+    into the cache leaves (positions past max_len are dropped), which is
+    the reference's token-column commit, done in place."""
+    b = tokens.shape[0]
+    pos = pos.to(torch.int32).expand(b)
+    logits, _, _ = _decode_core(cfg, params, tokens, cache["k"], cache["v"], pos)
+    return logits, cache
 
 
 def decode_paged(cfg: ModelConfig, params: Params, tokens: torch.Tensor,

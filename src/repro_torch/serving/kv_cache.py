@@ -11,10 +11,12 @@ Device side:
   ...)`` per leaf).
 * :func:`gather_views` — block-table gather producing the per-slot
   contiguous ``(layers, slots, cap, ...)`` views decode attention reads.
-* :func:`commit_tokens` / :func:`commit_pages` — the decode-step write of new
-  token rows into their pages, and the bulk-prefill write of whole pages.
-  Both update the pool **in place** (``index_put_``): the port's
-  counterpart of the reference's donated, aliased jit buffers.
+* :func:`commit_tokens` / :func:`commit_token` / :func:`commit_pages` — the
+  decode-step write of new token rows into their pages, and the
+  bulk-prefill write of whole pages; :func:`rollback_tokens` zeroes the
+  rejected rows of a speculative round.  All update the pool **in place**
+  (``index_put_``): the port's counterpart of the reference's donated,
+  aliased jit buffers.
 
 Host side (plain Python): :class:`PageAllocator` (free list + refcounts;
 page 0 is the reserved scratch page, written but never read) and
@@ -71,14 +73,19 @@ def gather_views(cache: PagedKVCache, block_tables: torch.Tensor
     return out
 
 
-def resolve_pages(block_tables: torch.Tensor, grid: torch.Tensor, page_size: int
+def resolve_pages(block_tables: torch.Tensor, grid: torch.Tensor, page_size: int,
+                  select: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Resolve a (slots, T) position grid to (page, offset) grids; positions
-    past the block table go to the scratch page, never onto a live page."""
+    past the block table go to the scratch page, never onto a live page.
+    ``select`` (bool, the grid's shape) also sends de-selected positions to
+    scratch (the rollback's "touch only the rejected rows")."""
     n_tables = block_tables.shape[1]
     bidx = torch.arange(grid.shape[0], device=grid.device)[:, None]
     pidx = torch.div(grid, page_size, rounding_mode="floor")
     live = pidx < n_tables
+    if select is not None:
+        live = live & select
     page = torch.where(live,
                        block_tables[bidx, pidx.clamp(max=n_tables - 1).long()],
                        torch.full_like(block_tables[bidx, 0], SCRATCH_PAGE))
@@ -104,6 +111,34 @@ def commit_tokens(cache: PagedKVCache, toks: Dict[str, torch.Tensor],
     for name, tok in toks.items():
         pool = cache.pool[name]
         pool[:, page, off] = tok.to(pool.dtype)
+    return cache
+
+
+def commit_token(cache: PagedKVCache, toks: Dict[str, torch.Tensor],
+                 block_tables: torch.Tensor, pos: torch.Tensor) -> PagedKVCache:
+    """Write each slot's single new-token row into its page, in place.
+    ``toks``: per-leaf ``(layers, slots, ...)`` rows; ``pos``: (slots,)
+    write positions.  The T=1 view of :func:`commit_tokens`."""
+    return commit_tokens(cache, {n: v[:, :, None] for n, v in toks.items()},
+                         block_tables, pos.to(torch.int32)[:, None])
+
+
+def rollback_tokens(cache: PagedKVCache, block_tables: torch.Tensor,
+                    pos: torch.Tensor, keep: torch.Tensor, t: int) -> PagedKVCache:
+    """Scrub a tentative ``t``-row commit at ``pos .. pos+t-1`` back to
+    ``keep`` rows per slot, in place: the rejected rows ``pos+keep ..
+    pos+t-1`` are zeroed.  The positional rollback (the scheduler's cursor
+    moving back to ``pos + keep``) is already sound, since every decode
+    mask admits only ``kpos <= pos`` and every row is rewritten before its
+    position enters a mask; this is its auditing form.  Kept rows, and rows
+    of other slots, are untouched: their zero-writes go to scratch."""
+    pos = pos.to(torch.int32)
+    offs = torch.arange(t, dtype=torch.int32, device=pos.device)[None, :]
+    page, off = resolve_pages(block_tables, pos[:, None] + offs, cache.page_size,
+                              select=offs >= keep.to(torch.int32)[:, None])
+    page, off = page.long(), off.long()
+    for pool in cache.pool.values():
+        pool[:, page, off] = torch.zeros((), dtype=pool.dtype, device=pool.device)
     return cache
 
 

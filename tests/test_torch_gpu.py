@@ -384,6 +384,48 @@ def test_engine_block_skip_tokens_equal_dense_on_the_card():
     assert tokens["block"] == tokens["off"]
 
 
+@pytest.mark.gpu
+@needs_card
+def test_speculative_engine_on_the_card_equals_the_cpu():
+    """A reduced f32 qwen2 (FORMS target, 4-bit FORMS draft) served
+    speculatively on the card and on the CPU from the same tree: the same
+    greedy tokens and acceptance, and the f32 kernel launched 7 x layers
+    times per model call: two prefills per admission, kk + 1 draft calls
+    and one verify per round of width kk."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.forms import FormsLinearParams, FormsSpec, compress_tree
+    from repro_torch.models.registry import build
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    def to(tree, dev):
+        if isinstance(tree, dict):
+            return {k: to(v, dev) for k, v in tree.items()}
+        if isinstance(tree, FormsLinearParams):
+            return dataclasses.replace(tree, mags=tree.mags.to(dev), signs=tree.signs.to(dev),
+                                       scale=tree.scale.to(dev))
+        return tree.to(dev)
+
+    cfg = dataclasses.replace(get_reduced("qwen2-1.5b"), dtype="float32")
+    tree, _ = compress_tree(build(cfg, device="cpu").init(0), FormsSpec(m=8, bits=8))
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab_size, rng.randint(3, 12)) for _ in range(3)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        eng = ServingEngine(build(cfg, device=dev), to(tree, dev), spec=FormsSpec(m=8, bits=8),
+                            speculate=True, draft_k=3, draft_bits=4, max_len=32,
+                            batch_slots=2, page_size=8, device=dev)
+        before = pm.polarized_matmul.launches
+        res = eng.run([Request(uid=i, prompt=p, max_new_tokens=8) for i, p in enumerate(prompts)])
+        calls = 2 * len(res) + sum(kk + 2 for kk in eng.runner.round_widths)
+        out[dev] = ({r.uid: r.tokens for r in res}, eng.stats()["speculate"],
+                    pm.polarized_matmul.launches - before, 7 * cfg.num_layers * calls)
+    assert out["cuda"][0] == out["cpu"][0]
+    assert out["cuda"][1] == out["cpu"][1]
+    assert out["cuda"][2] == out["cuda"][3]
+
+
 def _polarize_input(seed, shape, m):
     """Random values with the edge cases planted in every layer: a fragment
     summing to exactly 0, one of -0.0 entries, one holding a NaN."""

@@ -1,7 +1,8 @@
-"""PyTorch port vs the JAX package: paged serving end to end.
+"""PyTorch port vs the JAX package: serving end to end.
 
 Greedy decoding must give the reference engine's tokens exactly, on the
-paged cache, with and without FORMS and with the prefix cache on and off,
+paged cache and on the dense slot cache, with and without FORMS and with
+the prefix cache on and off,
 at ``dtype="float32"`` (as ``tests/test_serving_paged.py`` runs the
 reference).  Temperature sampling draws from another generator than
 ``jax.random``, so it is held to determinism per seed, not to JAX's tokens.
@@ -92,12 +93,44 @@ def test_temperature_sampling_is_deterministic_per_seed():
 def test_unported_options_are_refused():
     _, _, tm, tp = models()
     kw = dict(max_len=32, batch_slots=2, device="cpu")
-    for extra in (dict(page_size=0), dict(mesh=object()), dict(speculate=True),
+    for extra in (dict(mesh=object()), dict(draft_plan={"attn/wq": tforms.FormsSpec()}),
                   dict(health=object()), dict(slo={})):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item"):
             TEngine(tm, tp, **kw, **{"page_size": 8, **extra})
     with pytest.raises(ValueError, match="plan="):
         TEngine(tm, tp, page_size=8, plan={"attn/wq": tforms.FormsSpec()}, **kw)
+
+
+@pytest.mark.parametrize("forms", [False, True], ids=["dense", "forms"])
+def test_dense_slot_cache_tokens_equal_reference_and_paged(forms):
+    """``page_size=0`` serves on the dense (layers, slots, max_len, ...)
+    cache: greedy tokens equal the reference's dense engine and the port's
+    paged engine."""
+    jm, jp, tm, tp = models()
+    if forms:
+        jp, tp = shared_codes()
+    common = dict(max_len=32, batch_slots=2, forms=forms)
+    je = JEngine(jm, jp, **common)                        # the reference's default: dense
+    te = TEngine(tm, tp, device="cpu", page_size=0, **common)
+    want = _tokens(je.run(_requests(JRequest)))
+    got = _tokens(te.run(_requests(TRequest)))
+    paged = _tokens(TEngine(tm, tp, device="cpu", page_size=8, **common)
+                    .run(_requests(TRequest)))
+    assert not je.paged and not te.paged and te.page_allocator is None
+    assert got == want == paged
+    assert te.cache_bytes() == je.cache_bytes()
+    assert "pages" not in te.stats() and te.stats()["max_concurrent"] == 2
+
+
+def test_speculate_on_the_dense_cache_falls_back_like_reference():
+    jm, jp, tm, tp = models()
+    common = dict(max_len=32, batch_slots=2, speculate=True)
+    je = JEngine(jm, jp, **common)
+    te = TEngine(tm, tp, device="cpu", page_size=0, **common)
+    assert not je.speculative and not te.speculative
+    got = _tokens(te.run(_requests(TRequest)))
+    assert got == _tokens(TEngine(tm, tp, device="cpu", max_len=32, batch_slots=2,
+                                  page_size=0).run(_requests(TRequest)))
 
 
 def test_gather_commit_roundtrip_matches_reference():
@@ -152,3 +185,25 @@ def test_launcher_serves_on_the_cpu_when_asked():
     assert "forms: 7 leaves compressed" in text
     assert "3 requests, 12 tokens" in text and "device=cpu" in text
     assert jforms.FormsSpec().rule == tforms.FormsSpec().rule == "energy"
+
+
+@pytest.mark.parametrize("flags,expect", [
+    (["--forms", "--speculate", "--draft-k", "3", "--draft-bits", "4"],
+     ("speculate: k=3, 4-bit forms draft, layer_step=1", "acceptance ")),
+    (["--forms", "--speculate", "--draft-mode", "int", "--draft-bits", "8",
+      "--draft-layer-step", "2", "--no-adaptive-k"],
+     ("speculate: k=4, 8-bit int draft, layer_step=2 (int grid)", "tok/round ")),
+    (["--page-size", "0", "--speculate"],
+     ("dense slot cache: 4 slots x 32 rows", "speculate: unsupported on the dense cache")),
+], ids=["speculate-forms", "speculate-int", "dense-cache"])
+def test_launcher_serves_speculatively_and_densely_on_the_cpu(flags, expect):
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        tserve.main(["--reduced", "--device", "cpu", "--requests", "3",
+                     "--max-new-tokens", "5", "--max-len", "32"] + flags)
+    text = out.getvalue()
+    assert "3 requests, 15 tokens" in text and "device=cpu" in text
+    for line in expect:
+        assert line in text, text
+    with pytest.raises(SystemExit, match="item 8"):
+        tserve.main(["--reduced", "--device", "cpu", "--speculate", "--auto-draft"])
