@@ -64,32 +64,60 @@ Phases, each printing JSON lines:
                version and timed beside it, the bf16 library call and the
                bound; with ``--trace-speculate``, one speculative run traced
                (device busy vs idle);
-9. zero_skip — the same model with ReLU and 50% fragment sparsity, one tree
+9. fleet     — the SLO fleet scheduler on the slice's model and engine
+               settings: the seeded open-loop trace of 24 requests (16-64
+               token prompts, two of 192, a quarter batch class) served with
+               every arrival at 0 on the plain scheduler (its capacity), then
+               at 0.8 of that rate with bulk admission and with chunked
+               prefill (32-token chunks, 128-token round budget): per class
+               TTFT and inter-token p50/p99, preemptions, deadline misses,
+               wall, tok/s, chunk widths; a preemption case (four batch
+               requests, then an interactive one); the speculative fleet (a
+               4-bit draft, K=4, chunked admission) on 8 requests.  Every
+               request's tokens equal the plain engine's or part first at a
+               near-tie below the measured logit difference of bulk prefill
+               and the fleet's admissions (chunks, resumes), every token
+               within it under teacher forcing; each run's launches equal
+               the reckoning from its recorded prefills, chunks and rounds;
+10. checkpoint_serve — the slice's compressed tree saved with its spec,
+               rebuilt from the meta and a fresh init, restored onto the card
+               and served: bit for bit, the slice's tokens exactly; save and
+               restore ms, bytes on disk against the f32 tree's;
+11. zero_skip — the same model with ReLU and 50% fragment sparsity, one tree
                compressed once, served with zero_skip off, block and compact:
                block gives off's tokens through the skip kernel, compact's
                tokens are compared, one compact decode call runs with host
                syncs forbidden; the batch-union dead share of the decode
                activations (M=4) in m-row fragments and in 256-row slices;
-10. fidelity — ``forms.apply_simulated`` on layer 0's wq/wk/wv/gate/up of
+12. fidelity — ``forms.apply_simulated`` on layer 0's wq/wk/wv/gate/up of
                that tree: the bit-serial kernel against its plain version,
                mean EIC and cycle savings; then the kernel alone on each
                leaf's M=64 operands, exact at ideal and 4-bit ADCs, timed;
-11. polarize — the fragment-polarization kernel of the ADMM Z-update
+13. polarize — the fragment-polarization kernel of the ADMM Z-update
                against its plain version at the seven stacked full-width
                qwen2-1.5b leaves, both sign rules, bit for bit (a case with
                zero-sum fragments, -0.0 and NaN too), with CUDA-event times
                of the kernel and the plain version beside the byte bound;
-12. train_small — a reduced qwen2 (f32) trained two steps plus one fresh
+14. train_small — a reduced qwen2 (f32) trained two steps plus one fresh
                Z-update on the card and on the CPU from the same params:
                losses agree, every Z leaf is polarized;
-13. train    — full-width qwen2-1.5b (random weights from a seed) trained
+15. train    — full-width qwen2-1.5b (random weights from a seed) trained
                through ``repro_torch.training`` with ADMM: 6 steps of 8 x
                256 tokens, Z-updates after steps 2 (fresh), 4 (fresh, sign
                refresh) and 6 (frozen); per-step ms, tokens/s, peak memory,
                Z-update ms, the kernel's launches (14) and every Z leaf's
                violation (0); one traced step and one step with host syncs
                forbidden;
-14. kernels  — one JSON object summarising every kernel of the main paths.
+16. checkpoint — checkpointed ADMM training of qwen2-1.5b at full width,
+               depth cut to 2 layers, the train phase's settings: run A (4
+               steps) twice, run B (2 steps, ``save_async`` after the step-2
+               Z-update, restored into a fresh template, 2 more): restored ==
+               saved bit for bit, B's params equal A's (or within A's own
+               repeat difference), the polarization kernel 7 times per fresh
+               Z-update; save/restore ms and GB/s; B's params compressed,
+               saved, restored and served with the tokens served from memory;
+17. total    — the script's seconds so far;
+18. kernels  — one JSON object summarising every kernel of the main paths.
 
 Then the card's ``nvidia-smi`` line and, last, ``{"ok": true, ...}``.  Any
 failure raises and the script exits non-zero; without CUDA it exits 1 and
@@ -101,9 +129,11 @@ import dataclasses
 import json
 import math
 import pathlib
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -928,6 +958,20 @@ def verify_threshold(engine, prompts, tokens, widths):
     return max(per.values()), per
 
 
+def forced_logits(engine, admitted, seq):
+    """The logits of every row of ``seq`` (B, T) teacher-forced after an
+    admission (``prefilled`` or ``chunk_prefilled`` output): the first
+    logits, then T-1 decode steps at M = slots.  (B, T, V), f32."""
+    import torch
+    r = engine.runner
+    cache, tables, pos, first = admitted
+    rows = [first]
+    for t in range(seq.shape[1] - 1):
+        lg, cache = r.model.decode_paged(r.params, seq[:, t:t + 1], cache, pos + t, tables)
+        rows.append(lg[:, 0])
+    return torch.stack(rows, dim=1).float()
+
+
 def teacher_forced_margins(engine, prompts, tokens):
     """Every emitted greedy token under teacher forcing on the served
     target's plain path (its prefill, then T=1 ``decode_paged`` steps at
@@ -937,15 +981,9 @@ def teacher_forced_margins(engine, prompts, tokens):
     import torch
     from repro_torch.forms import default_spec
 
-    r = engine.runner
     seq = torch.tensor([tokens[i] for i in range(len(prompts))], device="cuda")
-    with torch.inference_mode(), default_spec(r.spec):
-        cache, tables, pos, first = prefilled(engine, prompts)
-        rows = [first]
-        for t in range(seq.shape[1] - 1):
-            lg, cache = r.model.decode_paged(r.params, seq[:, t:t + 1], cache, pos + t, tables)
-            rows.append(lg[:, 0])
-        logits = torch.stack(rows, dim=1).float()
+    with torch.inference_mode(), default_spec(engine.runner.spec):
+        logits = forced_logits(engine, prefilled(engine, prompts), seq)
         picked = logits.gather(2, seq[..., None].long())[..., 0]
         return (logits.amax(dim=-1) - picked).cpu()
 
@@ -1195,6 +1233,564 @@ def phase_speculate(model, cfg, prompts, plain_engine, plain_tokens, trace=False
                       "launches_expected": dense_want, **brief(dense_run)},
          tokens=spec_runs[0]["tokens"])
     return spec_runs[0]["launches"], shapes
+
+
+# --------------------------------------------------------------------------
+# the fleet phase: the SLO fleet scheduler under the seeded open-loop load
+# --------------------------------------------------------------------------
+
+FLEET_TRACE = dict(n_requests=24, seed=0, prompt_len=(16, 64), out_len=(8, 16),
+                   batch_frac=0.25, adversarial_len=192, adversarial_count=2, temperature=0.0)
+FLEET_LOAD = 0.8            # the open-loop rate, as a share of the measured capacity
+FLEET_SPEC_REQUESTS = 8     # requests of the trace served by the speculative fleet
+RESUME_AT = 8               # the resume point of the threshold's resumed path
+
+
+def chunk_prefilled(engine, prompts, chunk: int = 32):
+    """As :func:`prefilled`, but the prompts admitted together in chunks of
+    ``chunk`` tokens, one multi-token ``decode_paged`` over all slots per
+    round at the fleet's pow2 widths (M = slots x width): (cache, tables,
+    positions, each prompt's first-token logits)."""
+    import torch
+    from repro_torch.serving import kv_cache as KV
+
+    r = engine.runner
+    model, params, ps = r.model, r.params, r.page_size
+    slots, n_tables = len(prompts), KV.pages_for(r.max_len, r.page_size)
+    cache = model.init_paged_cache(slots * n_tables + 1, ps)
+    tables = torch.arange(1, slots * n_tables + 1, dtype=torch.int32,
+                          device="cuda").reshape(slots, n_tables)
+    filled = [0] * slots
+    first = [None] * slots
+    while any(f < len(p) for f, p in zip(filled, prompts)):
+        takes = [min(chunk, len(p) - f) for f, p in zip(filled, prompts)]
+        width = r.chunk_width(max(takes))
+        toks = torch.zeros((slots, width), dtype=torch.int32, device="cuda")
+        live = torch.zeros((slots, 1), dtype=torch.int32, device="cuda")
+        for s, (p, f, t) in enumerate(zip(prompts, filled, takes)):
+            if t:
+                toks[s, :t] = torch.as_tensor(p[f:f + t], device="cuda")
+                live[s] = 1
+        pos = torch.tensor(filled, dtype=torch.int32, device="cuda")
+        logits, cache = model.decode_paged(params, toks, cache, pos, tables * live)
+        for s, t in enumerate(takes):
+            if t:
+                filled[s] += t
+                if filled[s] == len(prompts[s]):
+                    first[s] = logits[s, t - 1]
+    pos = torch.tensor([len(p) for p in prompts], dtype=torch.int32, device="cuda")
+    return cache, tables, pos, torch.stack(first)
+
+
+def fleet_threshold(engine, prompts, tokens):
+    """The largest |logit difference| between the plain path (bulk prefill,
+    then T=1 decode over the plain greedy tokens) and the admissions the
+    fleet makes instead: chunks of 32 (M = slots x width), and a resume
+    that re-prefills prompt + the first RESUME_AT tokens, in bulk and in
+    chunks.  Returns the worst and the worst per admission."""
+    import torch
+    from repro_torch.forms import default_spec
+
+    seq = torch.tensor([tokens[i] for i in range(len(prompts))], device="cuda")
+    per = {}
+    with torch.inference_mode(), default_spec(engine.runner.spec):
+        plain = forced_logits(engine, prefilled(engine, prompts), seq)
+        per["chunked"] = float((forced_logits(engine, chunk_prefilled(engine, prompts), seq)
+                                - plain).abs().max())
+        resumed = [list(p) + tokens[i][:RESUME_AT] for i, p in enumerate(prompts)]
+        for name, admit in (("resume_bulk", prefilled), ("resume_chunked", chunk_prefilled)):
+            per[name] = float((forced_logits(engine, admit(engine, resumed), seq[:, RESUME_AT:])
+                               - plain[:, RESUME_AT:]).abs().max())
+    return max(per.values()), per
+
+
+def forced_margins(engine, prompts, token_lists):
+    """:func:`teacher_forced_margins` of requests of any lengths, four at a
+    time (M = 4 slots, as the plain engine decodes); short ones are padded
+    and the padding is not counted.  One tensor per request."""
+    out = []
+    for g in range(0, len(prompts), 4):
+        ps = list(prompts[g:g + 4])
+        ts = [list(t) for t in token_lists[g:g + 4]]
+        n = len(ps)
+        ps += [ps[0]] * (4 - n)
+        ts += [ts[0]] * (4 - n)
+        width = max(len(t) for t in ts)
+        margins = teacher_forced_margins(engine, ps, [t + [t[-1]] * (width - len(t)) for t in ts])
+        out += [margins[i, :len(ts[i])] for i in range(n)]
+    return out
+
+
+def fleet_rule(engine, reqs, want, got, threshold, label):
+    """The token rule of the fleet runs, per request: ``got`` equals
+    ``want`` (the plain engine's tokens), or first parts from it where the
+    plain path's top-2 margin is below ``threshold``, and every token of
+    ``got``, teacher-forced on the plain path, lies within ``threshold`` of
+    its row's largest logit."""
+    import torch
+    by_uid = {r.uid: r for r in reqs}
+    parted = [uid for uid in got if got[uid] != want[uid]]
+    divergences = []
+    for uid in parted:
+        a, b = want[uid], got[uid]
+        i = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+        if len(a) != len(b):
+            raise AssertionError(f"{label}: request {uid} returned {len(b)} tokens, "
+                                 f"the plain engine {len(a)}")
+        top2 = torch.topk(target_logits(engine, list(by_uid[uid].prompt) + a[:i])[-1], 2).values
+        div = {"uid": uid, "step": i, "want_token": a[i], "got_token": b[i],
+               "top2_margin": float(top2[0] - top2[1])}
+        divergences.append(div)
+        if not div["top2_margin"] < threshold:
+            raise AssertionError(f"{label}: a greedy token parted from the plain engine's away "
+                                 f"from a near-tie: {div}, threshold {threshold}")
+    misses, worst = 0, 0.0
+    if parted:
+        margins = forced_margins(engine, [by_uid[u].prompt for u in parted],
+                                 [got[u] for u in parted])
+        misses = sum(int((m > threshold).sum()) for m in margins)
+        worst = max(float(m.max()) for m in margins)
+        if misses:
+            raise AssertionError(f"{label}: {misses} teacher-forced tokens lie more than "
+                                 f"{threshold} below their row's largest logit")
+    return {"requests": len(got), "parted": len(parted), "divergences": divergences,
+            "teacher_forced_misses": misses, "teacher_forced_max_margin": worst}
+
+
+def recorded(runner):
+    """Record on ``runner`` the bulk prefill buckets and the decode rounds
+    of the runs that follow (``runner.chunk_widths`` records the chunks)."""
+    log = {"prefill_buckets": [], "decode_rounds": 0}
+    prefill_slot, decode_round = runner.prefill_slot, runner.decode_round
+
+    def rec_prefill(slot, prompt, *a, **k):
+        log["prefill_buckets"].append(runner.bucket_for(len(prompt)))
+        return prefill_slot(slot, prompt, *a, **k)
+
+    def rec_round(*a, **k):
+        log["decode_rounds"] += 1
+        return decode_round(*a, **k)
+
+    runner.prefill_slot, runner.decode_round = rec_prefill, rec_round
+    return log
+
+
+def fleet_reckoning(per_call, slots, decode_block, log, chunk_widths, round_widths=None):
+    """[f32, tensor-core] launches of a fleet run, from what it recorded:
+    a bulk prefill at M = bucket, a chunk at M = slots x width, a plain
+    decode round of ``decode_block`` calls at M = slots.  On the
+    speculative runner every admission and chunk runs twice (target and
+    FORMS draft) and a round of width kk runs kk + 1 draft calls at M =
+    slots and a verify at M = slots x (kk + 1)."""
+    rows = log["prefill_buckets"] + [slots * w for w in chunk_widths]
+    if round_widths is None:
+        return route_split(per_call, rows, log["decode_rounds"] * decode_block, slots)
+    admitted = route_split(2 * per_call, rows, 0, slots)
+    rounds = route_split(per_call, [slots * (kk + 1) for kk in round_widths],
+                         sum(kk + 1 for kk in round_widths), slots)
+    return [a + b for a, b in zip(admitted, rounds)]
+
+
+def phase_fleet(plain_engine, plain_tokens):
+    """The SLO fleet scheduler on the slice-1 model and engine settings.
+    Capacity: the trace with every arrival at 0 on the plain scheduler;
+    then one open-loop trace at FLEET_LOAD of it served with bulk admission
+    and with chunked prefill (SLOConfig defaults), a preemption case, and
+    the speculative fleet with chunked admission.  Every request's tokens
+    pass the token rule against the plain engine's, with the threshold
+    measured here (``fleet_threshold``, plus ``verify_threshold`` for the
+    speculative fleet); each run's launches equal the reckoning from its
+    recorded prefills, chunk widths and rounds.  Returns the chunked run's
+    launches and their reckoning."""
+    import numpy as np
+    import torch
+    from repro_torch.forms import FormsSpec
+    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.serving.loadgen import LoadGenConfig, generate
+    from repro_torch.serving.sched import SLOConfig
+
+    model, cfg = plain_engine.model, plain_engine.cfg
+    spec = FormsSpec(m=8, bits=8, rule="energy")
+    tree = {k: v for k, v in plain_engine.params.items() if k != "head_cast"}
+    per_call = 7 * cfg.num_layers
+    common = dict(spec=spec, page_size=16, batch_slots=4, max_len=256, decode_block=4,
+                  device="cuda")
+    prompts = slice_prompts(cfg)
+    threshold, per_admission = fleet_threshold(plain_engine, prompts, plain_tokens)
+
+    def trace(rate, zero_arrivals=False):
+        reqs = generate(LoadGenConfig(vocab=cfg.vocab_size, rate=rate, **FLEET_TRACE))
+        if zero_arrivals:
+            reqs = [dataclasses.replace(r, arrival_s=0.0) for r in reqs]
+        return reqs
+
+    def serve(eng, reqs):
+        log = recorded(eng.runner)
+        widths0 = len(eng.runner.chunk_widths)
+        rounds0 = len(getattr(eng.runner, "round_widths", []))
+        if hasattr(eng.scheduler, "reset_slo_stats"):
+            eng.scheduler.reset_slo_stats()
+        torch.cuda.synchronize()
+        reset_counts()
+        t = time.perf_counter()
+        results = eng.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts = launch_counts()
+        del eng.runner.prefill_slot, eng.runner.decode_round      # drop the recorders
+        toks = {r.uid: list(r.tokens) for r in results}
+        want_len = {r.uid: r.max_new_tokens for r in reqs}
+        for uid, tk in toks.items():
+            if len(tk) != want_len[uid] or not all(0 <= v < cfg.vocab_size for v in tk):
+                raise AssertionError(f"request {uid} returned {tk}")
+        if set(toks) != set(want_len):
+            raise AssertionError(f"requests {set(want_len) - set(toks)} never completed")
+        chunks = list(eng.runner.chunk_widths)[widths0:]
+        rounds = list(getattr(eng.runner, "round_widths", []))[rounds0:]
+        want = fleet_reckoning(per_call, eng.slots, eng.decode_block, log, chunks,
+                               rounds if eng.speculative else None)
+        got = [counts["polarized_matmul"], counts["polarized_matmul_tc"]]
+        rec = {"wall_s": wall, "requests": len(results),
+               "tokens": sum(len(t) for t in toks.values()),
+               "tok_s": sum(len(t) for t in toks.values()) / wall,
+               "bulk_prefills": len(log["prefill_buckets"]), "chunk_widths": chunks,
+               "decode_rounds": log["decode_rounds"], "launches": got,
+               "launches_expected": want}
+        if eng.speculative:
+            rec["round_widths"] = rounds
+        if "slo" in eng.stats():
+            s = eng.stats()["slo"]
+            rec["slo"] = {k: s[k] for k in ("ttft_ms", "inter_token_ms", "completed",
+                                            "preemptions", "resumes", "deadline_misses",
+                                            "chunked_prefill")}
+            rec["slo"]["per_class"] = {
+                c: {k: v[k] for k in ("ttft_ms", "inter_token_ms", "completed",
+                                      "deadline_misses", "preemptions", "queue_peak")}
+                for c, v in s["per_class"].items()}
+        if got != want:
+            raise AssertionError(f"the fleet run launched {got}, its recorded prefills, "
+                                 f"chunks and rounds give {want}: {rec}")
+        return toks, rec
+
+    capacity_reqs = trace(1.0, zero_arrivals=True)
+    plain_toks, capacity = serve(plain_engine, capacity_reqs)
+    rate = FLEET_LOAD * capacity["requests"] / capacity["wall_s"]
+    reqs = trace(rate)
+    runs = {"capacity": capacity}
+    toks = {}
+    for name, slo in (("bulk", SLOConfig(prefill_chunk=0)), ("chunked", SLOConfig())):
+        eng = ServingEngine(model, tree, slo=slo, **common)
+        toks[name], runs[name] = serve(eng, reqs)
+        runs[name]["token_rule"] = fleet_rule(plain_engine, reqs, plain_toks, toks[name],
+                                              threshold, name)
+        del eng
+        torch.cuda.empty_cache()
+    fleet_launches = (runs["chunked"]["launches"], runs["chunked"]["launches_expected"])
+
+    # preemption: four batch requests fill the slots (12 decode rounds
+    # each), an interactive one arrives 4 rounds in (a round's time from
+    # the capacity run)
+    round_s = capacity["wall_s"] / capacity["decode_rounds"]
+    rng = np.random.RandomState(5)
+    pre_reqs = [Request(uid=f"batch-{i}", prompt=p, max_new_tokens=48, priority="batch")
+                for i, p in enumerate(prompts)]
+    pre_reqs.append(Request(uid="interactive", prompt=rng.randint(0, cfg.vocab_size, 40),
+                            max_new_tokens=16, priority="interactive", arrival_s=4 * round_s))
+    pre_want, runs["preempt_plain"] = serve(plain_engine, pre_reqs)
+    eng = ServingEngine(model, tree, slo=SLOConfig(), **common)
+    pre_got, runs["preempt"] = serve(eng, pre_reqs)
+    del eng
+    torch.cuda.empty_cache()
+    if runs["preempt"]["slo"]["preemptions"] < 1 or runs["preempt"]["slo"]["resumes"] < 1:
+        raise AssertionError(f"the interactive arrival preempted nothing: {runs['preempt']}")
+    runs["preempt"]["token_rule"] = fleet_rule(plain_engine, pre_reqs, pre_want, pre_got,
+                                               threshold, "preempt")
+
+    # the speculative fleet: chunked admission advances the draft's pool too
+    eng = ServingEngine(model, tree, slo=SLOConfig(), speculate=True, draft_k=SPEC_K,
+                        draft_bits=4, draft_mode="forms", **common)
+    spec_threshold, _ = verify_threshold(eng, prompts, plain_tokens, (1, 2, 3, 4))
+    spec_reqs = reqs[:FLEET_SPEC_REQUESTS]
+    spec_got, runs["speculate"] = serve(eng, spec_reqs)
+    runs["speculate"]["spec_stats"] = eng.stats()["speculate"]
+    del eng
+    torch.cuda.empty_cache()
+    runs["speculate"]["token_rule"] = fleet_rule(
+        plain_engine, spec_reqs, {r.uid: toks["chunked"][r.uid] for r in spec_reqs},
+        spec_got, threshold + spec_threshold, "speculative fleet")
+    emit("fleet", arch=cfg.name, layers=cfg.num_layers, trace=FLEET_TRACE,
+         capacity_req_s=capacity["requests"] / capacity["wall_s"], rate_req_s=rate,
+         prompt_lens=[len(r.prompt) for r in reqs], threshold=threshold,
+         threshold_per_admission=per_admission, speculate_threshold=spec_threshold,
+         runs=runs)
+    return fleet_launches
+
+
+# --------------------------------------------------------------------------
+# the checkpoint phases: served checkpoints and checkpointed ADMM training
+# --------------------------------------------------------------------------
+
+CKPT_LAYERS = 2            # the training checkpoint's depth (full width)
+CKPT_STEPS = 4             # run A's steps; run B saves after step 2
+
+
+def dir_bytes(path) -> int:
+    """Bytes of the files under ``path``."""
+    return sum(f.stat().st_size for f in pathlib.Path(path).rglob("*") if f.is_file())
+
+
+def need_disk(path, nbytes: int) -> None:
+    """Fail, never skip, when ``path`` has less than ``nbytes`` free."""
+    free = shutil.disk_usage(path).free
+    if free < nbytes:
+        raise AssertionError(f"{path} has {free / 1e9:.1f} GB free, the checkpoint phase "
+                             f"writes {nbytes / 1e9:.1f} GB")
+
+
+def phase_checkpoint_serve(plain_engine, plain_tokens, root):
+    """The slice-1 compressed serving tree (full depth) saved with its spec,
+    read back through ``read_meta`` -> ``spec_from_meta`` -> a fresh init
+    (seed 1) compressed as the template -> ``restore`` onto the card, and
+    served: the greedy tokens equal ``phase_slice``'s exactly, the launches
+    the route's reckoning."""
+    import torch
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.core import paths
+    from repro_torch.forms import FormsSpec, compress_tree, spec_from_meta
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    model, cfg = plain_engine.model, plain_engine.cfg
+    spec = FormsSpec(m=8, bits=8, rule="energy")
+    tree = {k: v for k, v in plain_engine.params.items() if k != "head_cast"}
+    nbytes = sum(x.numel() * x.element_size() for x in ckpt.tree_leaves(tree))
+    need_disk(root, int(1.2 * nbytes))
+    path = str(pathlib.Path(root) / "serve")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    ckpt.save(path, tree, step=0, extra_meta=dataclasses.asdict(spec))
+    save_s = time.perf_counter() - t
+    disk = dir_bytes(path)
+    spec2 = spec_from_meta(ckpt.read_meta(path)["extra"])
+    with torch.inference_mode():
+        template, _ = compress_tree(model.init(1), spec2)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    restored, _ = ckpt.restore(path, template)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t
+    del template
+    equal = all(torch.equal(a, b) and a.dtype == b.dtype and a.device.type == "cuda"
+                for a, b in zip(ckpt.tree_leaves(restored), ckpt.tree_leaves(tree)))
+    engine = ServingEngine(model, restored, spec=spec2, page_size=16, batch_slots=4,
+                           max_len=256, decode_block=4, device="cuda")
+    prompts = slice_prompts(cfg)
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=16) for i, p in enumerate(prompts)]
+    rounds0 = engine.scheduler.rounds
+    reset_counts()
+    got = {r.uid: r.tokens for r in engine.run(reqs)}
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    launches = [counts["polarized_matmul"], counts["polarized_matmul_tc"]]
+    want = route_split(7 * cfg.num_layers, [engine.runner.bucket_for(len(p)) for p in prompts],
+                       (engine.scheduler.rounds - rounds0) * engine.decode_block, 4)
+    # the f32 tree this one compresses: the compressed leaves' dense bytes
+    # and the leaves left dense (f32 already)
+    f32_bytes = plain_engine.compression_report.bytes_dense + sum(
+        x.numel() * x.element_size() for x in paths.leaves(tree) if isinstance(x, torch.Tensor))
+    emit("checkpoint_serve", arch=cfg.name, layers=cfg.num_layers, spec=spec2 == spec,
+         leaves=len(ckpt.tree_leaves(tree)), tree_bytes=nbytes, bytes_on_disk=disk,
+         f32_tree_bytes=f32_bytes, save_ms=save_s * 1e3, restore_ms=restore_s * 1e3,
+         save_gb_s=disk / save_s / 1e9, restore_gb_s=disk / restore_s / 1e9,
+         restored_equal=equal, tokens_equal_slice=got == plain_tokens, launches=launches,
+         launches_expected=want)
+    del engine, restored
+    torch.cuda.empty_cache()
+    if not equal:
+        raise AssertionError("the restored serving tree differs from the saved one")
+    if got != plain_tokens:
+        raise AssertionError(f"the restored tree served {got}, the slice {plain_tokens}")
+    if launches != want:
+        raise AssertionError(f"the restored tree's run launched {launches}, expected {want}")
+    return launches
+
+
+def fresh_z_updates(tcfg, first: int, last: int, had_signs: bool) -> int:
+    """The fresh Z-updates (one polarization launch per stacked leaf) that
+    steps first+1 .. last make: the first one ever, and every
+    ``admm_sign_refresh_every``-th."""
+    n = 0
+    for s in range(first + 1, last + 1):
+        if s % tcfg.admm_update_every:
+            continue
+        z = s // tcfg.admm_update_every
+        if z % max(tcfg.admm_sign_refresh_every, 1) == 0 or not had_signs:
+            n += 1
+        had_signs = True
+    return n
+
+
+def phase_checkpoint(root):
+    """Checkpointed ADMM training at full width, depth cut to CKPT_LAYERS,
+    with the train phase's settings.  Run A takes CKPT_STEPS steps, twice
+    (does a run repeat bit for bit on the card?); run B takes 2 steps, is
+    saved by ``save_async`` after the step-2 Z-update (and by ``save_sync``
+    for its time), restored into a fresh template (equal to the saved state
+    bit for bit) and takes the rest.  B's final params must equal A's bit
+    for bit when A repeats, else lie within A's own repeat difference.  The
+    polarization kernel launches 7 times per fresh Z-update.  Then B's
+    params are compressed, saved, restored and served: the tokens equal
+    those of the same tree served from memory."""
+    import torch
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import LMStreamConfig, lm_batch
+    from repro_torch.forms import FormsSpec, compress_tree, spec_from_meta
+    from repro_torch.models.registry import build
+    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.training import train_loop
+
+    cfg = dataclasses.replace(get_config("qwen2-1.5b"), num_layers=CKPT_LAYERS)
+    model = build(cfg, device="cuda")
+    tcfg = train_config(total_steps=CKPT_STEPS)
+    ds = LMStreamConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN["seq_len"],
+                        global_batch=TRAIN["global_batch"], seed=0)
+    batches = [lm_batch(ds, i, "cuda") for i in range(CKPT_STEPS)]
+
+    def run(state, table, first, last):
+        step = train_loop.make_train_step(model, tcfg, table)
+        for i in range(first, last):
+            state, _ = step(state, batches[i])
+            state = train_loop.maybe_admm_update(state, table, tcfg, i + 1)
+        torch.cuda.synchronize()
+        return state
+
+    def max_diff(a, b):
+        return max(float((x.float() - y.float()).abs().max()) for x, y in zip(a, b))
+
+    def run_a():
+        state, table = train_loop.init_train_state(model, tcfg)
+        reset_counts()
+        state = run(state, table, 0, CKPT_STEPS)
+        launches = launch_counts()["admm_polarize"]
+        params = [x.clone() for x in ckpt.tree_leaves(state.params)]
+        return params, launches
+
+    a, a_launches = run_a()
+    a2, _ = run_a()
+    repeat_diff = max_diff(a, a2)
+    deterministic = False
+    if repeat_diff != 0.0:
+        # a run that does not repeat: try PyTorch's deterministic kernels
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        deterministic = True
+        a, a_launches = run_a()
+        a2, _ = run_a()
+        repeat_diff = max_diff(a, a2)
+    del a2
+
+    state, table = train_loop.init_train_state(model, tcfg)
+    reset_counts()
+    state = run(state, table, 0, 2)
+    b1_launches = launch_counts()["admm_polarize"]
+    state_bytes = sum(x.numel() * x.element_size() for x in ckpt.tree_leaves(state)
+                      if isinstance(x, torch.Tensor))
+    need_disk(root, int(2.2 * state_bytes))
+    # the synchronous save first (for its time): each save re-seeds the
+    # state's generator, and the async one is restored below
+    sync_path = str(pathlib.Path(root) / "train_sync")
+    t = time.perf_counter()
+    ckpt.save(sync_path, state, 2)
+    sync_s = time.perf_counter() - t
+    shutil.rmtree(sync_path)
+    mgr = ckpt.CheckpointManager(str(pathlib.Path(root) / "train"), keep=1)
+    t = time.perf_counter()
+    mgr.save_async(state, 2)
+    async_return_s = time.perf_counter() - t
+    mgr.wait()
+    async_s = time.perf_counter() - t
+    disk = dir_bytes(mgr.path)
+    saved = [x for x in ckpt.tree_leaves(state) if isinstance(x, torch.Tensor)]
+    fresh, _ = train_loop.init_train_state(model, tcfg, seed=5)
+    template = train_loop.restore_template(fresh, table, tcfg, 2)
+    del fresh
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    restored, start = mgr.restore_latest(template)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t
+    del template
+    got = [x for x in ckpt.tree_leaves(restored) if isinstance(x, torch.Tensor)]
+    restored_equal = (start == 2 and len(got) == len(saved)
+                      and all(x.dtype == y.dtype and x.device.type == "cuda"
+                              and torch.equal(x, y) for x, y in zip(got, saved))
+                      and restored.rng.initial_seed() == state.rng.initial_seed())
+    del state, saved, got
+    torch.cuda.empty_cache()
+    reset_counts()
+    restored = run(restored, table, 2, CKPT_STEPS)
+    b2_launches = launch_counts()["admm_polarize"]
+    resume_diff = max_diff(ckpt.tree_leaves(restored.params), a)
+    if deterministic:
+        torch.use_deterministic_algorithms(False)
+    n_leaves = len(table)
+    launches_want = {"a": n_leaves * fresh_z_updates(tcfg, 0, CKPT_STEPS, False),
+                     "b_before_save": n_leaves * fresh_z_updates(tcfg, 0, 2, False),
+                     "b_after_restore": n_leaves * fresh_z_updates(tcfg, 2, CKPT_STEPS, True)}
+    launches_got = {"a": a_launches, "b_before_save": b1_launches,
+                    "b_after_restore": b2_launches}
+
+    # B's trained params compressed, saved, restored and served
+    spec = FormsSpec(m=8, bits=8, rule="sum")
+    with torch.inference_mode():
+        tree, _ = compress_tree(restored.params, spec)
+    del restored, a
+    torch.cuda.empty_cache()
+    spath = str(pathlib.Path(root) / "trained_serve")
+    ckpt.save(spath, tree, CKPT_STEPS, extra_meta=dataclasses.asdict(spec))
+    spec2 = spec_from_meta(ckpt.read_meta(spath)["extra"])
+    with torch.inference_mode():
+        template, _ = compress_tree(model.init(1), spec2)
+    served, _ = ckpt.restore(spath, template)
+    del template
+    prompts = slice_prompts(cfg)
+
+    def serve(t):
+        eng = ServingEngine(model, t, spec=spec2, page_size=16, batch_slots=4, max_len=256,
+                            decode_block=4, device="cuda")
+        return {r.uid: r.tokens for r in eng.run(
+            [Request(uid=i, prompt=p, max_new_tokens=16) for i, p in enumerate(prompts)])}
+
+    reset_counts()
+    mem_tokens = serve(tree)
+    serve_launches = launch_counts()
+    disk_tokens = serve(served)
+    rec = {"arch": cfg.name, "layers": cfg.num_layers, "reduced": {"num_layers": CKPT_LAYERS},
+           "steps": CKPT_STEPS, "seq_len": TRAIN["seq_len"],
+           "global_batch": TRAIN["global_batch"], "state_bytes": state_bytes,
+           "bytes_on_disk": disk, "async_save_return_ms": async_return_s * 1e3,
+           "async_save_ms": async_s * 1e3, "sync_save_ms": sync_s * 1e3,
+           "restore_ms": restore_s * 1e3, "sync_save_gb_s": disk / sync_s / 1e9,
+           "async_save_gb_s": disk / async_s / 1e9, "restore_gb_s": disk / restore_s / 1e9,
+           "restored_equal": restored_equal, "deterministic_algorithms": deterministic,
+           "repeat_max_diff": repeat_diff, "resume_max_diff": resume_diff,
+           "admm_polarize_launches": launches_got,
+           "admm_polarize_launches_expected": launches_want,
+           "trained_served_tokens_equal": mem_tokens == disk_tokens,
+           "trained_serve_launches": {k: v for k, v in serve_launches.items() if v}}
+    emit("checkpoint", **rec)
+    shutil.rmtree(spath)
+    if not restored_equal:
+        raise AssertionError("the restored train state differs from the saved one")
+    if not resume_diff <= repeat_diff:
+        raise AssertionError(f"the resumed run ends {resume_diff} from run A, whose own "
+                             f"repeat differs by {repeat_diff}")
+    if launches_got != launches_want:
+        raise AssertionError(f"the polarization kernel launched {launches_got}, the fresh "
+                             f"Z-updates give {launches_want}")
+    if mem_tokens != disk_tokens:
+        raise AssertionError(f"the restored trained tree served {disk_tokens}, from memory "
+                             f"{mem_tokens}")
+    return launches_got["a"] + launches_got["b_before_save"] + launches_got["b_after_restore"]
 
 
 def phase_zero_skip():
@@ -1726,6 +2322,7 @@ def main() -> int:
     ap.add_argument("--trace-speculate", action="store_true",
                     help="trace one more speculative run with torch.profiler")
     args = ap.parse_args()
+    t_start = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -1761,13 +2358,22 @@ def main() -> int:
     spec_launches, verify_rows = phase_speculate(slice_engine.model, slice_engine.cfg,
                                                  slice_prompts(slice_engine.cfg), slice_engine,
                                                  slice_tokens, trace=args.trace_speculate)
-    del slice_engine
     torch.cuda.empty_cache()
-    tree, cfg, prompts, skip_launches = phase_zero_skip()
-    bit_launches, fidelity_row = phase_fidelity(tree, cfg, prompts)
-    del tree          # the serving trees go before the training state comes
-    torch.cuda.empty_cache()
-    pol_launches = phase_train()
+    fleet_launches = phase_fleet(slice_engine, slice_tokens)
+    ckpt_root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        ckpt_serve_launches = phase_checkpoint_serve(slice_engine, slice_tokens, ckpt_root)
+        del slice_engine
+        torch.cuda.empty_cache()
+        tree, cfg, prompts, skip_launches = phase_zero_skip()
+        bit_launches, fidelity_row = phase_fidelity(tree, cfg, prompts)
+        del tree          # the serving trees go before the training state comes
+        torch.cuda.empty_cache()
+        pol_launches = phase_train()
+        torch.cuda.empty_cache()
+        ckpt_pol_launches = phase_checkpoint(ckpt_root)
+    finally:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
     # the f32 kernels serve what the tensor-core route does not take (f32
     # activations, int32 codes): their path is the reduced f32 model's
     # prefill where the bf16 slice leaves them no launch
@@ -1779,7 +2385,8 @@ def main() -> int:
                 else (small_launches["polarized_matmul_skip"], small)}
     if not (launches["polarized_matmul_tc"] and skip_launches["polarized_matmul_tc_skip"]
             and all(n for n, _ in f32_path.values()) and bit_launches and pol_launches
-            and all(spec_launches.values())):
+            and all(spec_launches.values()) and all(fleet_launches[0])
+            and all(ckpt_serve_launches) and ckpt_pol_launches):
         raise AssertionError("a kernel of a path was never launched on it")
 
     def total(rows, key):
@@ -1805,12 +2412,18 @@ def main() -> int:
         "bf16_x": {k: per_layer(rows, DECODE_M, "bf16_" + k)
                    for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
         "speculate_launches": spec_launches["polarized_matmul"],
+        "fleet_launches": fleet_launches[0][0],
+        "fleet_launches_expected": fleet_launches[1][0],
+        "checkpoint_serve_launches": ckpt_serve_launches[0],
         "verify": [r for r in verify_rows if r["route"] == "f32"],
         "per": "the 7 projections of one qwen2-1.5b layer at M=4, f32 x (bf16_x: the same "
                "on bf16 x, widened in the kernel, as the served decode gives it; its "
                "library_ms is one bf16 torch.matmul with the pre-folded bf16 weight; "
                "verify: the speculative verify's M on bf16 x that this route takes); "
-               "speculate_launches: the first greedy speculative run's",
+               "speculate_launches: the first greedy speculative run's; fleet_launches: "
+               "the chunked fleet run's (expected: reckoned from its recorded prefills, "
+               "chunk widths and rounds); checkpoint_serve_launches: the restored "
+               "serving checkpoint's run",
     }, {
         "name": "polarized_matmul_skip", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/polarized_matmul.cu",
@@ -1849,6 +2462,7 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/admm_polarize.cu",
         "replaces": "src/repro/kernels/admm_polarize.py:26",
         "launches": pol_launches,
+        "checkpoint_launches": ckpt_pol_launches,
         "max_abs_err": max(max(r["sum_max_abs_err"], r["energy_max_abs_err"]) for r in pol_rows),
         "ms": total(pol_rows, "kernel_ms"), "plain_ms": total(pol_rows, "plain_ms"),
         "bound_ms": total(pol_rows, "bound_ms"), "bound_by": bound_by(pol_rows),
@@ -1856,7 +2470,8 @@ def main() -> int:
         "library_note": "no single PyTorch call elects a sign per fragment and zeroes "
                         "the entries that disagree with it",
         "per": "one fresh Z-update of qwen2-1.5b: its 7 stacked leaves (1.31 G f32 "
-               "elements), m=8, sum rule",
+               "elements), m=8, sum rule; launches: the train run's; checkpoint_launches: "
+               "the checkpoint phase's runs A, B before the save and B after the restore",
     }, {
         "name": "polarized_matmul_tc", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/polarized_matmul_tc.cu",
@@ -1865,6 +2480,9 @@ def main() -> int:
         "launches": launches["polarized_matmul_tc"],
         "skip_launches": skip_launches["polarized_matmul_tc_skip"],
         "speculate_launches": spec_launches["polarized_matmul_tc"],
+        "fleet_launches": fleet_launches[0][1],
+        "fleet_launches_expected": fleet_launches[1][1],
+        "checkpoint_serve_launches": ckpt_serve_launches[1],
         "verify": [r for r in verify_rows if r["route"] == "tc"],
         "max_abs_err": tc_abs, "max_rel_err": tc_rel,
         "ms": per_layer(tc_rows, PREFILL_M, "kernel_ms"),
@@ -1886,9 +2504,12 @@ def main() -> int:
                         "polarized_matmul.cu on f32 x",
         "per": "the 7 projections of one qwen2-1.5b layer at prefill, M=64, bf16 x; "
                "launches: the slice-1 run's; skip_launches: the block run's; "
-               "speculate_launches: the first greedy speculative run's; verify: the "
-               "speculative verify's M that this route takes",
+               "speculate_launches: the first greedy speculative run's; fleet_launches: "
+               "the chunked fleet run's (chunks at M = 4 slots x width); "
+               "checkpoint_serve_launches: the restored serving checkpoint's run; verify: "
+               "the speculative verify's M that this route takes",
     }]}
+    emit("total", seconds=time.perf_counter() - t_start)
     print(json.dumps(kernels), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -189,6 +189,30 @@ def project_layer(mat: torch.Tensor, c: LayerConstraint, st: AdmmLayerState,
                                     col_mask=col_mask, scale=scale)
 
 
+def with_structure(state: Dict[str, AdmmLayerState],
+                   table: Dict[str, LayerConstraint]) -> Dict[str, AdmmLayerState]:
+    """``state`` with zero placeholders, of the shapes and dtypes a fresh
+    projection gives, for the signs, masks and scale of every layer that
+    has none yet: the structure of the state after its first Z-update, as
+    a checkpoint restore template needs it (the placeholders are
+    overwritten by the restore)."""
+    out: Dict[str, AdmmLayerState] = {}
+    for path, st in state.items():
+        if st.signs is not None:
+            out[path] = st
+            continue
+        c = table[path]
+        mat = _as_matrix(st.z, c)
+        lead, (k, n) = tuple(mat.shape[:-2]), mat.shape[-2:]
+        f = c.polarize.num_fragments(k) if c.polarize is not None else 1
+        zeros = lambda shape, dtype: torch.zeros(lead + shape, dtype=dtype,  # noqa: E731
+                                                 device=mat.device)
+        out[path] = dataclasses.replace(
+            st, signs=zeros((f, n), mat.dtype), row_mask=zeros((k,), torch.bool),
+            col_mask=zeros((n,), torch.bool), scale=zeros((1, n), torch.float32))
+    return out
+
+
 def admm_penalty(params: Params, state: Dict[str, AdmmLayerState],
                  table: Dict[str, LayerConstraint]) -> torch.Tensor:
     """sum_i rho_i/2 ||W_i - Z_i + U_i||^2 — added to the task loss (Eq. 4)."""

@@ -8,13 +8,13 @@
 from repro_torch.forms.linear import (FormsLinearParams, apply, apply_simulated,
                                       default_spec, from_dense, sparsity_stats,
                                       to_dense)
-from repro_torch.forms.spec import FormsSpec
+from repro_torch.forms.spec import FormsSpec, spec_from_meta
 from repro_torch.forms.tree import (CompressReport, compress_tree,
                                     compressed_paths, decompress_tree,
                                     spec_for_path)
 
 __all__ = [
-    "FormsSpec", "FormsLinearParams", "from_dense", "to_dense", "apply",
+    "FormsSpec", "spec_from_meta", "FormsLinearParams", "from_dense", "to_dense", "apply",
     "apply_simulated", "default_spec", "sparsity_stats", "compress_tree",
     "decompress_tree", "compressed_paths", "CompressReport", "spec_for_path",
 ]

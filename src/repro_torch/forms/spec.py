@@ -4,7 +4,9 @@ The same fields and validation as the JAX package's ``FormsSpec``, less
 ``prefer_ref``: in the port the device of the tensors alone picks the CUDA
 kernel (a CUDA tensor) or its plain PyTorch version (a CPU tensor).
 ``bm/bn/bk`` stay as fields so specs carry over one to one; the CUDA kernel
-picks its own tiles.
+picks its own tiles.  :func:`spec_from_meta` rebuilds a spec from the
+fields a checkpoint stores (``dataclasses.asdict(spec)`` of either
+package's spec).
 """
 from __future__ import annotations
 
@@ -106,3 +108,17 @@ class FormsSpec:
         return QuantSpec(bits=self.bits, cell_bits=self.cell_bits,
                          per_channel=self.per_channel)
 
+
+
+def spec_from_meta(fields: dict) -> FormsSpec:
+    """A :class:`FormsSpec` from ``dataclasses.asdict`` of a spec, as a
+    checkpoint's ``extra`` meta holds it.  The reference's ``prefer_ref``
+    is dropped when it is None or False (the route follows the tensors'
+    device here); any other value is refused."""
+    fields = dict(fields)
+    prefer_ref = fields.pop("prefer_ref", None)
+    if prefer_ref not in (None, False):
+        raise ValueError(f"prefer_ref={prefer_ref!r}: the port has no switch to the plain "
+                         f"version; a CUDA tensor runs its kernel, a CPU tensor the plain "
+                         f"version")
+    return FormsSpec(**fields)

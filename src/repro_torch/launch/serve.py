@@ -9,6 +9,8 @@ self-speculative decoding.
   python -m repro_torch.launch.serve --reduced --forms --device cpu \
       --speculate --draft-bits 4 --draft-k 4
   python -m repro_torch.launch.serve --reduced --forms --device cpu --page-size 0
+  python -m repro_torch.launch.serve --reduced --forms --device cpu \
+      --loadgen n=16,rate=50,adversarial=40 --prefill-chunk 16
 
 Weights are random, made from seed 0 on the device (the JAX launcher inits
 with ``PRNGKey(0)``).  With ``--forms`` the weights are compressed by
@@ -25,7 +27,13 @@ served weights: ``--draft-bits``, ``--draft-mode`` (``forms`` or ``int``),
 bounds the drafts verified per round, and per-slot adaptive K
 (``--no-adaptive-k`` turns it off) shrinks a slot's draft length when its
 acceptance drops.  ``--page-size 0`` serves on the dense slot cache, where
-``--speculate`` falls back to plain decoding.
+``--speculate`` falls back to plain decoding.  Any of ``--prefill-chunk``,
+``--step-token-budget``, ``--priority-default``, ``--deadline-ms`` and
+``--loadgen`` switches the engine to the SLO fleet scheduler (chunked
+prefill, priorities with preemption, deadlines; paged cache only) and
+prints its TTFT and inter-token tails per class; ``--loadgen SPEC`` serves
+the seeded open-loop trace of ``serving/loadgen.py`` instead of the
+``--requests`` batch.
 ``--device`` defaults to ``cuda`` and the launcher fails without a card
 unless ``--device cpu`` is given.  Requests are made as the JAX launcher
 makes them (``np.random.RandomState(0)``).
@@ -44,6 +52,37 @@ from repro_torch.forms import FormsSpec
 from repro_torch.kernels.polarized_matmul import polarized_matmul, polarized_matmul_skip
 from repro_torch.models.registry import build
 from repro_torch.serving.engine import Request, ServingEngine
+from repro_torch.serving.loadgen import LoadGenConfig, generate
+from repro_torch.serving.sched import SLOConfig
+
+
+_LOADGEN_KEYS = {"n": int, "rate": float, "seed": int, "prompt-lo": int, "prompt-hi": int,
+                 "out-lo": int, "out-hi": int, "batch-frac": float, "deadline-ms": float,
+                 "batch-deadline-ms": float, "adversarial": int, "adversarial-count": int}
+
+
+def parse_loadgen(spec: str, args, vocab: int) -> LoadGenConfig:
+    """``--loadgen`` SPEC (comma-separated key=value) as a LoadGenConfig,
+    with the reference launcher's defaults."""
+    kv = {}
+    for part in filter(None, spec.split(",")):
+        if "=" not in part:
+            raise SystemExit(f"--loadgen: expected key=value, got {part!r}")
+        k, v = part.split("=", 1)
+        kv[k.strip()] = v.strip()
+    bad = sorted(set(kv) - set(_LOADGEN_KEYS))
+    if bad:
+        raise SystemExit(f"--loadgen: unknown key(s) {bad}; known: {sorted(_LOADGEN_KEYS)}")
+    g = {k: _LOADGEN_KEYS[k](v) for k, v in kv.items()}
+    return LoadGenConfig(
+        n_requests=g.get("n", args.requests), rate=g.get("rate", 100.0),
+        seed=g.get("seed", 0), prompt_len=(g.get("prompt-lo", 2), g.get("prompt-hi", 8)),
+        out_len=(g.get("out-lo", 4), g.get("out-hi", args.max_new_tokens)),
+        batch_frac=g.get("batch-frac", 0.25), deadline_ms=g.get("deadline-ms"),
+        batch_deadline_ms=g.get("batch-deadline-ms"),
+        adversarial_len=g.get("adversarial", 0),
+        adversarial_count=g.get("adversarial-count", 1),
+        vocab=vocab, temperature=args.temperature)
 
 
 def main(argv=None) -> None:
@@ -73,6 +112,30 @@ def main(argv=None) -> None:
     ap.add_argument("--prefix-cache", action="store_true",
                     help="share page-aligned prompt prefixes across "
                          "concurrent requests")
+    ap.add_argument("--prefill-chunk", type=int, default=None, metavar="TOKENS",
+                    help="SLO fleet scheduler: prefill prompts in page-aligned "
+                         "chunks of ~TOKENS interleaved with decode rounds "
+                         "(0 = whole-prompt admission); any SLO flag switches "
+                         "the engine to the fleet scheduler")
+    ap.add_argument("--step-token-budget", type=int, default=None, metavar="TOKENS",
+                    help="fleet scheduler per-round token budget shared by "
+                         "decode and chunked prefill (0 = unbounded)")
+    ap.add_argument("--priority-default", default=None,
+                    choices=("interactive", "batch"),
+                    help="fleet scheduler priority class of requests that set "
+                         "none (interactive preempts batch by page eviction)")
+    ap.add_argument("--deadline-ms", type=float, default=None,
+                    help="fleet scheduler default completion deadline after "
+                         "arrival; admission is earliest-deadline-first within "
+                         "a class, misses are counted per class")
+    ap.add_argument("--loadgen", default=None, metavar="SPEC",
+                    help="serve the seeded open-loop trace of "
+                         "serving/loadgen.py instead of the --requests batch: "
+                         "comma-separated keys, e.g. 'n=64,rate=100,seed=0,"
+                         "batch-frac=0.25,adversarial=96' (n, rate, seed, "
+                         "prompt-lo, prompt-hi, out-lo, out-hi, batch-frac, "
+                         "deadline-ms, batch-deadline-ms, adversarial, "
+                         "adversarial-count)")
     ap.add_argument("--speculate", action="store_true",
                     help="self-speculative decoding: low-bit draft + "
                          "one-call verification (paged cache only)")
@@ -130,7 +193,29 @@ def main(argv=None) -> None:
     if (args.zero_skip != "off" or args.zero_skip_stats) and not args.forms:
         raise SystemExit("--zero-skip/--zero-skip-stats act on the FORMS "
                          "matmul path: add --forms")
+    slo_flags = [n for n, v in (("--prefill-chunk", args.prefill_chunk),
+                                ("--step-token-budget", args.step_token_budget),
+                                ("--priority-default", args.priority_default),
+                                ("--deadline-ms", args.deadline_ms),
+                                ("--loadgen", args.loadgen))
+                 if v is not None]
+    if slo_flags and not args.page_size:
+        raise SystemExit(f"{'/'.join(slo_flags)} need the SLO fleet scheduler, which "
+                         "schedules KV pages (chunked prefill, preemption by page "
+                         "eviction): drop --page-size 0")
+    if args.loadgen is not None and args.prompt_len is not None:
+        raise SystemExit("--loadgen draws its own prompt-length mix from the seed: "
+                         "drop --prompt-len (or drop --loadgen for fixed-length prompts)")
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    lg_cfg = parse_loadgen(args.loadgen, args, cfg.vocab_size) if args.loadgen else None
+    slo = None
+    if slo_flags:
+        slo = SLOConfig(
+            prefill_chunk=args.prefill_chunk if args.prefill_chunk is not None else 32,
+            step_token_budget=(args.step_token_budget
+                               if args.step_token_budget is not None else 128),
+            default_priority=args.priority_default or "interactive",
+            default_deadline_ms=args.deadline_ms)
     act_over = {k: v for k, v in (("mlp_act", args.mlp_act),
                                   ("act_sparsity", args.act_sparsity),
                                   ("act_fragment", args.act_fragment))
@@ -153,7 +238,7 @@ def main(argv=None) -> None:
                            adaptive_k=not args.no_adaptive_k,
                            zero_skip=args.zero_skip,
                            zero_skip_keep=args.zero_skip_keep,
-                           zero_skip_stats=args.zero_skip_stats)
+                           zero_skip_stats=args.zero_skip_stats, slo=slo)
     del params
     if engine.compression_report is not None:
         print(f"forms: {engine.compression_report.summary()}")
@@ -173,12 +258,18 @@ def main(argv=None) -> None:
               f"({detail})")
     elif args.speculate:
         print("speculate: unsupported on the dense cache — plain decode")
-    rng = np.random.RandomState(0)
-    plen = lambda: (args.prompt_len if args.prompt_len else rng.randint(2, 6))
-    reqs = [Request(uid=i, prompt=rng.randint(0, cfg.vocab_size, size=plen()),
-                    max_new_tokens=args.max_new_tokens,
-                    temperature=args.temperature)
-            for i in range(args.requests)]
+    if lg_cfg is not None:
+        reqs = generate(lg_cfg)
+        print(f"loadgen: {lg_cfg.n_requests} requests at {lg_cfg.rate:.0f}/s "
+              f"(seed {lg_cfg.seed}, batch_frac {lg_cfg.batch_frac}, "
+              f"adversarial {lg_cfg.adversarial_len})")
+    else:
+        rng = np.random.RandomState(0)
+        plen = lambda: (args.prompt_len if args.prompt_len else rng.randint(2, 6))
+        reqs = [Request(uid=i, prompt=rng.randint(0, cfg.vocab_size, size=plen()),
+                        max_new_tokens=args.max_new_tokens,
+                        temperature=args.temperature)
+                for i in range(args.requests)]
     launches0 = polarized_matmul.launches
     skips0 = polarized_matmul_skip.launches
     t0 = time.perf_counter()
@@ -220,6 +311,23 @@ def main(argv=None) -> None:
             parts.append(f"polarized_matmul_skip launches "
                          f"{polarized_matmul_skip.launches - skips0}")
     print("stats: " + ", ".join(parts))
+    if "slo" in stats:
+        s = stats["slo"]
+        print(f"slo: ttft p50 {s['ttft_ms']['p50']:.1f}ms "
+              f"p99 {s['ttft_ms']['p99']:.1f}ms, "
+              f"itl p50 {s['inter_token_ms']['p50']:.2f}ms "
+              f"p99 {s['inter_token_ms']['p99']:.2f}ms, "
+              f"preempt {s['preemptions']} (resumed {s['resumes']}), "
+              f"miss {s['deadline_misses']}, "
+              f"chunks {s['chunked_prefill']['calls']}"
+              f"/{s['chunked_prefill']['tokens']}tok")
+        for cls, c in s["per_class"].items():
+            print(f"slo[{cls}]: {c['completed']} done, "
+                  f"ttft p99 {c['ttft_ms']['p99']:.1f}ms, "
+                  f"itl p99 {c['inter_token_ms']['p99']:.2f}ms, "
+                  f"miss {c['deadline_misses']}, "
+                  f"preempt {c['preemptions']}, "
+                  f"queue peak {c['queue_peak']}")
     if "sparsity" in stats:
         for tag, s in stats["sparsity"]["layers"].items():
             print(f"sparsity[{tag}]: elem {s['elem_sparsity']:.2f} "

@@ -1,9 +1,12 @@
 """Training launcher of the port: deterministic synthetic data, AdamW, the
-ADMM polarization schedule and optional gradient compression.
+ADMM polarization schedule, optional gradient compression, and async
+checkpointing with resume and SIGTERM preemption.
 
   python -m repro_torch.launch.train --arch qwen2-1.5b --steps 50 --admm
   python -m repro_torch.launch.train --reduced --steps 4 --admm --admm-every 2 \
       --device cpu
+  python -m repro_torch.launch.train --reduced --steps 8 --admm --admm-every 2 \
+      --device cpu --ckpt-dir /path/to/ckpt --ckpt-every 4 [--resume]
 
 Weights are random, made from ``--seed`` on the device.  With ``--admm``
 the loss carries the ADMM penalty and every ``--admm-every`` steps the Z/U
@@ -19,10 +22,12 @@ preemption handler and mesh flags are not ported yet.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 
 import torch
 
+from repro_torch.checkpoint.manager import CheckpointManager, install_preemption_handler
 from repro_torch.configs import ARCH_NAMES, get_config, get_reduced
 from repro_torch.configs.base import TrainConfig
 from repro_torch.core import admm as admm_mod
@@ -49,6 +54,9 @@ def main(argv=None) -> None:
                     choices=["none", "bf16", "bf16_ef", "int8_ef"])
     ap.add_argument("--moment-dtype", default="float32",
                     choices=["float32", "bfloat16", "int8"])
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--resume", action="store_true")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
@@ -64,19 +72,45 @@ def main(argv=None) -> None:
         microbatches=args.microbatches, admm_enabled=args.admm,
         admm_rho=args.admm_rho, admm_update_every=args.admm_every,
         grad_compression=args.grad_compression,
-        moment_dtype=args.moment_dtype, remat=not args.reduced, seed=args.seed)
+        moment_dtype=args.moment_dtype, remat=not args.reduced, seed=args.seed,
+        checkpoint_every=args.ckpt_every)
     state, table = train_loop.init_train_state(model, tcfg)
     step = train_loop.make_train_step(model, tcfg, table)
     ds = LMStreamConfig(vocab_size=cfg.vocab_size, seq_len=args.seq_len,
                         global_batch=args.global_batch, seed=tcfg.seed)
 
+    start = 0
+    mgr = None
+    guard = contextlib.nullcontext
+    if args.ckpt_dir:
+        mgr = CheckpointManager(args.ckpt_dir, keep=tcfg.keep_checkpoints)
+        latest = mgr.latest_step()
+        if args.resume and latest is not None:
+            template = train_loop.restore_template(state, table, tcfg, latest)
+            del state
+            state, start = mgr.restore_latest(template)
+            del template
+            print(f"resumed from step {start}")
+
+        def on_preempt():
+            mgr.wait()
+            mgr.save_sync(state, int(state.step))
+            print("preemption checkpoint written", flush=True)
+
+        guard = install_preemption_handler(on_preempt).critical
+
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     sync()
     t0 = t_log = time.perf_counter()
     since = 0
-    for i in range(args.steps):
-        state, metrics = step(state, lm_batch(ds, i, dev))
-        state = train_loop.maybe_admm_update(state, table, tcfg, i + 1)
+    for i in range(start, args.steps):
+        ts = time.perf_counter()
+        with guard():
+            state, metrics = step(state, lm_batch(ds, i, dev))
+            state = train_loop.maybe_admm_update(state, table, tcfg, i + 1)
+        dt = time.perf_counter() - ts
+        if i > start + 2 and dt > 5 * (time.perf_counter() - t0) / max(i - start, 1):
+            print(f"[watchdog] slow step {i}: {dt:.2f}s", flush=True)
         since += 1
         if (i + 1) % args.log_every == 0 or i + 1 == args.steps:
             sync()
@@ -89,9 +123,14 @@ def main(argv=None) -> None:
                   f"gnorm {float(metrics['grad_norm']):.2f}  "
                   f"{(now - t_log) / since * 1e3:.0f}ms/step{extra}", flush=True)
             t_log, since = time.perf_counter(), 0
+        if mgr and (i + 1) % args.ckpt_every == 0:
+            mgr.save_async(state, i + 1)
+    if mgr:
+        mgr.save_sync(state, args.steps)
     sync()
-    tput = args.steps * args.global_batch * args.seq_len / max(time.perf_counter() - t0, 1e-9)
-    print(f"done: {args.steps} steps, {tput:.0f} tokens/s on {dev}")
+    tput = ((args.steps - start) * args.global_batch * args.seq_len
+            / max(time.perf_counter() - t0, 1e-9))
+    print(f"done: {args.steps - start} steps, {tput:.0f} tokens/s on {dev}")
 
 
 if __name__ == "__main__":

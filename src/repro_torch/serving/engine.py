@@ -27,6 +27,14 @@ fragment signs.  ``zero_skip="block"``/``"compact"`` serves it with input
 zero-skipping, and ``zero_skip_stats=True`` measures the decode path's
 per-layer input sparsity into ``stats()["sparsity"]``.
 
+With ``slo=SLOConfig(...)`` (paged cache only) the engine runs the SLO
+fleet scheduler (``serving/sched.py``): chunked prefill under a per-round
+token budget through :meth:`ModelRunner.prefill_chunk`, priority classes
+with preemption by page eviction, EDF within a class, and TTFT and
+inter-token percentiles in ``stats()["slo"]``; requests carry
+``priority``, ``deadline_ms`` and ``arrival_s`` for it (the plain
+scheduler ignores them).
+
 With ``speculate=True`` on the paged cache the decode round is
 self-speculative (``serving/speculate.py``): a low-bit draft derived from
 the served weights drafts up to ``draft_k`` tokens and the target verifies
@@ -36,8 +44,7 @@ the dense cache ``speculate=True`` falls back to the plain runner, as in
 the reference.
 
 Not ported yet, and refused rather than ignored: mesh sharding, health
-monitoring, the SLO fleet scheduler and per-leaf draft plans (see
-ROADMAP).
+monitoring and per-leaf draft plans (see ROADMAP).
 """
 from __future__ import annotations
 
@@ -64,6 +71,13 @@ class Request:
     prompt: np.ndarray            # (prompt_len,) int32
     max_new_tokens: int = 32
     temperature: float = 0.0
+    # consumed by the fleet scheduler (serving/sched.py), ignored by the
+    # plain Scheduler: priority class ("interactive"/"batch"; "" = the
+    # fleet's default), a completion deadline relative to arrival, and an
+    # open-loop arrival offset relative to run() start
+    priority: str = ""
+    deadline_ms: Optional[float] = None
+    arrival_s: float = 0.0
 
 
 @dataclasses.dataclass
@@ -131,9 +145,10 @@ class ModelRunner:
         self.max_len = int(max_len)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(rng_seed)
-        # the engine's sparsity meter, installed around decode steps only
-        # (bulk prefill is not metered, as in the reference)
+        # the engine's sparsity meter, installed around decode steps and
+        # chunks (bulk prefill is not metered, as in the reference)
         self.meter: Optional[SparsityMeter] = None
+        self.chunk_widths: List[int] = []   # the width of every prefill_chunk call
 
     @property
     def page_size(self) -> int:
@@ -188,6 +203,38 @@ class ModelRunner:
         lg = logits.reshape(1, -1).float()
         temp = self._to_device(np.array([temperature]), torch.float32)
         return int(sample_on_device(lg, temp, self.generator)[0])
+
+    def chunk_width(self, n: int) -> int:
+        """Power-of-two chunk width (at least 8, at most max_len), as the
+        reference buckets its compiled chunk variants: the same rows are
+        committed."""
+        return self.bucket_for(n)
+
+    @torch.inference_mode()
+    def prefill_chunk(self, tokens: np.ndarray, positions: np.ndarray,
+                      block_tables: np.ndarray, cols: np.ndarray,
+                      temps: np.ndarray) -> np.ndarray:
+        """Advance chunked prefill for all slots with one multi-token
+        ``decode_paged`` call; returns the (B,) tokens sampled at each
+        slot's column ``cols[b]`` (valid only where the chunk reaches the
+        prompt's end).  ``tokens``: (B, width) rows starting at cache
+        position ``positions[b]``; the rows of ``block_tables`` of slots
+        not prefilling must be zero (their commits go to scratch page 0).
+        Padded columns commit rows past the prompt's chunk, which are
+        rewritten before any mask admits them."""
+        if not self.paged:
+            raise ValueError("chunked prefill needs the paged cache (page_size=...)")
+        b = tokens.shape[0]
+        tok = self._to_device(tokens)
+        tables = self._to_device(block_tables)
+        cols_d = self._to_device(cols).long()
+        with default_spec(self.spec), sparsity_stats(self.meter):
+            logits, self.cache = self.model.decode_paged(
+                self.params, tok, self.cache, self._to_device(positions), tables)
+            lg = logits[torch.arange(b, device=self.device), cols_d].float()
+            out = sample_on_device(lg, self._to_device(temps, torch.float32), self.generator)
+        self.chunk_widths.append(int(tokens.shape[1]))
+        return out.cpu().numpy()
 
     def _decode_call(self, tok: torch.Tensor, pos: torch.Tensor,
                      tables: Optional[torch.Tensor]):
@@ -260,6 +307,7 @@ class Scheduler:
         self.admissions: "collections.deque[Tuple[int, Tuple[int, ...]]]" = \
             collections.deque(maxlen=ADMISSION_LOG_WINDOW)
         self.admissions_dropped = 0
+        self.last_shared = 0             # prefix pages of the last reservation
         self.block_tables: Optional[np.ndarray] = None
         if self.paged:
             ps = runner.page_size
@@ -273,22 +321,33 @@ class Scheduler:
             self.slot_pages: List[List[int]] = [[] for _ in range(slots)]
 
     def _reserve_pages(self, uid: int, slot: int, prompt: np.ndarray,
-                       max_new: int) -> Optional[np.ndarray]:
+                       max_new: int, *, shared_cap: Optional[int] = None,
+                       rows: Optional[int] = None) -> Optional[np.ndarray]:
         """Reserve every page the request can touch; returns the prefill
         destination-page vector, or None if the free-page budget blocks.
         Prefix-shared pages are refcounted, and their prefill destinations
-        are redirected to scratch so shared contents are never rewritten."""
+        are redirected to scratch so shared contents are never rewritten.
+
+        ``shared_cap`` bounds how many prefix pages may be shared (chunked
+        admission skips shared positions, so the last prompt token must be
+        on an owned page); ``rows`` overrides the reserved-row count
+        (chunked admission reserves exactly ``prompt + max_new`` rows).
+        ``self.last_shared`` is the shared-page count of this reservation."""
         ps = self.runner.page_size
         n = len(prompt)
         bucket = self.runner.bucket_for(n)
-        rows = min(max(bucket, n + max_new), self.max_len)
+        if rows is None:
+            rows = min(max(bucket, n + max_new), self.max_len)
         need = KV.pages_for(rows, ps)
         shared = self.prefix.match(prompt) if self.prefix is not None else []
+        if shared_cap is not None:
+            shared = shared[:shared_cap]
         own = self.allocator.alloc(need - len(shared))
         if own is None:
             return None
         self.allocator.share(shared)
         pages = shared + own
+        self.last_shared = len(shared)
         self.slot_pages[slot] = pages
         self.block_tables[slot] = 0
         self.block_tables[slot, :need] = pages
@@ -433,6 +492,8 @@ class ServingEngine:
     ``"int"`` grid), keeping every ``draft_layer_step``-th layer, drafts up
     to ``draft_k`` tokens per round, with per-slot adaptive K unless
     ``adaptive_k=False``; the dense cache falls back to plain decoding.
+    ``slo=`` (an ``SLOConfig`` or a dict of its fields) serves with the
+    fleet scheduler; it needs the paged cache.
     """
 
     def __init__(self, model: Model, params: Any, *, max_len: int = 512,
@@ -461,7 +522,6 @@ class ServingEngine:
         _refuse("draft_plan", draft_plan, None,
                 "ROADMAP queue 1, item 8: auto mixed precision, forms/autobits.py")
         _refuse("health", health, None, "ROADMAP queue 1, item 9")
-        _refuse("slo", slo, None, "ROADMAP queue 1, item 7")
         if ((zero_skip not in (None, "off")) or zero_skip_stats) \
                 and not (forms or spec is not None):
             raise ValueError(
@@ -492,6 +552,11 @@ class ServingEngine:
         self.slots = batch_slots
         self.paged = bool(page_size)
         self.page_size: Optional[int] = int(page_size) if self.paged else None
+        if slo is not None and not self.paged:
+            raise ValueError(
+                "slo= (the SLO-aware fleet scheduler) schedules pages: chunked "
+                "prefill and preemption by page eviction need the paged KV cache "
+                "— pass page_size=...")
         # speculation verifies on the paged cache; the dense cache falls
         # back to the plain runner, as in the reference
         self.speculative = bool(speculate) and self.paged
@@ -529,8 +594,16 @@ class ServingEngine:
             self.runner = ModelRunner(model, params, cache, max_len=max_len,
                                       spec=self.spec, decode_block=decode_block,
                                       rng_seed=rng_seed)
-        self.scheduler = Scheduler(self.runner, slots=batch_slots, max_len=max_len,
-                                   allocator=allocator, prefix=prefix)
+        if slo is not None:
+            from repro_torch.serving.sched import FleetScheduler, SLOConfig
+            if isinstance(slo, dict):
+                slo = SLOConfig(**slo)
+            self.scheduler: Scheduler = FleetScheduler(
+                self.runner, slots=batch_slots, max_len=max_len, allocator=allocator,
+                prefix=prefix, cfg=slo)
+        else:
+            self.scheduler = Scheduler(self.runner, slots=batch_slots, max_len=max_len,
+                                       allocator=allocator, prefix=prefix)
         # off by default: metering adds a few device ops to every FORMS
         # matmul of every decode step
         self.sparsity_meter: Optional[SparsityMeter] = None
@@ -569,8 +642,10 @@ class ServingEngine:
     def stats(self) -> Dict[str, Any]:
         """Serving counters: scheduler occupancy, page-pool occupancy,
         prefix-cache hits, with speculation its acceptance and tokens per
-        round, and with ``zero_skip_stats`` the decode path's measured input
-        sparsity, as a deep-copied snapshot."""
+        round, with ``zero_skip_stats`` the decode path's measured input
+        sparsity, and with the fleet scheduler the ``"slo"`` block (TTFT and
+        inter-token percentiles, preemption and deadline-miss counts, queue
+        depths per class), as a deep-copied snapshot."""
         out: Dict[str, Any] = {
             "max_concurrent": self.scheduler.max_concurrent,
             "rounds": self.scheduler.rounds,
@@ -584,6 +659,8 @@ class ServingEngine:
             out["speculate"] = self.runner.spec_stats()
         if self.sparsity_meter is not None:
             out["sparsity"] = self.sparsity_meter.summary()
+        if hasattr(self.scheduler, "slo_stats"):
+            out["slo"] = self.scheduler.slo_stats()
         return copy.deepcopy(out)
 
     def run(self, requests: List[Request]) -> List[Result]:

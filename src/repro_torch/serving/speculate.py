@@ -29,8 +29,9 @@ only ``kpos <= pos`` and every row is rewritten before its position enters
 a mask (``kv_cache.rollback_tokens`` scrubs them for auditing).  The draft
 pool shares the target's block tables, so the pools stay in step; the
 draft runs one extra step so that a fully accepted round leaves the row of
-``d_K`` written.  The reference's ``prefill_chunk`` (chunked admission)
-comes with the fleet scheduler.
+``d_K`` written.  Chunked admission (the fleet scheduler's
+:meth:`SpeculativeRunner.prefill_chunk`) advances both pools by the same
+chunk.
 """
 from __future__ import annotations
 
@@ -365,6 +366,22 @@ class SpeculativeRunner(ModelRunner):
         _, self.draft_cache = self._prefill_call(self.draft_model, self.draft_params,
                                                  self.draft_cache, self._to_device(toks),
                                                  slot, n, pages)
+        return tok
+
+    @torch.inference_mode()
+    def prefill_chunk(self, tokens: np.ndarray, positions: np.ndarray,
+                      block_tables: np.ndarray, cols: np.ndarray,
+                      temps: np.ndarray) -> np.ndarray:
+        """Chunked admission into both pools: after the target's chunk, one
+        draft ``decode_paged`` writes the same rows into the draft pool
+        (same tokens, positions and tables), so a request that finishes
+        chunked prefill enters the speculative rounds position-synced, as
+        after bulk admission."""
+        tok = super().prefill_chunk(tokens, positions, block_tables, cols, temps)
+        with default_spec(self.spec):
+            _, self.draft_cache = self.draft_model.decode_paged(
+                self.draft_params, self._to_device(tokens), self.draft_cache,
+                self._to_device(positions), self._to_device(block_tables))
         return tok
 
     def spec_stats(self) -> Dict[str, Any]:

@@ -198,3 +198,13 @@ def maybe_admm_update(state: TrainState, table, tcfg: TrainConfig,
     refresh = z_updates % max(tcfg.admm_sign_refresh_every, 1) == 0
     new_admm = admm_mod.admm_update(state.params, state.admm, table, refresh_signs=refresh)
     return dataclasses.replace(state, admm=new_admm)
+
+
+def restore_template(state: TrainState, table, tcfg: TrainConfig, step: int) -> TrainState:
+    """``state`` (a fresh :func:`init_train_state`) shaped as a checkpoint
+    taken after ``step`` steps: once a Z-update has run, every ADMM layer
+    holds its signs, masks and scale, so the template gets placeholders
+    for them (:func:`~repro_torch.core.admm.with_structure`)."""
+    if state.admm is None or step < tcfg.admm_update_every:
+        return state
+    return dataclasses.replace(state, admm=admm_mod.with_structure(state.admm, table))

@@ -469,3 +469,105 @@ def test_polarize_wrapper_raises_instead_of_falling_back():
         kpol.admm_polarize(v.double(), m=8, rule="sum")
     with pytest.raises(ValueError, match="contiguous"):
         kpol.admm_polarize(v.t(), m=4, rule="sum")
+
+
+@pytest.mark.parametrize("slots,route", [(1, "f32"), (2, "tc")])
+@pytest.mark.gpu
+@needs_card
+def test_prefill_chunk_on_both_routes_matches_plain(slots, route):
+    """A (slots, 8) chunk of a bf16 FORMS model: M = slots x 8 takes the f32
+    kernel at 8 rows and the tensor-core kernel at 16; the chunk's logits
+    agree with the CPU's plain versions on the same codes, and its token is
+    the one ``prefill_chunk`` samples."""
+    import dataclasses
+    from repro_torch.configs import get_reduced
+    from repro_torch.forms import FormsLinearParams, FormsSpec, compress_tree, default_spec
+    from repro_torch.models.registry import build
+    from repro_torch.serving.engine import ServingEngine
+
+    def to(tree, dev):
+        if isinstance(tree, dict):
+            return {k: to(v, dev) for k, v in tree.items()}
+        if isinstance(tree, FormsLinearParams):
+            return dataclasses.replace(tree, mags=tree.mags.to(dev), signs=tree.signs.to(dev),
+                                       scale=tree.scale.to(dev))
+        return tree.to(dev)
+
+    cfg = get_reduced("qwen2-1.5b")
+    spec = FormsSpec(m=8, bits=8)
+    tree, _ = compress_tree(build(cfg, device="cpu").init(0), spec)
+    rng = np.random.RandomState(1)
+    toks = rng.randint(0, cfg.vocab_size, (slots, 8)).astype(np.int32)
+    pos = np.zeros(slots, np.int32)
+    tables = np.arange(1, slots * 4 + 1, dtype=np.int32).reshape(slots, 4)
+    cols = np.full(slots, 7, np.int32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        eng = ServingEngine(build(cfg, device=dev), to(tree, dev), spec=spec, max_len=32,
+                            batch_slots=slots, page_size=8, slo={"prefill_chunk": 8},
+                            device=dev)
+        r = eng.runner
+        kernels = (pm.polarized_matmul, pm.polarized_matmul_tc)
+        before = [k.launches for k in kernels]
+        with torch.inference_mode(), default_spec(spec):
+            logits, _ = r.model.decode_paged(r.params, torch.tensor(toks, device=dev),
+                                             r.model.init_paged_cache(slots * 4 + 1, 8),
+                                             torch.tensor(pos, device=dev),
+                                             torch.tensor(tables, device=dev))
+        launched = [k.launches - b for k, b in zip(kernels, before)]
+        tok = r.prefill_chunk(toks, pos, tables, cols, np.zeros(slots, np.float32))
+        out[dev] = (logits[:, -1].float().cpu(), tok, launched)
+    per_call = 7 * cfg.num_layers
+    assert out["cuda"][2] == ([per_call, 0] if route == "f32" else [0, per_call])
+    assert out["cpu"][2] == [0, 0]
+    card, cpu = out["cuda"][0], out["cpu"][0]
+    assert float((card - cpu).abs().max()) <= 3e-2 * float(cpu.abs().max())
+    assert list(out["cuda"][1]) == card.argmax(-1).tolist()
+    assert eng.runner.chunk_widths == [8]
+
+
+@pytest.mark.gpu
+@needs_card
+def test_checkpoint_restores_onto_the_card(tmp_path):
+    """A compressed tree and a train state saved from the CPU restore onto
+    ``cuda`` bit for bit (the generator as a CUDA generator), and the
+    restored tree serves the tokens of the same tree moved to the card."""
+    import dataclasses
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.configs import get_reduced
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.forms import FormsSpec, compress_tree, spec_from_meta
+    from repro_torch.models.registry import build
+    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.training import train_loop
+
+    cfg = get_reduced("qwen2-1.5b")
+    spec = FormsSpec(m=8, bits=8)
+    tree, _ = compress_tree(build(cfg, device="cpu").init(0), spec)
+    ckpt.save(str(tmp_path / "serve"), tree, step=1, extra_meta=dataclasses.asdict(spec))
+    spec2 = spec_from_meta(ckpt.read_meta(str(tmp_path / "serve"))["extra"])
+    model = build(cfg, device="cuda")
+    template, _ = compress_tree(model.init(1), spec2)
+    got, _ = ckpt.restore(str(tmp_path / "serve"), template, device="cuda")
+    leaves = ckpt.tree_leaves(got)
+    assert all(x.is_cuda for x in leaves)
+    for a, b in zip(leaves, ckpt.tree_leaves(tree)):
+        assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
+    moved, _ = ckpt.restore(str(tmp_path / "serve"), template)
+    reqs = [Request(uid=i, prompt=np.arange(3 + i, 9 + i), max_new_tokens=6) for i in range(2)]
+    run = lambda t: {r.uid: r.tokens for r in ServingEngine(  # noqa: E731
+        model, t, spec=spec2, max_len=32, batch_slots=2, page_size=8, device="cuda").run(reqs)}
+    assert run(got) == run(moved)
+
+    tcfg = TrainConfig(moment_dtype="bfloat16", admm_enabled=True, admm_update_every=2)
+    state, table = train_loop.init_train_state(build(cfg, device="cpu"), tcfg)
+    state = train_loop.maybe_admm_update(state, table, tcfg, 2)
+    ckpt.save(str(tmp_path / "train"), state, step=2)
+    fresh, _ = train_loop.init_train_state(model, tcfg, seed=3)
+    back, step = ckpt.restore(str(tmp_path / "train"),
+                              train_loop.restore_template(fresh, table, tcfg, 2))
+    assert step == 2 and back.rng.device.type == "cuda"
+    assert back.rng.initial_seed() == state.rng.initial_seed()
+    for a, b in zip(ckpt.tree_leaves(back), ckpt.tree_leaves(state)):
+        if isinstance(a, torch.Tensor):
+            assert a.is_cuda and a.dtype == b.dtype and torch.equal(a.cpu(), b)

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports JAX or the JAX package, and its entry points run
-on the card unless the caller asks for the CPU."""
+``chip_smoke.py`` imports JAX, the JAX package, ``msgpack`` or
+``ml_dtypes``, and its entry points run on the card unless the caller asks
+for the CPU."""
 import ast
 import dataclasses
 import pathlib
@@ -30,6 +31,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     bad = [(str(p.relative_to(ROOT)), mod) for p in PORT_FILES for mod in _imported_modules(p)
            if mod.split(".")[0] in ("jax", "jaxlib", "repro", "flax", "optax")]
     assert bad == []
+
+
+def test_port_imports_neither_msgpack_nor_ml_dtypes():
+    """The card's machine has neither: the checkpoint codec is the port's own."""
+    bad = [(str(p.relative_to(ROOT)), mod) for p in PORT_FILES for mod in _imported_modules(p)
+           if mod.split(".")[0] in ("msgpack", "ml_dtypes")]
+    assert bad == []
+    assert ROOT / "src" / "repro_torch" / "checkpoint" / "manager.py" in PORT_FILES
 
 
 def test_no_kernel_toolchain_is_touched_at_import():

@@ -94,9 +94,12 @@ def test_unported_options_are_refused():
     _, _, tm, tp = models()
     kw = dict(max_len=32, batch_slots=2, device="cpu")
     for extra in (dict(mesh=object()), dict(draft_plan={"attn/wq": tforms.FormsSpec()}),
-                  dict(health=object()), dict(slo={})):
+                  dict(health=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item"):
             TEngine(tm, tp, **kw, **{"page_size": 8, **extra})
+    # the fleet scheduler is ported: slo= builds it (tests/test_torch_fleet.py)
+    assert type(TEngine(tm, tp, page_size=8, slo={}, **kw).scheduler).__name__ == \
+        "FleetScheduler"
     with pytest.raises(ValueError, match="plan="):
         TEngine(tm, tp, page_size=8, plan={"attn/wq": tforms.FormsSpec()}, **kw)
 
