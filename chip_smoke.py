@@ -20,6 +20,17 @@ Phases, each printing JSON lines:
                calls and its bf16 bound; and the M crossover of the two
                kernels on bf16 x at M=1 to 64, with the least M at which the
                tensor-core kernel wins (TC_MIN_ROWS);
+   kernel_bits — kernel #1 on 2-, 4- and 6-bit codes (the auto-bits
+               widths, still uint8) on bf16 x, qwen2-1.5b's 7 projections:
+               held against the plain version at every M the auto-bits path
+               gives them (prefill buckets, decode, verify and calibration
+               rows), timed per layer at M=4 and 64 beside the bf16 library
+               call and the bound; every projection shape of
+               h2o-danube-1.8b held at every M its served run gives it,
+               qwen1.5-4b's and yi-9b's at M=4 and 64; the untied heads
+               (K x N = 2560 x 32000, 2560 x 151936, 4096 x 64000, and
+               qwen2's 1536 x 151936 for scale) held at M=1 and 4, timed at
+               M=4;
 4. skip      — the block-skip launches at the same shapes with 0%, 50% and
                100% of the K slices of x zero: equal to the dense launch
                bit for bit, timed at 50% (f32 x at M=4 and 64, bf16 x at
@@ -83,6 +94,27 @@ Phases, each printing JSON lines:
                rebuilt from the meta and a fresh init, restored onto the card
                and served: bit for bit, the slice's tokens exactly; save and
                restore ms, bytes on disk against the f32 tree's;
+10b. autobits — ``forms/autobits`` on the slice's full-width weights
+               (FormsSpec(m=8, bits=8), AutoBitsConfig(), budget 0.05):
+               Fisher and per-width compress / decompress ms, timed on their
+               own; the sweep, whose one kernel is compress_tree's
+               polarization (once per layer matrix and width), its launches
+               reckoned; back-off rounds (from the measured NLLs that the
+               validation's launches count), the plan's histogram,
+               predicted and measured dNLL, the ReRAM ADC-event model's
+               speedup (a model number, not card time), FLOP coverage, peak
+               memory, the validation forwards' launches reckoned; the
+               slice's requests on the mixed tree beside the uniform 8-bit
+               tree (decode and prefill ms, launches reckoned), the
+               launcher's parity block against the matched-budget uniform
+               width, and the --auto-draft speculative run (acceptance,
+               tokens per slot-round beside the uniform 4-bit draft's, the
+               speculate phase's token rule, launches from the round widths);
+10c. dense_configs — full-width h2o-danube-1.8b with --forms on the paged
+               cache, the untied FORMS head at N = 32000: 4 requests of 16
+               tokens with zero_skip off and block, equal tokens, launches
+               reckoned (the head at M=1 per prefill, M=4 per decode step),
+               decode and prefill ms;
 11. zero_skip — the same model with ReLU and 50% fragment sparsity, one tree
                compressed once, served with zero_skip off, block and compact:
                block gives off's tokens through the skip kernel, compact's
@@ -92,12 +124,18 @@ Phases, each printing JSON lines:
 12. fidelity — ``forms.apply_simulated`` on layer 0's wq/wk/wv/gate/up of
                that tree: the bit-serial kernel against its plain version,
                mean EIC and cycle savings; then the kernel alone on each
-               leaf's M=64 operands, exact at ideal and 4-bit ADCs, timed;
+               leaf's M=64 operands, exact at ideal and 4-bit ADCs, timed; then
+               the perfmodel line: the paper's ReRAM model (forms_throughput,
+               table_v, fps_speedup) at the measured mean EIC beside the
+               published Table V rows, model numbers and not card times;
 13. polarize — the fragment-polarization kernel of the ADMM Z-update
                against its plain version at the seven stacked full-width
                qwen2-1.5b leaves, both sign rules, bit for bit (a case with
                zero-sum fragments, -0.0 and NaN too), with CUDA-event times
                of the kernel and the plain version beside the byte bound;
+               and at the one-matrix calls compress_tree makes (energy rule,
+               qwen2-1.5b's and h2o-danube-1.8b's matrices, its head too),
+               bit for bit, timed per qwen2 layer;
 14. train_small — a reduced qwen2 (f32) trained two steps plus one fresh
                Z-update on the card and on the CPU from the same params:
                losses agree, every Z leaf is polarized;
@@ -424,6 +462,12 @@ def route_split(per_call, prefill_rows, steps, slots):
     for M in prefill_rows + [slots] * steps:
         out[pm.uses_tensor_cores(torch.bfloat16, torch.uint8, "cuda", M)] += per_call
     return out
+
+
+def bound_by(rows):
+    """What bounds the summed rows: their one answer, or "mixed"."""
+    by = {r["bound_by"] for r in rows}
+    return by.pop() if len(by) == 1 else "mixed"
 
 
 def per_layer(rows, M, key):
@@ -990,50 +1034,48 @@ def teacher_forced_margins(engine, prompts, tokens):
 
 def verify_shapes(gen, flush):
     """The verify's seven projections per layer at M = slots x (kk+1) = 8,
-    12, 16 and 20 on bf16 x, through the route ``uses_tensor_cores`` picks:
-    two launches equal bit for bit and held against the plain version
-    within REL_TOL at every shape, then each timed beside the plain
-    version, the bf16 ``torch.matmul`` of the pre-folded weight and the
-    function's bound (bf16 x on uint8 codes: the tensor-core rate, whichever
-    kernel serves it); summed per layer."""
-    import torch
-    from repro_torch.kernels import polarized_matmul as pm
-    from repro_torch.kernels.ref import ref_polarized_matmul_fast
-
+    12, 16 and 20 on bf16 x, through the route ``uses_tensor_cores`` picks
+    (``layer_row``: held and timed, summed per layer)."""
     rows = []
     for M in VERIFY_M:
-        tc = pm.uses_tensor_cores(torch.bfloat16, torch.uint8, "cuda", M)
-        rec = {"M": M, "route": "tc" if tc else "f32", "kernel_ms": 0.0, "plain_ms": 0.0,
-               "library_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0, "max_rel_err": 0.0}
-        bound_by = set()
-        for (K, N), calls in LAYER_SHAPES.items():
-            x, mags, signs, scale = kernel_inputs(gen, M, K, N, x_dtype=torch.bfloat16)
-            got = pm.polarized_matmul(x, mags, signs, scale, 8)
-            again = pm.polarized_matmul(x, mags, signs, scale, 8)
-            want = ref_polarized_matmul_fast(x, mags, signs, scale, 8)
-            torch.cuda.synchronize()
-            if not torch.equal(got, again):
-                raise AssertionError(f"verify M={M} K={K} N={N}: two launches differ")
-            abs_err = float((got - want).abs().max())
-            rel_err = abs_err / float(want.abs().max())
-            rec["max_abs_err"] = max(rec["max_abs_err"], abs_err)
-            rec["max_rel_err"] = max(rec["max_rel_err"], rel_err)
-            if not rel_err <= REL_TOL:
-                raise AssertionError(f"verify M={M} K={K} N={N} ({rec['route']} route): the "
-                                     f"kernel disagrees with its plain version by {rel_err}")
-            wb = (mags.float() * signs.float().repeat_interleave(8, dim=0)).to(torch.bfloat16)
-            rec["kernel_ms"] += calls * timed_ms(
-                lambda: pm.polarized_matmul(x, mags, signs, scale, 8), flush)
-            rec["plain_ms"] += calls * timed_ms(
-                lambda: ref_polarized_matmul_fast(x, mags, signs, scale, 8), flush)
-            rec["library_ms"] += calls * timed_ms(lambda: torch.matmul(x, wb), flush)
-            b, by = bound_tc(M, K, N)
-            rec["bound_ms"] += calls * b
-            bound_by.add(by)
-        rec["bound_by"] = bound_by.pop() if len(bound_by) == 1 else "mixed"
+        rec = layer_row(gen, M, flush)
         emit("verify_shape", per="the 7 projections of one qwen2-1.5b layer, bf16 x", **rec)
         rows.append(rec)
     return rows
+
+
+def spec_reckoning(per_call, buckets, widths, draft_layers, slots=4):
+    """[f32, tensor-core] launches of a speculative run: two prefills per
+    admission (the draft's only with FORMS draft layers), kk + 1 draft calls
+    at M = slots and one verify at M = slots x (kk+1) per round."""
+    import torch
+    from repro_torch.kernels import polarized_matmul as pm
+    out = [2 * n for n in route_split(per_call, buckets, 0, slots)] if draft_layers \
+        else route_split(per_call, buckets, 0, slots)
+    for kk in widths:
+        out[0] += (kk + 1) * 7 * draft_layers
+        out[pm.uses_tensor_cores(torch.bfloat16, torch.uint8, "cuda", slots * (kk + 1))] += \
+            per_call
+    return out
+
+
+def speculative_token_rule(plain_engine, eng, prompts, plain_tokens, got, threshold, label):
+    """The first divergence of ``got`` from the plain tokens lies at a
+    near-tie, and every emitted token, teacher-forced on the plain engine's
+    path, lies within the threshold of its row's largest logit."""
+    div = first_divergence(eng, prompts, plain_tokens, got)
+    if div is not None and not div["top2_margin"] < threshold:
+        raise AssertionError(f"{label}: a greedy token parted from the plain engine's "
+                             f"away from a near-tie: {div}, threshold {threshold}")
+    margins = teacher_forced_margins(plain_engine, prompts, got)
+    misses = int((margins > threshold).sum())
+    if misses:
+        raise AssertionError(f"{label}: {misses} of {margins.numel()} emitted tokens lie "
+                             f"more than {threshold} below their row's largest logit "
+                             f"under teacher forcing: {margins.tolist()}")
+    return {"divergence": div, "teacher_forced_tokens": margins.numel(),
+            "teacher_forced_misses": misses,
+            "teacher_forced_max_margin": float(margins.max())}
 
 
 def phase_speculate(model, cfg, prompts, plain_engine, plain_tokens, trace=False):
@@ -1052,7 +1094,6 @@ def phase_speculate(model, cfg, prompts, plain_engine, plain_tokens, trace=False
     import numpy as np
     import torch
     from repro_torch.forms import FormsSpec
-    from repro_torch.kernels import polarized_matmul as pm
     from repro_torch.serving.engine import Request, ServingEngine
 
     spec = FormsSpec(m=8, bits=8, rule="energy")
@@ -1070,18 +1111,6 @@ def phase_speculate(model, cfg, prompts, plain_engine, plain_tokens, trace=False
     build_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     runner = engine.runner
     buckets = [runner.bucket_for(len(p)) for p in prompts]
-
-    def expected(widths, draft_layers):
-        """[f32, tensor-core] launches: two prefills per admission (the
-        draft's only with FORMS draft layers), kk + 1 draft calls at M =
-        slots and one verify at M = slots x (kk+1) per round."""
-        out = [2 * n for n in route_split(per_call, buckets, 0, 4)] if draft_layers \
-            else route_split(per_call, buckets, 0, 4)
-        for kk in widths:
-            out[0] += (kk + 1) * 7 * draft_layers
-            out[pm.uses_tensor_cores(torch.bfloat16, torch.uint8, "cuda", 4 * (kk + 1))] += \
-                per_call
-        return out
 
     def serve(eng, temperature=0.0, seed=None):
         reqs = [Request(uid=i, prompt=p, max_new_tokens=n_new, temperature=temperature)
@@ -1119,25 +1148,11 @@ def phase_speculate(model, cfg, prompts, plain_engine, plain_tokens, trace=False
     threshold, per_width = verify_threshold(engine, prompts, plain_tokens, (1, 2, 3, 4))
 
     def token_rule(eng, got, label):
-        """The first divergence from the plain tokens lies at a near-tie, and
-        every emitted token, teacher-forced on the target's plain path, lies
-        within the threshold of its row's largest logit."""
-        div = first_divergence(eng, prompts, plain_tokens, got)
-        if div is not None and not div["top2_margin"] < threshold:
-            raise AssertionError(f"{label}: a greedy token parted from the plain engine's "
-                                 f"away from a near-tie: {div}, threshold {threshold}")
-        margins = teacher_forced_margins(plain_engine, prompts, got)
-        misses = int((margins > threshold).sum())
-        if misses:
-            raise AssertionError(f"{label}: {misses} of {margins.numel()} emitted tokens lie "
-                                 f"more than {threshold} below their row's largest logit "
-                                 f"under teacher forcing: {margins.tolist()}")
-        return {"divergence": div, "teacher_forced_tokens": margins.numel(),
-                "teacher_forced_misses": misses,
-                "teacher_forced_max_margin": float(margins.max())}
+        return speculative_token_rule(plain_engine, eng, prompts, plain_tokens, got,
+                                      threshold, label)
 
     def check_launches(run, draft_layers, label):
-        want = expected(run["widths"], draft_layers)
+        want = spec_reckoning(per_call, buckets, run["widths"], draft_layers)
         got = [run["launches"]["polarized_matmul"], run["launches"]["polarized_matmul_tc"]]
         run["launches_expected"] = want
         if got != want:
@@ -1232,7 +1247,9 @@ def phase_speculate(model, cfg, prompts, plain_engine, plain_tokens, trace=False
                       "token_rule": dense_rule, "cache_bytes": dense_bytes,
                       "launches_expected": dense_want, **brief(dense_run)},
          tokens=spec_runs[0]["tokens"])
-    return spec_runs[0]["launches"], shapes
+    uniform_draft = {k: spec_runs[0][k] for k in ("acceptance", "tokens_per_round",
+                                                  "decode_ms_per_token")}
+    return spec_runs[0]["launches"], shapes, uniform_draft
 
 
 # --------------------------------------------------------------------------
@@ -1960,7 +1977,8 @@ def phase_fidelity(tree, cfg, prompts):
     width: the bit-serial kernel against its plain version, exactly, and
     the EIC statistics of the activations; then the kernel alone on the
     same M=64 operands, held exactly at ideal and 4-bit ADCs and timed.
-    Returns the path's launches and the timed sums over the five leaves."""
+    Returns the path's launches, the timed sums over the five leaves and
+    the mean EIC."""
     import torch
     from repro_torch.core.quantization import quantize_activations, slice_to_cells
     from repro_torch.core.zeroskip import eic_stats, fragment_eic
@@ -2000,8 +2018,8 @@ def phase_fidelity(tree, cfg, prompts):
                       "mean_eic": st.mean_eic, "cycle_savings": st.savings}
         if not (recs[name]["y_equal_plain"] and recs[name]["eic_equal_plain"]):
             raise AssertionError(f"{name}: the bit-serial kernel disagrees: {recs[name]}")
-    emit("fidelity", launches=launches, leaves=recs,
-         mean_eic=sum(r["mean_eic"] for r in recs.values()) / len(recs),
+    mean_eic = sum(r["mean_eic"] for r in recs.values()) / len(recs)
+    emit("fidelity", launches=launches, leaves=recs, mean_eic=mean_eic,
          cycle_savings=sum(r["cycle_savings"] for r in recs.values()) / len(recs))
     if launches != len(recs):
         raise AssertionError(f"apply_simulated launched the kernel {launches} times")
@@ -2026,7 +2044,7 @@ def phase_fidelity(tree, cfg, prompts):
     emit("fidelity_kernel", rows=timed[0]["M"], leaves=[
         {k: r[k] for k in ("case", "K", "N", "grid", "mmas", "kernel_ms", "plain_ms",
                            "library_ms", "bound_ms", "bound_by")} for r in timed], **row)
-    return launches, row
+    return launches, row, mean_eic
 
 
 def polarize_bound(shape, m: int = 8):
@@ -2045,7 +2063,11 @@ def polarize_bound(shape, m: int = 8):
 def phase_polarize():
     """Kernel #4 at the seven stacked full-width leaves, both rules: equal to
     the plain version bit for bit; times for the ``sum`` rule (the ADMM
-    default); and a case with zero-sum fragments, -0.0 and NaN."""
+    default); at the one-matrix calls that ``compress_tree`` makes (energy
+    rule, one (K, N) layer matrix at a time) for qwen2-1.5b and
+    h2o-danube-1.8b, its untied head included: bit for bit, timed per
+    qwen2 layer; and a case with zero-sum fragments, -0.0 and NaN.  Returns
+    the stacked rows and the per-layer row of the one-matrix calls."""
     import torch
     from repro_torch.kernels.admm_polarize import admm_polarize
     from repro_torch.kernels.ref import ref_admm_polarize
@@ -2080,6 +2102,30 @@ def phase_polarize():
         rows.append(rec)
         del v
         torch.cuda.empty_cache()
+    # compress_tree's calls (forms.from_dense): one f32 layer matrix each
+    matrix_rows = []
+    for K, N in (list(LAYER_SHAPES) + list(DENSE_SHAPES[SERVED_ARCH])
+                 + [(2560, 32000)]):
+        v = torch.randn((K, N), generator=gen, device="cuda")
+        out, signs = admm_polarize(v, m=8, rule="energy")
+        want, want_s = ref_admm_polarize(v, 8, "energy")
+        torch.cuda.synchronize()
+        rec = {"K": K, "N": N, "equal": same(out, want) and torch.equal(signs, want_s)}
+        if (K, N) in LAYER_SHAPES:
+            rec["kernel_ms"] = timed_ms(lambda: admm_polarize(v, m=8, rule="energy"), flush)
+            rec["plain_ms"] = timed_ms(lambda: ref_admm_polarize(v, 8, "energy"), flush,
+                                       reps=5)
+            rec["bound_ms"], rec["bound_by"] = polarize_bound((K, N))
+        if not rec["equal"]:
+            raise AssertionError(f"the polarization kernel disagrees at one matrix: {rec}")
+        matrix_rows.append(rec)
+        del v, out, signs, want, want_s
+    timed = [r for r in matrix_rows if "kernel_ms" in r]
+    matrix_row = {k: sum(r[k] * LAYER_SHAPES[(r["K"], r["N"])] for r in timed)
+                  for k in ("kernel_ms", "plain_ms", "bound_ms")}
+    matrix_row["bound_by"] = bound_by(timed)
+    emit("polarize_matrix", rule="energy", held=[[r["K"], r["N"]] for r in matrix_rows],
+         per="the 7 matrices of one qwen2-1.5b layer, one call each", **matrix_row)
     # the comparisons as the reference writes them: a fragment summing to 0
     # elects +1, -0.0 is kept, a NaN elects -1 and is zeroed; f32 and bf16
     v = torch.randn((3, 64, 300), generator=gen, device="cuda")
@@ -2102,7 +2148,7 @@ def phase_polarize():
             if not (rec["equal"] and rec["zero_sum_sign"] == 1.0 and rec["neg_zero_kept"]
                     and rec["nan_sign"] == -1.0 and not rec["nan_left"]):
                 raise AssertionError(f"the polarization kernel's edge cases: {rec}")
-    return rows
+    return rows, matrix_row
 
 
 def train_config(**kw):
@@ -2316,6 +2362,423 @@ def profile_decode(engine, prompts, phase: str = "profile") -> None:
                     "count": e.count} for e in host])
 
 
+# --------------------------------------------------------------------------
+# kernel #1 at the mixed plans' widths and the other dense configs' shapes
+# --------------------------------------------------------------------------
+
+NEW_BITS = (2, 4, 6)        # the auto-bits ladder below 8
+SERVE_MAX_LEN = 256         # the served engines' max_len
+# the untied FORMS heads (K = d_model, N = vocab): h2o-danube-1.8b,
+# qwen1.5-4b and yi-9b; and qwen2-1.5b's tied head, served dense, for scale
+HEAD_SHAPES = [(1536, 151936), (2560, 32000), (2560, 151936), (4096, 64000)]
+HEAD_M = (1, DECODE_M)      # the head's last prefill row, and a decode step
+# the other dense configs' projections at full width, (K, N) -> calls per layer
+DENSE_SHAPES = {"h2o-danube-1.8b": {(2560, 2560): 2, (2560, 640): 2, (2560, 6912): 2,
+                                    (6912, 2560): 1},
+                "qwen1.5-4b": {(2560, 2560): 4, (2560, 6912): 2, (6912, 2560): 1},
+                "yi-9b": {(4096, 4096): 2, (4096, 512): 2, (4096, 11008): 2,
+                          (11008, 4096): 1}}
+SERVED_ARCH = "h2o-danube-1.8b"   # the one of them served whole (dense_configs)
+
+
+def served_m(arch: str):
+    """The M a served run of the slice's prompts gives every projection of
+    ``arch``: each prompt's prefill bucket, and the decode step's slots."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving.engine import prefill_bucket
+    return sorted({prefill_bucket(len(p), SERVE_MAX_LEN)
+                   for p in slice_prompts(get_config(arch))} | {DECODE_M})
+
+
+def autobits_m():
+    """The M the auto-bits path gives qwen2-1.5b's projections at a width
+    below 8: the mixed tree's prefills and decode steps, the auto-draft's
+    verify widths, and the calibration forwards of the plan's validation."""
+    from repro_torch.forms.autobits import AutoBitsConfig
+    acfg = AutoBitsConfig()
+    return sorted(set(served_m("qwen2-1.5b")) | set(VERIFY_M)
+                  | {acfg.calib_batch * acfg.calib_len})
+
+
+def held_matmul(gen, M, K, N, bits=8, flush=None):
+    """Kernel #1 through its route on bf16 x (as the served models give it)
+    and ``bits``-bit codes: two launches equal bit for bit and held against
+    the plain version within REL_TOL; with ``flush``, timed beside the plain
+    version, the bf16 ``torch.matmul`` of the pre-folded weight and the
+    bound."""
+    import torch
+    from repro_torch.kernels import polarized_matmul as pm
+    from repro_torch.kernels.ref import ref_polarized_matmul_fast
+
+    x, mags, signs, scale = kernel_inputs(gen, M, K, N, levels=2 ** bits,
+                                          x_dtype=torch.bfloat16)
+    got = pm.polarized_matmul(x, mags, signs, scale, 8)
+    again = pm.polarized_matmul(x, mags, signs, scale, 8)
+    want = ref_polarized_matmul_fast(x, mags, signs, scale, 8)
+    torch.cuda.synchronize()
+    abs_err = float((got - want).abs().max())
+    rec = {"M": M, "K": K, "N": N, "bits": bits, "max_code": int(mags.max()),
+           "route": "tc" if pm.uses_tensor_cores(x.dtype, mags.dtype, "cuda", M) else "f32",
+           "max_abs_err": abs_err, "max_rel_err": abs_err / float(want.abs().max())}
+    if not torch.equal(got, again):
+        raise AssertionError(f"two launches differ: {rec}")
+    if not rec["max_rel_err"] <= REL_TOL:
+        raise AssertionError(f"kernel #1 disagrees with its plain version: {rec}")
+    if flush is not None:
+        wb = (mags.float() * signs.float().repeat_interleave(8, dim=0)).to(torch.bfloat16)
+        rec["kernel_ms"] = timed_ms(lambda: pm.polarized_matmul(x, mags, signs, scale, 8), flush)
+        rec["plain_ms"] = timed_ms(lambda: ref_polarized_matmul_fast(x, mags, signs, scale, 8),
+                                   flush)
+        rec["library_ms"] = timed_ms(lambda: torch.matmul(x, wb), flush)
+        rec["bound_ms"], rec["bound_by"] = bound(M, K, N, 1, x_bytes=2)
+    return rec
+
+
+def layer_row(gen, M, flush, bits=8):
+    """``held_matmul`` at each of qwen2-1.5b's 7 projections of one layer at
+    M, timed, summed per layer."""
+    recs = [(held_matmul(gen, M, K, N, bits, flush), calls)
+            for (K, N), calls in LAYER_SHAPES.items()]
+    return {"M": M, "bits": bits, "route": recs[0][0]["route"],
+            **{k: sum(r[k] * c for r, c in recs)
+               for k in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")},
+            "bound_by": bound_by([r for r, _ in recs]),
+            "max_abs_err": max(r["max_abs_err"] for r, _ in recs),
+            "max_rel_err": max(r["max_rel_err"] for r, _ in recs)}
+
+
+def phase_kernel_widths():
+    """Kernel #1 at the auto-bits widths 2, 4 and 6 (uint8 codes below 2^bits)
+    on qwen2-1.5b's projections: held at every M the auto-bits path gives
+    them (``autobits_m``), timed per layer at decode (M=4, the f32 kernel)
+    and prefill (M=64, tensor cores); every projection of the other dense
+    configs held, h2o-danube-1.8b's at every M its served run gives them
+    (``served_m``), the other two at M=4 and 64; the untied heads held at
+    M=1 and 4, timed at M=4.  Returns the per-layer width rows and the head
+    rows."""
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(9)
+    scrub = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    flush = lambda: scrub.zero_()
+    width_rows = []
+    for bits in NEW_BITS:
+        held = [held_matmul(gen, M, K, N, bits) for M in autobits_m()
+                if M not in (DECODE_M, PREFILL_M) for K, N in LAYER_SHAPES]
+        emit("kernel_bits_held", bits=bits, shapes=[[r["M"], r["K"], r["N"], r["route"]]
+                                                    for r in held],
+             max_abs_err=max(r["max_abs_err"] for r in held),
+             max_rel_err=max(r["max_rel_err"] for r in held))
+        for M in (DECODE_M, PREFILL_M):
+            row = layer_row(gen, M, flush, bits)
+            emit("kernel_bits", per="the 7 projections of one qwen2-1.5b layer, bf16 x", **row)
+            width_rows.append(row)
+    for arch, shapes in DENSE_SHAPES.items():
+        ms = served_m(arch) if arch == SERVED_ARCH else (DECODE_M, PREFILL_M)
+        recs = [held_matmul(gen, M, K, N) for M in ms for (K, N) in shapes]
+        emit("kernel_dense_shapes", arch=arch, shapes=[[r["M"], r["K"], r["N"], r["route"]]
+                                                       for r in recs],
+             max_abs_err=max(r["max_abs_err"] for r in recs),
+             max_rel_err=max(r["max_rel_err"] for r in recs))
+    head_rows = []
+    for K, N in HEAD_SHAPES:
+        for M in HEAD_M:
+            rec = held_matmul(gen, M, K, N, flush=flush if M == DECODE_M else None)
+            if M == DECODE_M:
+                rec["dense_bf16_bound_ms"] = (K * N * 2 + M * (K * 2 + N * 4)) \
+                    / HBM_BYTES_PER_S * 1e3
+                head_rows.append(rec)
+            emit("kernel_head", **rec)
+    del scrub
+    return width_rows, head_rows
+
+
+# --------------------------------------------------------------------------
+# auto mixed precision on the full-width model
+# --------------------------------------------------------------------------
+
+AUTOBITS_BUDGET = 0.05
+SERVED_NEW = 16             # new tokens per request of the served runs below
+
+
+def served(eng, prompts):
+    """One greedy run of ``prompts`` (SERVED_NEW tokens each) on ``eng``, the
+    launch counts set to 0 just before it: every request must return
+    SERVED_NEW tokens in the vocabulary.  Returns the tokens, the results,
+    the wall seconds, the decode steps, ms per decode step and per prefill,
+    and the counts."""
+    import torch
+    from repro_torch.serving.engine import Request
+
+    vocab = eng.cfg.vocab_size
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=SERVED_NEW) for i, p in enumerate(prompts)]
+    rounds0 = eng.scheduler.rounds
+    reset_counts()
+    t = time.perf_counter()
+    results = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = launch_counts()
+    steps = (eng.scheduler.rounds - rounds0) * eng.decode_block
+    tokens = {r.uid: r.tokens for r in results}
+    for toks in tokens.values():
+        if len(toks) != SERVED_NEW or not all(0 <= v < vocab for v in toks):
+            raise AssertionError(f"a request returned {toks}")
+    return {"tokens": tokens, "results": results, "reqs": reqs, "wall_s": wall,
+            "decode_steps": steps,
+            "decode_step_ms": sum(r.decode_ms for r in results) / steps,
+            "mean_prefill_ms": sum(r.prefill_ms for r in results) / len(results),
+            "counts": counts}
+
+
+def synced_ms(fn, *a, **k):
+    """``fn(*a, **k)`` and its wall ms, the card synchronized on both sides."""
+    import torch
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn(*a, **k)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def phase_autobits(engine, prompts, plain_tokens, uniform_draft):
+    """``forms/autobits`` on full-width qwen2-1.5b (random weights from seed
+    0, the slice's ``FormsSpec(m=8, bits=8)``, ``AutoBitsConfig()`` at
+    acc_budget 0.05): the sweep's parts timed on their own (the Fisher pass,
+    each width's compress and decompress), then the whole sweep, whose one
+    kernel is the polarization (kernel #4) that ``compress_tree`` launches
+    once per layer matrix and width; the validated plan, its measured
+    candidates (back-off rounds), histogram, predicted and measured dNLL,
+    the ReRAM model's speedup, the FLOP coverage and peak memory; the
+    validation's launches reckoned from its measured NLLs (M = 8 x 32 = 256,
+    tensor cores, and one polarization per layer matrix of each tree it
+    compresses).  Then the slice's requests served on the mixed tree beside
+    the uniform 8-bit ``engine`` (uniform, mixed, mixed, uniform), the
+    launcher's parity block, and the ``--auto-draft`` speculative run beside
+    the uniform 4-bit draft's acceptance, its tokens under the speculate
+    phase's token rule and its launches reckoned from the round widths.
+    Returns the launches."""
+    import torch
+    from repro_torch.forms import FormsSpec, compress_tree, compressed_paths, to_dense
+    from repro_torch.forms import autobits as AB
+    from repro_torch.kernels import polarized_matmul as pm
+    from repro_torch.launch.serve import auto_bits_parity
+    from repro_torch.serving.engine import ServingEngine
+
+    model, cfg = engine.model, engine.cfg
+    spec = FormsSpec(m=8, bits=8, rule="energy")
+    acfg = AB.AutoBitsConfig(acc_budget=AUTOBITS_BUDGET)
+    per_call = 7 * cfg.num_layers
+    common = dict(page_size=16, batch_slots=4, max_len=SERVE_MAX_LEN, decode_block=4,
+                  device="cuda")
+    params = model.init(0)                 # the slice's dense weights
+
+    # the sweep's parts, each timed on its own
+    calib = AB.random_calibration(cfg.vocab_size, acfg, "cuda")
+    fisher, fisher_ms = synced_ms(AB.fisher_diag, model, params, calib)
+    del fisher
+    candidates = sorted(set(acfg.candidate_bits) | {spec.bits}, reverse=True)
+    compress_ms, decompress_ms = {}, {}
+    for b in candidates:
+        (comp, _), compress_ms[b] = synced_ms(compress_tree, params, spec.with_bits(b))
+        decompress_ms[b] = synced_ms(
+            lambda: [to_dense(fp) for fp in compressed_paths(comp).values()])[1]
+        del comp
+    # the whole sweep: its forwards are dense, its one kernel the
+    # polarization inside compress_tree, once per layer matrix and width;
+    # the peak memory is the sweep's and the plan's
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    table, sweep_ms = synced_ms(AB.measure_sensitivity, model, params, spec, acfg)
+    matrices = sum(ls.stack for ls in table.leaves.values())
+    sweep_launches = {k: v for k, v in launch_counts().items() if v}
+    sweep_want = {"admm_polarize": len(candidates) * matrices}
+    if sweep_launches != sweep_want:
+        raise AssertionError(f"the sweep launched {sweep_launches}, reckoned {sweep_want}")
+    # the validated plan: each measured NLL runs calib_batches forwards of
+    # one compressed tree (per_call projections each, M = calib_batch x
+    # calib_len) and compress_tree's polarization of its layer matrices
+    reset_counts()
+    plan, plan_ms = synced_ms(AB.plan_auto_bits, model, params, spec, acfg, table=table)
+    plan_launches = {k: v for k, v in launch_counts().items() if v}
+    names = ("polarized_matmul", "polarized_matmul_tc")
+    name = names[pm.uses_tensor_cores(torch.bfloat16, torch.uint8, "cuda",
+                                      acfg.calib_batch * acfg.calib_len)]
+    nlls, rest = divmod(plan_launches.get(name, 0), acfg.calib_batches * per_call)
+    base_plan = all(b == spec.bits for b in plan.bits.values())
+    want = {name: nlls * acfg.calib_batches * per_call, "admm_polarize": nlls * matrices}
+    # the base tree's NLL, then one per candidate plan measured (at most 4)
+    if rest or not (1 if base_plan else 2) <= nlls <= 5 or plan_launches != want:
+        raise AssertionError(f"the validation launched {plan_launches}: not {nlls} measured "
+                             f"NLLs' {want}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    coverage = AB.flop_coverage(table)
+    if not 0.0 < coverage <= 1.0:
+        raise AssertionError(f"the cost model covers {coverage} of the counted FLOPs")
+    if not (plan.measured_dl <= AUTOBITS_BUDGET and plan.modeled_seconds <= plan.base_seconds):
+        raise AssertionError(f"the plan misses its budget: {plan.summary()}")
+    validation = [plan_launches.get(n, 0) for n in names]
+    emit("autobits", arch=cfg.name, budget=AUTOBITS_BUDGET, summary=plan.summary(),
+         histogram=plan.histogram(), predicted_dnll=plan.predicted_dl,
+         measured_dnll=plan.measured_dl, modeled_speedup=plan.modeled_speedup,
+         modeled_speedup_note="the paper's ReRAM ADC-event model (core/perfmodel), not a "
+                              "time on the card",
+         measured_nlls=nlls, backoff_rounds=nlls - 1,
+         backoff_rounds_note="candidate plans measured against the budget",
+         fisher_ms=fisher_ms, compress_ms=compress_ms, decompress_ms=decompress_ms,
+         sweep_ms=sweep_ms, plan_ms=plan_ms,
+         fwd_flops=table.fwd_flops, modeled_flops=table.modeled_flops, flop_coverage=coverage,
+         peak_mem_gb=peak_gb, sweep_launches=sweep_launches, validation_launches=validation,
+         validation_polarize_launches=plan_launches["admm_polarize"], bits=plan.bits,
+         top_groups=plan.top_groups())
+
+    # the slice's requests on the mixed tree, beside the uniform 8-bit tree
+    mixed = ServingEngine(model, params, spec=spec, plan=plan.specs(), **common)
+    buckets = [mixed.runner.bucket_for(len(p)) for p in prompts]
+    runs = {"uniform8": [], "mixed": []}
+    for name in ("uniform8", "mixed", "mixed", "uniform8"):
+        runs[name].append(served(engine if name == "uniform8" else mixed, prompts))
+    for name, rs in runs.items():
+        for r in rs:
+            want = route_split(per_call, buckets, r["decode_steps"], 4)
+            got = {k: v for k, v in r["counts"].items() if v}
+            if got != {k: v for k, v in zip(names, want) if v}:
+                raise AssertionError(f"{name}: launched {got}, reckoned {want}")
+    if runs["uniform8"][0]["tokens"] != plain_tokens \
+            or runs["mixed"][0]["tokens"] != runs["mixed"][1]["tokens"]:
+        raise AssertionError("a repeated run gave other tokens")
+    mixed_tokens = runs["mixed"][0]["tokens"]
+    first = runs["mixed"][0]
+    parity = auto_bits_parity(model, params, spec, plan, AUTOBITS_BUDGET, first["reqs"],
+                              first["results"], **common)
+    torch.cuda.empty_cache()
+
+    # --auto-draft: the mixed target with the draft the same table plans
+    dplan = AB.plan_draft_bits(table, match_bits=4)
+    threshold, _ = verify_threshold(mixed, prompts, mixed_tokens, (1, 2, 3, 4))
+    draft_engine = ServingEngine(model, params, spec=spec, plan=plan.specs(), speculate=True,
+                                 draft_k=SPEC_K, draft_bits=4, draft_plan=dplan.specs(), **common)
+    del params
+    spec_run = served(draft_engine, prompts)
+    widths = list(draft_engine.runner.round_widths)
+    want = spec_reckoning(per_call, buckets, widths, cfg.num_layers)
+    got = {k: v for k, v in spec_run["counts"].items() if v}
+    if got != {k: v for k, v in zip(names, want) if v}:
+        raise AssertionError(f"auto-draft: launched {got}, the round widths "
+                             f"{widths} give {want}")
+    rule = speculative_token_rule(mixed, draft_engine, prompts, mixed_tokens,
+                                  spec_run["tokens"], threshold, "auto-draft")
+    st = draft_engine.stats()["speculate"]
+    emitted = sum(len(t) - 1 for t in spec_run["tokens"].values())
+    emit("autobits_serve", arch=cfg.name,
+         decode_step_ms={k: [r["decode_step_ms"] for r in rs] for k, rs in runs.items()},
+         mean_prefill_ms={k: [r["mean_prefill_ms"] for r in rs] for k, rs in runs.items()},
+         launches={k: [rs[0]["counts"][n] for n in names] for k, rs in runs.items()},
+         weight_bytes={"uniform8": engine.compression_report.bytes_compressed,
+                       "mixed": mixed.compression_report.bytes_compressed},
+         mixed_tokens_equal_uniform8=mixed_tokens == plain_tokens, parity=parity,
+         auto_draft={"histogram": dplan.histogram(), "summary": dplan.summary(),
+                     "acceptance": st["acceptance"], "tokens_per_round": st["tokens_per_round"],
+                     "decode_ms_per_token": sum(r.decode_ms for r in spec_run["results"])
+                     / emitted,
+                     "launches": [spec_run["counts"][n] for n in names],
+                     "launches_expected": want,
+                     "threshold": threshold, "token_rule": rule,
+                     "tokens_equal_mixed": spec_run["tokens"] == mixed_tokens},
+         uniform_4bit_draft=uniform_draft)
+    launches = [[runs["mixed"][0]["counts"][n] for n in names], validation,
+                [spec_run["counts"][n] for n in names],
+                sweep_launches["admm_polarize"] + plan_launches["admm_polarize"]]
+    del mixed, draft_engine
+    torch.cuda.empty_cache()
+    return launches
+
+
+# --------------------------------------------------------------------------
+# the other dense configs: h2o-danube-1.8b at full width, untied FORMS head
+# --------------------------------------------------------------------------
+
+def phase_dense_configs():
+    """Full-width h2o-danube-1.8b (24 layers, d_model 2560, kv N = 640, the
+    untied FORMS head at N = 32000; random weights from seed 0) served with
+    ``--forms`` on the paged cache, 4 requests of 16 new tokens, with
+    zero_skip off and block (off, block, block, off): block gives off's
+    tokens; each run's launches reckoned (7 projections per layer on the
+    route of their M, the head at M = 1 per prefill and M = slots per decode
+    step); decode and prefill ms.  Returns the off and block launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.forms import FormsLinearParams, FormsSpec, compress_tree
+    from repro_torch.kernels import polarized_matmul as pm
+    from repro_torch.models.registry import build
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg = get_config(SERVED_ARCH)
+    model = build(cfg, device="cuda")
+    spec = FormsSpec(m=8, bits=8, rule="energy")
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        tree, rep = compress_tree(model.init(0), spec)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    head = tree["head"]
+    if not (isinstance(head, FormsLinearParams)
+            and tuple(head.mags.shape) == (cfg.d_model, cfg.vocab_size)):
+        raise AssertionError(f"the untied head is not a FORMS leaf of (d_model, vocab): {head}")
+    prompts = slice_prompts(cfg)
+    engines = {mode: ServingEngine(model, tree, spec=spec, zero_skip=mode, page_size=16,
+                                   batch_slots=4, max_len=SERVE_MAX_LEN, decode_block=4,
+                                   device="cuda")
+               for mode in ("off", "block")}
+    buckets = [engines["off"].runner.bucket_for(len(p)) for p in prompts]
+    route = lambda M: pm.uses_tensor_cores(torch.bfloat16, torch.uint8, "cuda", M)
+    runs = {"off": [], "block": []}
+    for mode in ("off", "block", "block", "off"):
+        run = served(engines[mode], prompts)
+        want = route_split(7 * cfg.num_layers, buckets, run["decode_steps"], 4)
+        want[route(1)] += len(prompts)          # the head at each prefill's last row
+        want[route(4)] += run["decode_steps"]   # and at each decode step
+        names = (("polarized_matmul", "polarized_matmul_tc") if mode == "off"
+                 else ("polarized_matmul_skip", "polarized_matmul_tc_skip"))
+        got = {k: v for k, v in run["counts"].items() if v}
+        if got != {n: w for n, w in zip(names, want) if w}:
+            raise AssertionError(f"{mode}: launched {got}, reckoned {dict(zip(names, want))}")
+        run["launches"] = {n: run["counts"][n] for n in names}
+        runs[mode].append(run)
+    tokens = [r["tokens"] for rs in runs.values() for r in rs]
+    if any(t != tokens[0] for t in tokens):
+        raise AssertionError("zero_skip='block' (or a repeated run) changed the tokens")
+    emit("dense_configs", arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+         d_ff=cfg.d_ff, vocab=cfg.vocab_size, head_dim=cfg.hd(), kv_heads=cfg.num_kv_heads,
+         sliding_window=cfg.sliding_window, compression=rep.summary(), setup_s=setup_s,
+         head={"K": head.k, "N": head.n, "bits": head.bits},
+         block_equals_off=True, prompt_lens=[len(p) for p in prompts],
+         decode_step_ms={k: [r["decode_step_ms"] for r in rs] for k, rs in runs.items()},
+         mean_prefill_ms={k: [r["mean_prefill_ms"] for r in rs] for k, rs in runs.items()},
+         launches={k: rs[0]["launches"] for k, rs in runs.items()}, tokens=tokens[0])
+    out = {k: rs[0]["launches"] for k, rs in runs.items()}
+    del engines, tree
+    torch.cuda.empty_cache()
+    return out
+
+
+def perfmodel_line(mean_eic: float) -> None:
+    """The paper's hardware model (``core/perfmodel``) at the fidelity
+    phase's measured mean EIC, beside its published Table V rows: model
+    numbers of a ReRAM accelerator, not times of the card."""
+    from repro_torch.core import perfmodel as PM
+    forms, isaac = PM.forms_throughput(8, mean_eic=mean_eic), PM.isaac_throughput()
+    emit("perfmodel", note="the paper's ReRAM accelerator model, not card times",
+         mean_eic=mean_eic,
+         forms_events_per_column=forms.events_per_column_per_input,
+         forms_peak_rel_isaac=forms.peak_throughput_rel(isaac),
+         table_v=[dataclasses.asdict(r) for r in PM.table_v(8, mean_eic=mean_eic)],
+         table_v_published={k: list(v) for k, v in PM.TABLE_V_PUBLISHED.items()},
+         fps_speedup_fig13_low=PM.fps_speedup(7.5 / 2, 2.0, 8, mean_eic),
+         fps_speedup_fig13_high=PM.fps_speedup(200.8 / 4, 4.0, 8, mean_eic))
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2348,25 +2811,31 @@ def main() -> int:
 
     rows, worst_abs, worst_rel = phase_kernels()
     tc_rows, tc_abs, tc_rel, crossover, floor_ms = phase_kernels_tc()
+    width_rows, head_rows = phase_kernel_widths()
     skip_rows, skip_bf16_rows, tc_skip_rows, skip_err = phase_skip()
     bit_rows, bit_adc4_rows = phase_bitserial()
-    pol_rows = phase_polarize()
+    pol_rows, pol_matrix_row = phase_polarize()
     small_launches = phase_small()
     phase_train_small()
     launches, slice_engine, slice_tokens = phase_slice()
     torch.cuda.empty_cache()
-    spec_launches, verify_rows = phase_speculate(slice_engine.model, slice_engine.cfg,
-                                                 slice_prompts(slice_engine.cfg), slice_engine,
-                                                 slice_tokens, trace=args.trace_speculate)
+    spec_launches, verify_rows, uniform_draft = phase_speculate(
+        slice_engine.model, slice_engine.cfg, slice_prompts(slice_engine.cfg), slice_engine,
+        slice_tokens, trace=args.trace_speculate)
     torch.cuda.empty_cache()
     fleet_launches = phase_fleet(slice_engine, slice_tokens)
     ckpt_root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:
         ckpt_serve_launches = phase_checkpoint_serve(slice_engine, slice_tokens, ckpt_root)
+        torch.cuda.empty_cache()
+        ab_launches = phase_autobits(slice_engine, slice_prompts(slice_engine.cfg),
+                                     slice_tokens, uniform_draft)
         del slice_engine
         torch.cuda.empty_cache()
+        dense_launches = phase_dense_configs()
         tree, cfg, prompts, skip_launches = phase_zero_skip()
-        bit_launches, fidelity_row = phase_fidelity(tree, cfg, prompts)
+        bit_launches, fidelity_row, mean_eic = phase_fidelity(tree, cfg, prompts)
+        perfmodel_line(mean_eic)
         del tree          # the serving trees go before the training state comes
         torch.cuda.empty_cache()
         pol_launches = phase_train()
@@ -2386,16 +2855,14 @@ def main() -> int:
     if not (launches["polarized_matmul_tc"] and skip_launches["polarized_matmul_tc_skip"]
             and all(n for n, _ in f32_path.values()) and bit_launches and pol_launches
             and all(spec_launches.values()) and all(fleet_launches[0])
-            and all(ckpt_serve_launches) and ckpt_pol_launches):
+            and all(ckpt_serve_launches) and ckpt_pol_launches
+            and all(ab_launches[0]) and ab_launches[1][1] and all(ab_launches[2])
+            and ab_launches[3]
+            and all(all(v.values()) for v in dense_launches.values())):
         raise AssertionError("a kernel of a path was never launched on it")
 
     def total(rows, key):
         return sum(r[key] for r in rows)
-
-    def bound_by(rows):
-        """What bounds the summed rows: their one answer, or "mixed"."""
-        by = {r["bound_by"] for r in rows}
-        return by.pop() if len(by) == 1 else "mixed"
 
     kernels = {"kernels": [{
         "name": "polarized_matmul", "route": "cuda",
@@ -2415,7 +2882,12 @@ def main() -> int:
         "fleet_launches": fleet_launches[0][0],
         "fleet_launches_expected": fleet_launches[1][0],
         "checkpoint_serve_launches": ckpt_serve_launches[0],
+        "autobits_launches": ab_launches[0][0],
+        "auto_draft_launches": ab_launches[2][0],
+        "dense_configs_launches": dense_launches["off"]["polarized_matmul"],
         "verify": [r for r in verify_rows if r["route"] == "f32"],
+        "bits": [r for r in width_rows if r["route"] == "f32"],
+        "heads": head_rows,
         "per": "the 7 projections of one qwen2-1.5b layer at M=4, f32 x (bf16_x: the same "
                "on bf16 x, widened in the kernel, as the served decode gives it; its "
                "library_ms is one bf16 torch.matmul with the pre-folded bf16 weight; "
@@ -2423,7 +2895,11 @@ def main() -> int:
                "speculate_launches: the first greedy speculative run's; fleet_launches: "
                "the chunked fleet run's (expected: reckoned from its recorded prefills, "
                "chunk widths and rounds); checkpoint_serve_launches: the restored "
-               "serving checkpoint's run",
+               "serving checkpoint's run; autobits_launches: the mixed-plan tree's run; "
+               "auto_draft_launches: the auto-draft speculative run's; "
+               "dense_configs_launches: h2o-danube-1.8b's off run (its head at M=1 and 4 "
+               "included); bits: the same 7 at 2-, 4- and 6-bit codes, bf16 x; heads: the "
+               "untied heads' shapes at M=4, bf16 x",
     }, {
         "name": "polarized_matmul_skip", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/polarized_matmul.cu",
@@ -2438,6 +2914,7 @@ def main() -> int:
         "library_ms": per_layer(skip_rows, DECODE_M, "library_ms"),
         "bf16_x": {k: per_layer(skip_bf16_rows, DECODE_M, k) for k in
                    ("kernel_ms", "dense_ms", "plain_ms", "bound_ms", "library_ms")},
+        "dense_configs_launches": dense_launches["block"]["polarized_matmul_skip"],
         "per": "the 7 projections of one qwen2-1.5b layer at M=4, f32 x, every other "
                "K slice of x zero (bf16_x: the same on bf16 x)",
     }, {
@@ -2463,6 +2940,8 @@ def main() -> int:
         "replaces": "src/repro/kernels/admm_polarize.py:26",
         "launches": pol_launches,
         "checkpoint_launches": ckpt_pol_launches,
+        "autobits_launches": ab_launches[3],
+        "per_matrix": pol_matrix_row,
         "max_abs_err": max(max(r["sum_max_abs_err"], r["energy_max_abs_err"]) for r in pol_rows),
         "ms": total(pol_rows, "kernel_ms"), "plain_ms": total(pol_rows, "plain_ms"),
         "bound_ms": total(pol_rows, "bound_ms"), "bound_by": bound_by(pol_rows),
@@ -2471,7 +2950,10 @@ def main() -> int:
                         "the entries that disagree with it",
         "per": "one fresh Z-update of qwen2-1.5b: its 7 stacked leaves (1.31 G f32 "
                "elements), m=8, sum rule; launches: the train run's; checkpoint_launches: "
-               "the checkpoint phase's runs A, B before the save and B after the restore",
+               "the checkpoint phase's runs A, B before the save and B after the restore; "
+               "autobits_launches: the compress_tree calls of the auto-bits sweep and its "
+               "validation (energy rule, one per layer matrix); per_matrix: those calls "
+               "for the 7 matrices of one qwen2-1.5b layer, energy rule",
     }, {
         "name": "polarized_matmul_tc", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/polarized_matmul_tc.cu",
@@ -2483,7 +2965,13 @@ def main() -> int:
         "fleet_launches": fleet_launches[0][1],
         "fleet_launches_expected": fleet_launches[1][1],
         "checkpoint_serve_launches": ckpt_serve_launches[1],
+        "autobits_launches": ab_launches[0][1],
+        "autobits_validation_launches": ab_launches[1][1],
+        "auto_draft_launches": ab_launches[2][1],
+        "dense_configs_launches": dense_launches["off"]["polarized_matmul_tc"],
+        "dense_configs_skip_launches": dense_launches["block"]["polarized_matmul_tc_skip"],
         "verify": [r for r in verify_rows if r["route"] == "tc"],
+        "bits": [r for r in width_rows if r["route"] == "tc"],
         "max_abs_err": tc_abs, "max_rel_err": tc_rel,
         "ms": per_layer(tc_rows, PREFILL_M, "kernel_ms"),
         "plain_ms": per_layer(tc_rows, PREFILL_M, "plain_ms"),
@@ -2507,7 +2995,11 @@ def main() -> int:
                "speculate_launches: the first greedy speculative run's; fleet_launches: "
                "the chunked fleet run's (chunks at M = 4 slots x width); "
                "checkpoint_serve_launches: the restored serving checkpoint's run; verify: "
-               "the speculative verify's M that this route takes",
+               "the speculative verify's M that this route takes; autobits_launches: the "
+               "mixed-plan tree's run; autobits_validation_launches: plan_auto_bits' "
+               "measured-NLL forwards at M=256; auto_draft_launches: the auto-draft "
+               "speculative run's; dense_configs_launches: h2o-danube-1.8b's prefills; "
+               "bits: the 7 at M=64 on 2-, 4- and 6-bit codes",
     }]}
     emit("total", seconds=time.perf_counter() - t_start)
     print(json.dumps(kernels), flush=True)

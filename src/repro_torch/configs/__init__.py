@@ -1,7 +1,8 @@
 """Config registry: ``get_config(name)`` / ``get_reduced(name)``.
 
-The port serves the dense transformer family; its registry holds the archs
-whose configs it carries.  Other archs join with their family's port.
+The port serves the dense transformer family; its registry holds the dense
+archs of the JAX package (copied field for field), the others join with
+their family's port.
 """
 from __future__ import annotations
 
@@ -12,6 +13,9 @@ from repro_torch.configs.base import MLAConfig, ModelConfig  # noqa: F401
 
 _ARCH_MODULES: Dict[str, str] = {
     "qwen2-1.5b": "repro_torch.configs.qwen2_1_5b",
+    "h2o-danube-1.8b": "repro_torch.configs.h2o_danube_1_8b",
+    "qwen1.5-4b": "repro_torch.configs.qwen1_5_4b",
+    "yi-9b": "repro_torch.configs.yi_9b",
 }
 
 ARCH_NAMES: List[str] = list(_ARCH_MODULES)

@@ -108,6 +108,11 @@ class FormsSpec:
         return QuantSpec(bits=self.bits, cell_bits=self.cell_bits,
                          per_channel=self.per_channel)
 
+    def with_bits(self, bits: int) -> "FormsSpec":
+        """This spec at another magnitude width, the per-leaf override of a
+        mixed-precision plan (``forms.autobits``).  Validation runs again,
+        so an off-ladder width fails here."""
+        return dataclasses.replace(self, bits=bits)
 
 
 def spec_from_meta(fields: dict) -> FormsSpec:

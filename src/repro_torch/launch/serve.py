@@ -11,6 +11,10 @@ self-speculative decoding.
   python -m repro_torch.launch.serve --reduced --forms --device cpu --page-size 0
   python -m repro_torch.launch.serve --reduced --forms --device cpu \
       --loadgen n=16,rate=50,adversarial=40 --prefill-chunk 16
+  python -m repro_torch.launch.serve --reduced --forms --device cpu \
+      --auto-bits --acc-budget 0.05
+  python -m repro_torch.launch.serve --reduced --forms --device cpu \
+      --auto-bits --speculate --auto-draft --draft-bits 4
 
 Weights are random, made from seed 0 on the device (the JAX launcher inits
 with ``PRNGKey(0)``).  With ``--forms`` the weights are compressed by
@@ -34,6 +38,16 @@ prefill, priorities with preemption, deadlines; paged cache only) and
 prints its TTFT and inter-token tails per class; ``--loadgen SPEC`` serves
 the seeded open-loop trace of ``serving/loadgen.py`` instead of the
 ``--requests`` batch.
+``--auto-bits`` (with ``--forms``) serves a mixed-precision plan of
+``forms/autobits.py``: per-leaf widths from a Fisher-diagonal sensitivity
+sweep, a greedy knapsack on the paper's ReRAM ADC-event model under the
+``--acc-budget`` predicted NLL increase; the launcher then serves the
+uniform width that fits the same budget and reports greedy token agreement
+(asserted exact when the plan degenerates to that width).  With
+``--speculate --auto-draft`` the draft's per-leaf widths come from the same
+table at the modeled cost of a uniform ``--draft-bits`` draft.  The modeled
+speedup is the ReRAM model's, not a time on the GPU: a mixed tree stores
+uint8 codes at every width.
 ``--device`` defaults to ``cuda`` and the launcher fails without a card
 unless ``--device cpu`` is given.  Requests are made as the JAX launcher
 makes them (``np.random.RandomState(0)``).
@@ -49,6 +63,7 @@ import torch
 
 from repro_torch.configs import ARCH_NAMES, get_config, get_reduced
 from repro_torch.forms import FormsSpec
+from repro_torch.forms import autobits as AB
 from repro_torch.kernels.polarized_matmul import polarized_matmul, polarized_matmul_skip
 from repro_torch.models.registry import build
 from repro_torch.serving.engine import Request, ServingEngine
@@ -153,9 +168,18 @@ def main(argv=None) -> None:
                     help="keep every n-th layer in the draft (1 = full depth)")
     ap.add_argument("--no-adaptive-k", action="store_true",
                     help="disable per-slot adaptive draft length")
+    ap.add_argument("--auto-bits", action="store_true",
+                    help="auto mixed precision: Fisher-sensitivity sweep + "
+                         "modeled-throughput knapsack assigns per-leaf "
+                         "magnitude bits under --acc-budget (forms serving "
+                         "only)")
+    ap.add_argument("--acc-budget", type=float, default=0.05, metavar="NATS",
+                    help="predicted mean-NLL increase budget of the "
+                         "--auto-bits plan vs the uniform --bits tree")
     ap.add_argument("--auto-draft", action="store_true",
-                    help="per-leaf draft bits from a sensitivity sweep (not "
-                         "ported yet: ROADMAP queue 1, item 8)")
+                    help="derive the speculative draft's per-leaf bits from "
+                         "the --auto-bits sensitivity table at the modeled "
+                         "cost of a uniform --draft-bits draft")
     ap.add_argument("--zero-skip", default="off",
                     choices=("off", "block", "compact"),
                     help="activation zero-skipping in the compressed "
@@ -187,9 +211,15 @@ def main(argv=None) -> None:
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
-    if args.auto_draft:
-        raise SystemExit("--auto-draft is not ported yet (ROADMAP queue 1, item 8: "
-                         "auto mixed precision, forms/autobits.py)")
+    if (args.auto_bits or args.auto_draft) and not args.forms:
+        raise SystemExit("--auto-bits/--auto-draft pick per-leaf FORMS "
+                         "bit-widths: add --forms")
+    if args.auto_draft and not args.auto_bits:
+        raise SystemExit("--auto-draft reuses the --auto-bits sensitivity "
+                         "table: add --auto-bits")
+    if args.auto_draft and args.draft_mode != "forms":
+        raise SystemExit("--auto-draft plans FORMS bit-widths: use "
+                         "--draft-mode forms")
     if (args.zero_skip != "off" or args.zero_skip_stats) and not args.forms:
         raise SystemExit("--zero-skip/--zero-skip-stats act on the FORMS "
                          "matmul path: add --forms")
@@ -226,8 +256,19 @@ def main(argv=None) -> None:
     params = model.init(0)
     spec = (FormsSpec(m=args.fragment, bits=args.bits, rule=args.sign_rule)
             if args.forms else None)
+    auto = plan = draft_plan = None
+    if args.auto_bits:
+        auto = AB.plan_auto_bits(model, params, spec, AB.AutoBitsConfig(acc_budget=args.acc_budget))
+        plan = auto.specs()
+        print(f"auto-bits: {auto.summary()}")
+        for pth, grp, dl in auto.top_groups():
+            print(f"auto-bits: most sensitive {pth} col-group {grp} (dl {dl:.2e})")
+        if args.auto_draft:
+            dplan = AB.plan_draft_bits(auto.table, match_bits=args.draft_bits)
+            draft_plan = dplan.specs()
+            print(f"auto-bits draft: {dplan.summary()}")
     engine = ServingEngine(model, params, max_len=args.max_len,
-                           batch_slots=args.slots, spec=spec,
+                           batch_slots=args.slots, spec=spec, plan=plan, draft_plan=draft_plan,
                            decode_block=args.decode_block,
                            page_size=args.page_size, num_pages=args.num_pages,
                            prefix_cache=args.prefix_cache, device=args.device,
@@ -239,7 +280,8 @@ def main(argv=None) -> None:
                            zero_skip=args.zero_skip,
                            zero_skip_keep=args.zero_skip_keep,
                            zero_skip_stats=args.zero_skip_stats, slo=slo)
-    del params
+    if auto is None:
+        del params
     if engine.compression_report is not None:
         print(f"forms: {engine.compression_report.summary()}")
     if engine.paged:
@@ -332,6 +374,43 @@ def main(argv=None) -> None:
         for tag, s in stats["sparsity"]["layers"].items():
             print(f"sparsity[{tag}]: elem {s['elem_sparsity']:.2f} "
                   f"frag {s['fragment_sparsity']:.2f} calls {s['calls']}")
+    if auto is not None and args.temperature == 0.0:
+        del engine
+        par = auto_bits_parity(model, params, spec, auto, args.acc_budget, reqs, results,
+                               max_len=args.max_len, batch_slots=args.slots,
+                               decode_block=args.decode_block, page_size=args.page_size,
+                               num_pages=args.num_pages, device=args.device)
+        print(f"auto-bits parity: matched-budget uniform {par['uniform_bits']}b, modeled "
+              f"{par['uniform_over_plan']:.2f}x slower than plan (ReRAM ADC-event model), "
+              f"greedy token agreement {par['agreement']:.2f}"
+              + (" (exact, asserted)" if par["degenerate"] else ""))
+
+
+def auto_bits_parity(model, params, spec, auto, acc_budget, reqs, results, **engine_kw
+                     ) -> dict:
+    """Greedy parity of a served plan against the uniform width that fits
+    the same budget, served from ``params`` with ``engine_kw``: the plan
+    must not cost more than that uniform tree on the ReRAM model, and where
+    it degenerates to exactly that width the two engines must emit the same
+    tokens (same weights, same greedy argmax).  A mixed plan serves other
+    weights, so its token agreement is reported, not held."""
+    u = AB.uniform_bits_for_budget(auto.table, acc_budget)
+    u_seconds = AB.uniform_seconds(auto.table, u)
+    if not auto.modeled_seconds <= u_seconds + 1e-12:
+        raise AssertionError(f"mixed plan modeled slower than uniform {u}b at equal budget")
+    uni = ServingEngine(model, params, spec=dataclasses.replace(spec, bits=u), **engine_kw)
+    ures = {r.uid: list(r.tokens) for r in uni.run(
+        [Request(uid=r.uid, prompt=np.asarray(r.prompt), max_new_tokens=r.max_new_tokens)
+         for r in reqs])}
+    got = {r.uid: list(r.tokens) for r in results}
+    pairs = [(got[uid], ures[uid]) for uid in got]
+    agree = (sum(sum(a == b for a, b in zip(x, y)) for x, y in pairs)
+             / max(1, sum(len(x) for x, _ in pairs)))
+    degenerate = set(auto.bits.values()) == {u}
+    if degenerate and not all(x == y for x, y in pairs):
+        raise AssertionError("plan degenerated to the uniform width but tokens differ")
+    return {"uniform_bits": u, "uniform_over_plan": u_seconds / max(auto.modeled_seconds, 1e-30),
+            "agreement": agree, "degenerate": degenerate}
 
 
 if __name__ == "__main__":

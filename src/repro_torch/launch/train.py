@@ -16,8 +16,10 @@ Every ``--log-every`` steps it prints the loss, the gradient norm, the mean
 ms per step since the last line (host clock, after a device synchronize)
 and, with ADMM, the polarization violation of W; at the end, tokens/s.
 ``--device`` defaults to ``cuda`` and the launcher fails without a card
-unless ``--device cpu`` is given.  The reference's checkpointing,
-preemption handler and mesh flags are not ported yet.
+unless ``--device cpu`` is given.  ``--ckpt-dir`` saves every
+``--ckpt-every`` steps in the background (``--resume`` continues from the
+latest save), and SIGTERM saves the last finished step and exits 0.  The
+reference's mesh flags are not ported yet (ROADMAP queue 1, item 13).
 """
 from __future__ import annotations
 

@@ -90,6 +90,15 @@ class Result:
 
 _MIN_BUCKET = 8
 
+
+def prefill_bucket(n: int, max_len: int) -> int:
+    """Padded-prefill bucket of an ``n``-token prompt: a power of two, at
+    least 8, at most ``max_len``."""
+    b = _MIN_BUCKET
+    while b < n:
+        b *= 2
+    return min(b, max_len)
+
 # rotating-window cap on the scheduler's admission log
 ADMISSION_LOG_WINDOW = 1024
 
@@ -156,10 +165,7 @@ class ModelRunner:
 
     def bucket_for(self, n: int) -> int:
         """Padded-prefill bucket (power of two, at least 8, at most max_len)."""
-        b = _MIN_BUCKET
-        while b < n:
-            b *= 2
-        return min(b, self.max_len)
+        return prefill_bucket(n, self.max_len)
 
     def padded_prompt(self, prompt: np.ndarray) -> Tuple[np.ndarray, int]:
         """Normalize + bucket-pad a prompt to its (1, bucket) token buffer:
@@ -491,7 +497,9 @@ class ServingEngine:
     fragments of ``draft_fragment`` rows, by default the target's, or the
     ``"int"`` grid), keeping every ``draft_layer_step``-th layer, drafts up
     to ``draft_k`` tokens per round, with per-slot adaptive K unless
-    ``adaptive_k=False``; the dense cache falls back to plain decoding.
+    ``adaptive_k=False``; ``draft_plan={path: FormsSpec}`` gives a forms
+    draft per-leaf widths (``forms.autobits.plan_draft_bits``); the dense
+    cache falls back to plain decoding.
     ``slo=`` (an ``SLOConfig`` or a dict of its fields) serves with the
     fleet scheduler; it needs the paged cache.
     """
@@ -519,8 +527,6 @@ class ServingEngine:
             raise ValueError(f"engine device {dev} differs from the model's "
                              f"{model.device} (build(cfg, device=...))")
         _refuse("mesh", mesh, None, "ROADMAP queue 1, item 13")
-        _refuse("draft_plan", draft_plan, None,
-                "ROADMAP queue 1, item 8: auto mixed precision, forms/autobits.py")
         _refuse("health", health, None, "ROADMAP queue 1, item 9")
         if ((zero_skip not in (None, "off")) or zero_skip_stats) \
                 and not (forms or spec is not None):
@@ -583,7 +589,7 @@ class ServingEngine:
             # tree made on the way is freed before the draft pool exists
             with torch.inference_mode():
                 draft_model, draft_params, self.draft_report = SP.make_draft(
-                    model, params, spec_cfg)
+                    model, params, spec_cfg, plan=draft_plan)
             draft_cache = draft_model.init_paged_cache(num_pages, self.page_size)
             self.runner: ModelRunner = SP.SpeculativeRunner(
                 model, params, cache, draft_model=draft_model,

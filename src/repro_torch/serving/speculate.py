@@ -120,34 +120,44 @@ def skip_layers(model: Model, params: Any, layer_step: int) -> Tuple[Model, Any]
 
 
 def make_draft_tree(params: Any, spec: Optional[FormsSpec] = None, *, bits: int = 4,
-                    mode: str = "forms") -> Tuple[Any, CompressReport]:
+                    mode: str = "forms", plan: Optional[Dict[str, FormsSpec]] = None
+                    ) -> Tuple[Any, CompressReport]:
     """The low-bit draft of ``params``: ``mode="forms"`` compresses at
     ``spec`` (default ``FormsSpec(bits=bits)``), ``mode="int"`` quantizes
     to the symmetric ``bits`` grid.  An already-compressed tree is
     decompressed first, so a 4-bit draft of an 8-bit tree re-quantizes the
-    float projection instead of aliasing the 8-bit leaves."""
+    float projection instead of aliasing the 8-bit leaves.  ``plan`` (a
+    ``{path: FormsSpec}`` map, ``forms.autobits.plan_draft_bits``) makes a
+    forms draft heterogeneous; int drafts are uniform and refuse it."""
     if _has_forms_leaves(params):
         params = decompress_tree(params)
     if mode == "int":
+        if plan is not None:
+            raise ValueError("per-leaf plans are a forms-mode feature; "
+                             "mode='int' drafts are uniform")
         tree, before, after = quantize_tree(params, bits=bits)
         return tree, CompressReport(errors={}, bytes_dense=before, bytes_compressed=after)
     if mode != "forms":
         raise ValueError(f"draft mode must be 'forms' or 'int', got {mode!r}")
-    return compress_tree(params, spec if spec is not None else FormsSpec(bits=bits))
+    return compress_tree(params, spec if spec is not None else FormsSpec(bits=bits),
+                         plan=plan)
 
 
-def make_draft(model: Model, params: Any, cfg: SpeculateConfig
+def make_draft(model: Model, params: Any, cfg: SpeculateConfig, *,
+               plan: Optional[Dict[str, FormsSpec]] = None
                ) -> Tuple[Model, Any, CompressReport]:
     """Layer skipping + low-bit weights: ``(draft_model, draft_params,
     report)``.  A compressed target is decompressed before slicing, so the
     draft approximates what the target serves; the dense tree is dropped
-    on return."""
+    on return.  ``plan`` rides through to :func:`make_draft_tree` in place
+    of the uniform ``cfg.bits``."""
     if _has_forms_leaves(params):
         params = decompress_tree(params)
     draft_model, draft_params = skip_layers(model, params, cfg.layer_step)
     spec = (FormsSpec(m=cfg.fragment, bits=cfg.bits) if cfg.fragment is not None
             else FormsSpec(bits=cfg.bits))
-    draft_params, report = make_draft_tree(draft_params, spec, bits=cfg.bits, mode=cfg.mode)
+    draft_params, report = make_draft_tree(draft_params, spec, bits=cfg.bits, mode=cfg.mode,
+                                           plan=plan)
     return draft_model, draft_params, report
 
 

@@ -41,6 +41,19 @@ def test_port_imports_neither_msgpack_nor_ml_dtypes():
     assert ROOT / "src" / "repro_torch" / "checkpoint" / "manager.py" in PORT_FILES
 
 
+@pytest.mark.parametrize("module", ["core/crossbar.py", "core/perfmodel.py", "forms/autobits.py"])
+def test_the_hardware_model_and_autobits_are_the_ports_own(module):
+    """The hardware model imports no JAX in the reference either; the port
+    still keeps its own copy, and autobits takes it from there."""
+    path = ROOT / "src" / "repro_torch" / module
+    assert path in PORT_FILES
+    mods = set(_imported_modules(path))
+    assert not {m for m in mods if m.split(".")[0] in ("jax", "jaxlib", "repro", "msgpack",
+                                                      "ml_dtypes")}
+    if module == "forms/autobits.py":
+        assert "repro_torch.core" in mods and "torch.utils.flop_counter" in mods
+
+
 def test_no_kernel_toolchain_is_touched_at_import():
     """Importing the port compiles nothing: triton and the build run only
     inside a call that launches a kernel."""

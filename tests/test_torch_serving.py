@@ -93,10 +93,16 @@ def test_temperature_sampling_is_deterministic_per_seed():
 def test_unported_options_are_refused():
     _, _, tm, tp = models()
     kw = dict(max_len=32, batch_slots=2, device="cpu")
-    for extra in (dict(mesh=object()), dict(draft_plan={"attn/wq": tforms.FormsSpec()}),
-                  dict(health=object())):
+    for extra in (dict(mesh=object()), dict(health=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item"):
             TEngine(tm, tp, **kw, **{"page_size": 8, **extra})
+    # draft_plan= is ported (forms/autobits): it builds a heterogeneous draft
+    eng = TEngine(tm, tp, page_size=8, forms=True, speculate=True, draft_bits=4,
+                  draft_plan={"attn/wq": tforms.FormsSpec(bits=2)}, **kw)
+    assert eng.draft_report.bits == {"blocks/attn/wk": 4, "blocks/attn/wo": 4,
+                                     "blocks/attn/wq": 2, "blocks/attn/wv": 4,
+                                     "blocks/mlp/down": 4, "blocks/mlp/gate": 4,
+                                     "blocks/mlp/up": 4}
     # the fleet scheduler is ported: slo= builds it (tests/test_torch_fleet.py)
     assert type(TEngine(tm, tp, page_size=8, slo={}, **kw).scheduler).__name__ == \
         "FleetScheduler"
@@ -208,5 +214,6 @@ def test_launcher_serves_speculatively_and_densely_on_the_cpu(flags, expect):
     assert "3 requests, 15 tokens" in text and "device=cpu" in text
     for line in expect:
         assert line in text, text
-    with pytest.raises(SystemExit, match="item 8"):
-        tserve.main(["--reduced", "--device", "cpu", "--speculate", "--auto-draft"])
+    # --auto-draft is ported: it reuses the --auto-bits table
+    with pytest.raises(SystemExit, match="add --auto-bits"):
+        tserve.main(["--reduced", "--device", "cpu", "--forms", "--speculate", "--auto-draft"])
