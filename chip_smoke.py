@@ -115,6 +115,29 @@ Phases, each printing JSON lines:
                tokens with zero_skip off and block, equal tokens, launches
                reckoned (the head at M=1 per prefill, M=4 per decode step),
                decode and prefill ms;
+10d. reliability — ``reliability/*`` on the slice's engine and tree
+               (HealthConfig(probe_every=4)): zero-noise injection into the
+               whole tree under binary and vecom (the slice's tokens, every
+               probe's drift exactly 0); stuck cells on two named leaves
+               before the run (the first tick flags exactly those two, the
+               repair's drift at most the threshold, the slice's tokens);
+               a chaos fault at round 2 with probes every 2 rounds (every
+               request completes, a repair logged); variation sigma=0.1,
+               rho=0.6 on the whole tree, binary then vecom, without the
+               monitor (codes changed and mean |dcode|, vecom below binary,
+               greedy agreement reported); one stats_every line; each run's
+               launches reckoned with its probes (M=8); probe ms, scan s,
+               repair ms, each injection's s and the host's peak RSS;
+10e. moe      — full-width olmoe-1b-7b (16 layers, 64 experts top-8,
+               moe_d_ff 1024, vocab 50304, untied head; random weights from
+               seed 0) compressed (one polarization per (layer, expert)
+               matrix, reckoned) and served on the paged cache with
+               exact-length prefill, the slice's requests twice (the same
+               tokens): decode and prefill ms, launches reckoned (the
+               router stays dense), peak memory; kernel #1 held at every
+               (shape, M) of the run, timed at M=4; kernel #4 bit for bit
+               at the expert, attention and head matrices, timed per
+               (layer, expert);
 11. zero_skip — the same model with ReLU and 50% fragment sparsity, one tree
                compressed once, served with zero_skip off, block and compact:
                block gives off's tokens through the skip kernel, compact's
@@ -164,6 +187,7 @@ prints no result.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import pathlib
@@ -206,8 +230,13 @@ ADMM_LEAVES = {"blocks/attn/wk": (28, 1536, 256), "blocks/attn/wo": (28, 1536, 1
 TRAIN = dict(seq_len=256, global_batch=8, steps=6)
 
 
+T_START = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line of ``phase``; ``t_s`` is the script's seconds so far."""
+    print(json.dumps({"phase": phase, **fields,
+                      "t_s": round(time.perf_counter() - T_START, 3)}), flush=True)
 
 
 def nvidia_smi_line() -> str:
@@ -1501,6 +1530,7 @@ def phase_fleet(plain_engine, plain_tokens):
         runs[name]["token_rule"] = fleet_rule(plain_engine, reqs, plain_toks, toks[name],
                                               threshold, name)
         del eng
+        gc.collect()
         torch.cuda.empty_cache()
     fleet_launches = (runs["chunked"]["launches"], runs["chunked"]["launches_expected"])
 
@@ -2763,6 +2793,331 @@ def phase_dense_configs():
     return out
 
 
+# --------------------------------------------------------------------------
+# reliability: fault injection, VECOM read-back and self-healing serving
+# --------------------------------------------------------------------------
+
+# step 2's faulted leaves and step 3's (attention leaves: a stuck-cell
+# injection draws one uniform per cell of the leaf, sequentially)
+STUCK_LEAVES = ("blocks/attn/wo", "blocks/attn/wq")
+CHAOS_LEAF = "blocks/attn/wk"
+PROBE_EVERY = 4
+
+
+def host_peak_gb() -> float:
+    """The process's peak resident host memory so far (``ru_maxrss``)."""
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
+
+
+def with_encoding(tree, encoding: str):
+    """The same compressed tree with ``encoding`` on every leaf (the codes
+    are the same under both encodings)."""
+    from repro_torch.forms import FormsLinearParams
+    if isinstance(tree, dict):
+        return {k: with_encoding(v, encoding) for k, v in tree.items()}
+    if isinstance(tree, FormsLinearParams):
+        return dataclasses.replace(tree, encoding=encoding)
+    return tree
+
+
+def phase_reliability(plain_engine, plain_tokens):
+    """``reliability/*`` on the slice-1 engine's full-width qwen2-1.5b tree
+    (FORMS m=8, 8 bits, paged, the slice's 4 requests of 16 new tokens),
+    ``HealthConfig(probe_every=4)``: (1) zero noise on the whole tree under
+    ``binary`` and ``vecom``: the slice's tokens, every probe's drift
+    exactly 0; (2) stuck cells (1e-3 on, 1e-3 off) on two named leaves
+    before the run: the first tick flags exactly those two, repair brings
+    the drift to at most the threshold (exactly 0), the slice's tokens;
+    (3) a chaos fault scheduled for round 2 (probes every 2 rounds here, so
+    it strikes mid-run): every request completes, a repair is logged;
+    (4) variation sigma=0.1, rho=0.6 on the whole tree, binary then vecom,
+    served without the monitor: codes changed, mean |dcode| (vecom below
+    binary), greedy agreement with the slice's tokens (no gate: random
+    weights have near-ties); (5) the stat line of ``stats_every=4``.  Each
+    run's launches reckoned: the route's prefills and decode steps, and two
+    probe forwards at M=8 (the f32 kernel) per probe.  Times: probe ms,
+    scan s (1.31 GB device to host and compared), repair ms, each
+    whole-tree injection's s, and the host's peak RSS."""
+    import contextlib
+    import io
+
+    import torch
+    from repro_torch.forms import compressed_paths
+    from repro_torch.kernels import polarized_matmul as pm
+    from repro_torch.reliability import FaultModel, HealthConfig
+    from repro_torch.serving.engine import ServingEngine
+
+    model, cfg = plain_engine.model, plain_engine.cfg
+    spec = plain_engine.spec
+    tree = {k: v for k, v in plain_engine.params.items() if k != "head_cast"}
+    prompts = slice_prompts(cfg)
+    per_call = 7 * cfg.num_layers
+    route = lambda M: pm.uses_tensor_cores(torch.bfloat16, torch.uint8, "cuda", M)
+    cells = sum(leaf.mags.numel() * 4 for leaf in compressed_paths(tree).values())
+    peak0 = host_peak_gb()
+
+    def engine(encoding="binary", health=True, probe_every=PROBE_EVERY, **kw):
+        return ServingEngine(model, with_encoding(tree, encoding),
+                             spec=dataclasses.replace(spec, encoding=encoding), page_size=16,
+                             batch_slots=4, max_len=SERVE_MAX_LEN, decode_block=4,
+                             device="cuda",
+                             health=HealthConfig(probe_every=probe_every) if health else None,
+                             **kw)
+
+    def watched(eng):
+        """Record every probe's drift."""
+        drifts, probe = [], eng.health.probe
+
+        def rec(params):
+            drifts.append(probe(params))
+            return drifts[-1]
+
+        eng.health.probe = rec
+        return drifts
+
+    def run_checked(eng, label):
+        probes0 = eng.health.probes if eng.health is not None else 0
+        run = served(eng, prompts)
+        probes = (eng.health.probes if eng.health is not None else 0) - probes0
+        want = route_split(per_call, [eng.runner.bucket_for(len(p)) for p in prompts],
+                           run["decode_steps"], 4)
+        want[route(8)] += probes * 2 * per_call
+        got = [run["counts"]["polarized_matmul"], run["counts"]["polarized_matmul_tc"]]
+        if got != want:
+            raise AssertionError(f"{label}: launched {got}, reckoned {want} ({probes} probes)")
+        run["launches"], run["probes"] = got, probes
+        return run
+
+    def injected(eng, fault, **kw):
+        t = time.perf_counter()
+        rep = eng.inject_faults(fault, **kw)
+        torch.cuda.synchronize()
+        return rep, time.perf_counter() - t
+
+    out = {"cells": cells, "host_peak_gb_before": peak0}
+    launches = [0, 0]
+    # 1. zero noise, both encodings
+    for enc in ("binary", "vecom"):
+        eng = engine(enc)
+        drifts = watched(eng)
+        rep, inj_s = injected(eng, FaultModel())
+        run = run_checked(eng, f"zero-noise {enc}")
+        h = eng.stats()["health"]
+        out[f"zero_{enc}"] = {"inject_s": inj_s, "codes_changed": rep.codes_changed,
+                              "leaves": len(rep.leaves), "probes": h["probes"],
+                              "drifts": drifts, "events": len(h["events"]),
+                              "tokens_equal": run["tokens"] == plain_tokens,
+                              "launches": run["launches"], "host_peak_gb": host_peak_gb()}
+        if enc == "binary":
+            probe_ms = [synced_ms(eng.health.probe, eng.params)[1] for _ in range(3)]
+            scan = [synced_ms(eng.health.scan, eng.params)[1] / 1e3 for _ in range(2)]
+            out["probe_ms"], out["scan_s"] = probe_ms, scan
+        launches = [a + b for a, b in zip(launches, run["launches"])]
+        del eng
+        gc.collect()
+        if not (run["tokens"] == plain_tokens and rep.codes_changed == 0 and drifts
+                and all(d == 0.0 for d in drifts) and not h["events"]):
+            raise AssertionError(f"zero-noise {enc}: {out[f'zero_{enc}']}")
+    # 2. stuck cells on two named leaves, before the run; and the stat line
+    eng = engine(stats_every=4)
+    rep, inj_s = injected(eng, FaultModel(p_stuck_on=1e-3, p_stuck_off=1e-3, seed=2),
+                          paths=list(STUCK_LEAVES))
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        run = run_checked(eng, "stuck")
+    lines = [ln for ln in buf.getvalue().splitlines() if ln.startswith("[serve]")]
+    h = eng.stats()["health"]
+    ev = h["events"]
+    repair_ms = [synced_ms(eng.health.repair, eng.params, list(STUCK_LEAVES))[1]
+                 for _ in range(3)]
+    out["stuck"] = {"inject_s": inj_s, "codes_changed": rep.codes_changed,
+                    "stuck_cells": rep.stuck_cells,
+                    "events": [{k: v for k, v in e.items() if k != "detail"} for e in ev],
+                    "board": h["flagged"], "last_drift": h["last_drift"],
+                    "tokens_equal": run["tokens"] == plain_tokens, "launches": run["launches"],
+                    "repair_ms": repair_ms, "stat_lines": lines}
+    launches = [a + b for a, b in zip(launches, run["launches"])]
+    if not (len(ev) >= 2 and ev[0]["event"] == "drift" and ev[0]["round"] == 0
+            and ev[0]["leaves"] == sorted(STUCK_LEAVES) and ev[1]["event"] == "repair"
+            and ev[1]["drift_after"] <= eng.health.config.drift_threshold
+            and run["tokens"] == plain_tokens and len(lines) == 1):
+        raise AssertionError(f"stuck: {out['stuck']}")
+    del eng
+    gc.collect()
+    # 3. chaos mid-run
+    eng = engine(probe_every=2)
+    eng.health.schedule_fault(2, FaultModel(p_stuck_on=1e-3, seed=4), paths=[CHAOS_LEAF])
+    run = run_checked(eng, "chaos")
+    ev = eng.stats()["health"]["events"]
+    out["chaos"] = {"events": [(e["round"], e["event"]) for e in ev],
+                    "repair_event_ms": [e["ms"] for e in ev if e["event"] == "repair"],
+                    "tokens_equal": run["tokens"] == plain_tokens,
+                    "completed": sorted(len(t) for t in run["tokens"].values()),
+                    "rounds": eng.stats()["rounds"], "launches": run["launches"]}
+    launches = [a + b for a, b in zip(launches, run["launches"])]
+    if not (any(e["event"] == "repair" for e in ev) and ev[0]["round"] == 2
+            and ev[0]["round"] < out["chaos"]["rounds"]):
+        raise AssertionError(f"chaos: {out['chaos']}")
+    del eng
+    gc.collect()
+    # 4. variation on the whole tree, binary then vecom, without the monitor
+    for enc in ("binary", "vecom"):
+        eng = engine(enc, health=False)
+        rep, inj_s = injected(eng, FaultModel(sigma=0.1, rho=0.6, seed=0))
+        run = served(eng, prompts)
+        pairs = [(run["tokens"][u], plain_tokens[u]) for u in plain_tokens]
+        out[f"sigma_{enc}"] = {
+            "inject_s": inj_s, "codes_changed": rep.codes_changed,
+            "mean_abs_dcode": sum(s.mean_abs_dcode * s.cells for s in rep.leaves.values())
+            / sum(s.cells for s in rep.leaves.values()),
+            "max_abs_dcode": max(s.max_abs_dcode for s in rep.leaves.values()),
+            "agreement": sum(sum(a == b for a, b in zip(x, y)) for x, y in pairs)
+            / sum(len(y) for _, y in pairs),
+            "host_peak_gb": host_peak_gb()}
+        del eng
+        gc.collect()
+    b, v = out["sigma_binary"], out["sigma_vecom"]
+    out["host_peak_gb"] = host_peak_gb()
+    emit("reliability", arch=cfg.name, probe_every=PROBE_EVERY, **out)
+    if not (v["mean_abs_dcode"] < b["mean_abs_dcode"] and v["codes_changed"] < b["codes_changed"]):
+        raise AssertionError(f"vecom did not read back closer than binary: {b} {v}")
+    torch.cuda.empty_cache()
+    return launches
+
+
+# --------------------------------------------------------------------------
+# the MoE family at olmoe-1b-7b's full width
+# --------------------------------------------------------------------------
+
+MOE_ARCH = "olmoe-1b-7b"
+MOE_ATTN = (2048, 2048)      # olmoe's q/k/v/o (16 heads of 128, MHA)
+MOE_HEAD = (2048, 50304)     # its untied head
+MOE_EXPERT_SHAPES = [(2048, 1024), (1024, 2048)]   # w_gate/w_up, w_down
+
+
+def phase_moe():
+    """Full-width olmoe-1b-7b (16 layers, d_model 2048, MHA 16 x 128, 64
+    experts top-8 of moe_d_ff 1024, vocab 50304, untied head; random
+    weights from seed 0) compressed by FORMS (m=8, 8 bits; every (layer,
+    expert) matrix one polarization launch, reckoned) and served on the
+    paged cache with exact-length prefill, the slice's 4 requests of 16
+    new tokens, twice (the same tokens): decode ms per step, prefill ms,
+    launches reckoned (the 4 attention projections per layer at M = each
+    prompt's length and at M = 4 per decode step, the head at M = 1 per
+    prefill and 4 per step; the router stays dense).  Kernel #1 held at
+    every (shape, M) the run gives it and timed at M=4; kernel #4 bit for
+    bit at the expert, attention and head matrices, timed per (layer,
+    expert) triple.  Peak memory with the f32 tree, which is freed after
+    compression."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import paths
+    from repro_torch.forms import FormsSpec, compress_tree, compressed_paths
+    from repro_torch.kernels import polarized_matmul as pm
+    from repro_torch.kernels.admm_polarize import admm_polarize
+    from repro_torch.kernels.ref import ref_admm_polarize
+    from repro_torch.models.registry import build
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg = get_config(MOE_ARCH)
+    model = build(cfg, device="cuda")
+    spec = FormsSpec(m=8, bits=8, rule="energy")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, init_ms = synced_ms(model.init, 0)
+    reset_counts()
+    with torch.inference_mode():
+        (tree, rep), compress_ms = synced_ms(compress_tree, params, spec)
+    pol_launches = launch_counts()["admm_polarize"]
+    n_params = sum(v.numel() for v in paths.leaves(params))
+    del params
+    torch.cuda.empty_cache()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    leaves = compressed_paths(tree)
+    matrices = sum(int(torch.tensor(leaf.mags.shape[:-2]).prod()) for leaf in leaves.values())
+    want_pol = (3 * cfg.num_layers * cfg.num_experts + 4 * cfg.num_layers + 1)
+    if pol_launches != want_pol or matrices != want_pol or "blocks/moe/router" in leaves:
+        raise AssertionError(f"compress_tree polarized {pol_launches} matrices "
+                             f"({matrices} in the tree), reckoned {want_pol}")
+    tree_gb = sum(t.numel() * t.element_size() for leaf in leaves.values()
+                  for t in (leaf.mags, leaf.signs, leaf.scale)) / 1e9
+    engine = ServingEngine(model, tree, spec=spec, page_size=16, batch_slots=4,
+                           max_len=SERVE_MAX_LEN, decode_block=4, device="cuda")
+    prompts = slice_prompts(cfg)
+    lens = [len(p) for p in prompts]
+    if [engine.runner.bucket_for(n) for n in lens] != lens:
+        raise AssertionError("the MoE engine padded a prompt")
+    route = lambda M: pm.uses_tensor_cores(torch.bfloat16, torch.uint8, "cuda", M)
+    runs = []
+    for _ in range(2):
+        run = served(engine, prompts)
+        want = [0, 0]
+        for n in lens:
+            want[route(n)] += 4 * cfg.num_layers
+            want[route(1)] += 1
+        want[route(4)] += run["decode_steps"] * (4 * cfg.num_layers + 1)
+        got = [run["counts"]["polarized_matmul"], run["counts"]["polarized_matmul_tc"]]
+        if got != want:
+            raise AssertionError(f"moe: launched {got}, reckoned {want}")
+        run["launches"] = got
+        runs.append(run)
+    if runs[0]["tokens"] != runs[1]["tokens"]:
+        raise AssertionError("two greedy MoE runs gave other tokens")
+    serve_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del engine, tree
+    torch.cuda.empty_cache()
+    # kernel #1 at every (shape, M) of the run, timed at M=4
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    scrub = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    flush = lambda: scrub.zero_()
+    held = ([held_matmul(gen, M, *MOE_ATTN) for M in sorted(set(lens)) if M != DECODE_M]
+            + [held_matmul(gen, 1, *MOE_HEAD)])
+    attn_row = held_matmul(gen, DECODE_M, *MOE_ATTN, flush=flush)
+    head_row = held_matmul(gen, DECODE_M, *MOE_HEAD, flush=flush)
+    held += [attn_row, head_row]
+    # kernel #4 bit for bit at the matrices compress_tree polarizes
+    pol = []
+    for K, N in MOE_EXPERT_SHAPES + [MOE_ATTN, MOE_HEAD]:
+        v = torch.randn((K, N), generator=gen, device="cuda")
+        outp, signs = admm_polarize(v, m=8, rule="energy")
+        want_p, want_s = ref_admm_polarize(v, 8, "energy")
+        torch.cuda.synchronize()
+        rec = {"K": K, "N": N, "equal": torch.equal(outp.view(torch.int32),
+                                                     want_p.view(torch.int32))
+               and torch.equal(signs, want_s)}
+        if (K, N) in MOE_EXPERT_SHAPES:
+            rec["kernel_ms"] = timed_ms(lambda: admm_polarize(v, m=8, rule="energy"), flush)
+            rec["plain_ms"] = timed_ms(lambda: ref_admm_polarize(v, 8, "energy"), flush, reps=5)
+            rec["bound_ms"], rec["bound_by"] = polarize_bound((K, N))
+        pol.append(rec)
+        del v, outp, signs, want_p, want_s
+    if not all(r["equal"] for r in pol):
+        raise AssertionError(f"kernel #4 disagrees at an MoE matrix: {pol}")
+    # one (layer, expert): w_gate and w_up are 2048 x 1024, w_down 1024 x 2048
+    triple = {k: 2 * pol[0][k] + pol[1][k] for k in ("kernel_ms", "plain_ms", "bound_ms")}
+    triple["bound_by"] = bound_by(pol[:2])
+    del scrub
+    last = runs[-1]
+    emit("moe", arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+         experts=cfg.num_experts, top_k=cfg.experts_per_token, moe_d_ff=cfg.moe_d_ff,
+         vocab=cfg.vocab_size, params=n_params, init_ms=init_ms, compress_s=compress_ms / 1e3,
+         compression=rep.summary(), tree_gb=tree_gb, peak_gb=peak_gb,
+         serve_peak_gb=serve_peak_gb, polarize_launches=pol_launches,
+         prompt_lens=lens, decode_steps=last["decode_steps"],
+         decode_step_ms=[r["decode_step_ms"] for r in runs],
+         mean_prefill_ms=[r["mean_prefill_ms"] for r in runs],
+         launches=last["launches"], launches_per_decode_step=4 * cfg.num_layers + 1,
+         tokens=last["tokens"])
+    emit("moe_kernels", held=[[r["M"], r["K"], r["N"], r["route"]] for r in held],
+         max_abs_err=max(r["max_abs_err"] for r in held),
+         max_rel_err=max(r["max_rel_err"] for r in held),
+         attn_m4=attn_row, head_m4=head_row, polarize=pol, polarize_expert_triple=triple)
+    return {"launches": last["launches"], "polarize_launches": pol_launches,
+            "attn_m4": attn_row, "head_m4": head_row, "held": held, "triple": triple}
+
+
 def perfmodel_line(mean_eic: float) -> None:
     """The paper's hardware model (``core/perfmodel``) at the fidelity
     phase's measured mean EIC, beside its published Table V rows: model
@@ -2830,9 +3185,13 @@ def main() -> int:
         torch.cuda.empty_cache()
         ab_launches = phase_autobits(slice_engine, slice_prompts(slice_engine.cfg),
                                      slice_tokens, uniform_draft)
+        torch.cuda.empty_cache()
+        rel_launches = phase_reliability(slice_engine, slice_tokens)
         del slice_engine
         torch.cuda.empty_cache()
         dense_launches = phase_dense_configs()
+        moe = phase_moe()
+        torch.cuda.empty_cache()
         tree, cfg, prompts, skip_launches = phase_zero_skip()
         bit_launches, fidelity_row, mean_eic = phase_fidelity(tree, cfg, prompts)
         perfmodel_line(mean_eic)
@@ -2857,7 +3216,8 @@ def main() -> int:
             and all(spec_launches.values()) and all(fleet_launches[0])
             and all(ckpt_serve_launches) and ckpt_pol_launches
             and all(ab_launches[0]) and ab_launches[1][1] and all(ab_launches[2])
-            and ab_launches[3]
+            and ab_launches[3] and all(rel_launches) and all(moe["launches"])
+            and moe["polarize_launches"]
             and all(all(v.values()) for v in dense_launches.values())):
         raise AssertionError("a kernel of a path was never launched on it")
 
@@ -2885,6 +3245,9 @@ def main() -> int:
         "autobits_launches": ab_launches[0][0],
         "auto_draft_launches": ab_launches[2][0],
         "dense_configs_launches": dense_launches["off"]["polarized_matmul"],
+        "reliability_launches": rel_launches[0],
+        "moe_launches": moe["launches"][0],
+        "moe": {"attn_m4": moe["attn_m4"], "head_m4": moe["head_m4"]},
         "verify": [r for r in verify_rows if r["route"] == "f32"],
         "bits": [r for r in width_rows if r["route"] == "f32"],
         "heads": head_rows,
@@ -2898,7 +3261,10 @@ def main() -> int:
                "serving checkpoint's run; autobits_launches: the mixed-plan tree's run; "
                "auto_draft_launches: the auto-draft speculative run's; "
                "dense_configs_launches: h2o-danube-1.8b's off run (its head at M=1 and 4 "
-               "included); bits: the same 7 at 2-, 4- and 6-bit codes, bf16 x; heads: the "
+               "included); reliability_launches: the reliability phase's served runs with "
+               "their probes (M=8); moe_launches: the olmoe-1b-7b run's (decode and the "
+               "head); moe: olmoe's q/k/v/o (2048x2048) and head (2048x50304) at M=4, bf16 x; "
+               "bits: the same 7 at 2-, 4- and 6-bit codes, bf16 x; heads: the "
                "untied heads' shapes at M=4, bf16 x",
     }, {
         "name": "polarized_matmul_skip", "route": "cuda",
@@ -2941,6 +3307,8 @@ def main() -> int:
         "launches": pol_launches,
         "checkpoint_launches": ckpt_pol_launches,
         "autobits_launches": ab_launches[3],
+        "moe_launches": moe["polarize_launches"],
+        "moe_expert_triple": moe["triple"],
         "per_matrix": pol_matrix_row,
         "max_abs_err": max(max(r["sum_max_abs_err"], r["energy_max_abs_err"]) for r in pol_rows),
         "ms": total(pol_rows, "kernel_ms"), "plain_ms": total(pol_rows, "plain_ms"),
@@ -2952,7 +3320,10 @@ def main() -> int:
                "elements), m=8, sum rule; launches: the train run's; checkpoint_launches: "
                "the checkpoint phase's runs A, B before the save and B after the restore; "
                "autobits_launches: the compress_tree calls of the auto-bits sweep and its "
-               "validation (energy rule, one per layer matrix); per_matrix: those calls "
+               "validation (energy rule, one per layer matrix); moe_launches: compress_tree "
+               "of olmoe-1b-7b (one per (layer, expert) matrix, attention matrix and the "
+               "head); moe_expert_triple: one (layer, expert)'s w_gate, w_up (2048x1024) "
+               "and w_down (1024x2048), energy rule; per_matrix: those calls "
                "for the 7 matrices of one qwen2-1.5b layer, energy rule",
     }, {
         "name": "polarized_matmul_tc", "route": "cuda",
@@ -2969,6 +3340,8 @@ def main() -> int:
         "autobits_validation_launches": ab_launches[1][1],
         "auto_draft_launches": ab_launches[2][1],
         "dense_configs_launches": dense_launches["off"]["polarized_matmul_tc"],
+        "reliability_launches": rel_launches[1],
+        "moe_launches": moe["launches"][1],
         "dense_configs_skip_launches": dense_launches["block"]["polarized_matmul_tc_skip"],
         "verify": [r for r in verify_rows if r["route"] == "tc"],
         "bits": [r for r in width_rows if r["route"] == "tc"],
@@ -2999,6 +3372,8 @@ def main() -> int:
                "mixed-plan tree's run; autobits_validation_launches: plan_auto_bits' "
                "measured-NLL forwards at M=256; auto_draft_launches: the auto-draft "
                "speculative run's; dense_configs_launches: h2o-danube-1.8b's prefills; "
+               "reliability_launches: the reliability phase's prefills; moe_launches: "
+               "olmoe-1b-7b's exact-length prefills (M = 16-64); "
                "bits: the 7 at M=64 on 2-, 4- and 6-bit codes",
     }]}
     emit("total", seconds=time.perf_counter() - t_start)

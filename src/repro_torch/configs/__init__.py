@@ -1,8 +1,8 @@
 """Config registry: ``get_config(name)`` / ``get_reduced(name)``.
 
-The port serves the dense transformer family; its registry holds the dense
-archs of the JAX package (copied field for field), the others join with
-their family's port.
+The registry holds the archs of the families the port serves, copied from
+the JAX package field for field: the dense ones and olmoe-1b-7b (MoE); the
+others join with their family's port.
 """
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ _ARCH_MODULES: Dict[str, str] = {
     "h2o-danube-1.8b": "repro_torch.configs.h2o_danube_1_8b",
     "qwen1.5-4b": "repro_torch.configs.qwen1_5_4b",
     "yi-9b": "repro_torch.configs.yi_9b",
+    "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
 }
 
 ARCH_NAMES: List[str] = list(_ARCH_MODULES)

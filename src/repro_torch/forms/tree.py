@@ -4,8 +4,9 @@
 replaces every crossbar-mappable weight with a
 :class:`~repro_torch.forms.linear.FormsLinearParams` (uint8 magnitudes +
 int8 fragment signs + f32 scales).  Scan-stacked ``(L, K, N)`` weights are
-converted layer by layer (fragments never cross the layer axis); conv
-kernels are viewed through the polarization policy reshape.  Paths are the
+converted layer by layer (fragments never cross the layer axis), stacked
+experts ``(L, E, K, N)`` (``EXPERT_WEIGHT_NAMES``) per (layer, expert), and
+conv kernels are viewed through the polarization policy reshape.  Paths are the
 JAX package's (``blocks/attn/wq``), so reports and plans line up one to one.
 """
 from __future__ import annotations
@@ -98,10 +99,20 @@ def _stack(parts):
         scale=torch.stack([p.scale for p in parts]))
 
 
-def _compress_leaf(leaf: torch.Tensor, spec: FormsSpec) -> FormsLinearParams:
-    """Convert one 2-D / scan-stacked 3-D / conv 4-D weight leaf."""
+# rank-4 leaves with these final path segments are scan-stacked expert
+# tensors (L, E, in, out), one crossbar matrix per (layer, expert), not conv
+# kernels (models/moe.py naming)
+EXPERT_WEIGHT_NAMES = ("w_gate", "w_up", "w_down")
+
+
+def _compress_leaf(pstr: str, leaf: torch.Tensor, spec: FormsSpec) -> FormsLinearParams:
+    """Convert one 2-D / scan-stacked 3-D / conv or expert 4-D weight leaf."""
+    name = pstr.rsplit("/", 1)[-1]
     if leaf.ndim == 3:
         fp = _stack([from_dense(w, spec)[0] for w in leaf])
+    elif leaf.ndim == 4 and name in EXPERT_WEIGHT_NAMES:
+        fp = _stack([_stack([from_dense(w, spec)[0] for w in experts])
+                     for experts in leaf])
     elif leaf.ndim == 4:
         fp, _ = from_dense(conv_to_matrix(leaf, spec.policy), spec)
         fp = dataclasses.replace(fp, orig_shape=tuple(leaf.shape))
@@ -141,7 +152,7 @@ def compress_tree(
             report.num_skipped += 1
             return tree
         leaf_spec = spec_for_path(plan, pstr, spec)
-        fp = _compress_leaf(tree, leaf_spec)
+        fp = _compress_leaf(pstr, tree, leaf_spec)
         recon = to_dense(fp)
         err = float(torch.linalg.norm((recon - tree).float())
                     / torch.clamp(torch.linalg.norm(tree.float()), min=1e-12))

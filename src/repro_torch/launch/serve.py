@@ -15,6 +15,9 @@ self-speculative decoding.
       --auto-bits --acc-budget 0.05
   python -m repro_torch.launch.serve --reduced --forms --device cpu \
       --auto-bits --speculate --auto-draft --draft-bits 4
+  python -m repro_torch.launch.serve --reduced --forms --device cpu \
+      --fault-sigma 0.1 --fault-stuck 0.001 --fault-repair --probe-every 4
+  python -m repro_torch.launch.serve --arch olmoe-1b-7b --reduced --forms --device cpu
 
 Weights are random, made from seed 0 on the device (the JAX launcher inits
 with ``PRNGKey(0)``).  With ``--forms`` the weights are compressed by
@@ -48,6 +51,18 @@ uniform width that fits the same budget and reports greedy token agreement
 table at the modeled cost of a uniform ``--draft-bits`` draft.  The modeled
 speedup is the ReRAM model's, not a time on the GPU: a mixed tree stores
 uint8 codes at every width.
+Reliability (``--forms`` only): ``--fault-sigma``, ``--fault-stuck`` and
+``--fault-drift`` corrupt the live compressed weights with the seeded ReRAM
+fault model (lognormal conductance variation, stuck-at cells, retention
+drift; ``--fault-seed``) before serving, ``--encoding vecom`` reads them
+back with VECOM-style reference-column offset compensation, and
+``--fault-repair`` arms the health monitor: golden-prompt drift probes
+every ``--probe-every`` decode rounds past ``--drift-threshold``, per-leaf
+scoreboards, and re-encoding of flagged leaves from the clean reference
+copy without dropping a request.  ``--stats-every N`` prints a stat line
+(pages, prefix hits, acceptance, drift and repairs) every N decode rounds.
+``--arch olmoe-1b-7b`` serves the MoE family (prompts at their exact
+length).
 ``--device`` defaults to ``cuda`` and the launcher fails without a card
 unless ``--device cpu`` is given.  Requests are made as the JAX launcher
 makes them (``np.random.RandomState(0)``).
@@ -66,6 +81,7 @@ from repro_torch.forms import FormsSpec
 from repro_torch.forms import autobits as AB
 from repro_torch.kernels.polarized_matmul import polarized_matmul, polarized_matmul_skip
 from repro_torch.models.registry import build
+from repro_torch.reliability import FaultModel, HealthConfig
 from repro_torch.serving.engine import Request, ServingEngine
 from repro_torch.serving.loadgen import LoadGenConfig, generate
 from repro_torch.serving.sched import SLOConfig
@@ -207,9 +223,41 @@ def main(argv=None) -> None:
                     help="fragment size for --act-sparsity (align with "
                          "--fragment so dropped fragments map onto whole "
                          "skip units; default: ModelConfig's)")
+    ap.add_argument("--stats-every", type=int, default=0, metavar="ROUNDS",
+                    help="print pool/acceptance/health stats every N decode rounds")
+    ap.add_argument("--encoding", default="binary", choices=("binary", "vecom"),
+                    help="cell-level encoding of the compressed weights: "
+                         "plain bit-slice or VECOM-style reference-column "
+                         "offset compensation (reliability)")
+    ap.add_argument("--fault-sigma", type=float, default=None,
+                    help="inject lognormal conductance variation of this "
+                         "scale into the live compressed weights")
+    ap.add_argument("--fault-stuck", type=float, default=None,
+                    help="per-cell stuck-at fault probability (split evenly "
+                         "between stuck-SET and stuck-RESET)")
+    ap.add_argument("--fault-drift", type=float, default=None, metavar="T",
+                    help="retention time for drift injection "
+                         "((1+T)^-nu conductance decay)")
+    ap.add_argument("--fault-seed", type=int, default=0,
+                    help="fault-injection RNG seed")
+    ap.add_argument("--fault-repair", action="store_true",
+                    help="arm the health monitor: probe for logit drift and "
+                         "auto-repair corrupted leaves from the reference "
+                         "copy (forms serving only)")
+    ap.add_argument("--probe-every", type=int, default=16, metavar="ROUNDS",
+                    help="decode rounds between health probes "
+                         "(with --fault-repair)")
+    ap.add_argument("--drift-threshold", type=float, default=1e-3,
+                    help="max-abs logit drift that triggers scan/repair")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
+
+    fault_args = (args.fault_sigma, args.fault_stuck, args.fault_drift)
+    wants_faults = any(v is not None for v in fault_args)
+    if (wants_faults or args.fault_repair or args.encoding != "binary") and not args.forms:
+        raise SystemExit("--fault-*/--encoding model ReRAM cells, which only "
+                         "exist for compressed weights: add --forms")
 
     if (args.auto_bits or args.auto_draft) and not args.forms:
         raise SystemExit("--auto-bits/--auto-draft pick per-leaf FORMS "
@@ -254,7 +302,8 @@ def main(argv=None) -> None:
         cfg = dataclasses.replace(cfg, **act_over)
     model = build(cfg, device=args.device)
     params = model.init(0)
-    spec = (FormsSpec(m=args.fragment, bits=args.bits, rule=args.sign_rule)
+    spec = (FormsSpec(m=args.fragment, bits=args.bits, rule=args.sign_rule,
+                      encoding=args.encoding)
             if args.forms else None)
     auto = plan = draft_plan = None
     if args.auto_bits:
@@ -279,11 +328,22 @@ def main(argv=None) -> None:
                            adaptive_k=not args.no_adaptive_k,
                            zero_skip=args.zero_skip,
                            zero_skip_keep=args.zero_skip_keep,
-                           zero_skip_stats=args.zero_skip_stats, slo=slo)
+                           zero_skip_stats=args.zero_skip_stats, slo=slo,
+                           health=(HealthConfig(probe_every=args.probe_every,
+                                                drift_threshold=args.drift_threshold)
+                                   if args.fault_repair else None),
+                           stats_every=args.stats_every)
     if auto is None:
         del params
     if engine.compression_report is not None:
-        print(f"forms: {engine.compression_report.summary()}")
+        print(f"forms: {engine.compression_report.summary()} "
+              f"(encoding={args.encoding})")
+    if wants_faults:
+        stuck = (args.fault_stuck or 0.0) / 2
+        report = engine.inject_faults(FaultModel(
+            sigma=args.fault_sigma or 0.0, p_stuck_on=stuck, p_stuck_off=stuck,
+            t=args.fault_drift or 0.0, seed=args.fault_seed))
+        print(f"faults: {report.summary()}")
     if engine.paged:
         alloc = engine.page_allocator
         print(f"paged cache: {alloc.capacity} pages x {engine.page_size} rows "
@@ -341,6 +401,10 @@ def main(argv=None) -> None:
         sp = stats["speculate"]
         parts.append(f"acceptance {sp['acceptance']:.2f} "
                      f"tok/round {sp['tokens_per_round']:.2f}")
+    if "health" in stats:
+        h = stats["health"]
+        parts.append(f"probes {h['probes']} repairs {h['repairs']} "
+                     f"drift {h['last_drift']:.2e}")
     if "sparsity" in stats:
         ov = stats["sparsity"]["overall"]
         parts.append(f"sparsity elem {ov['elem_sparsity']:.2f} "
@@ -370,6 +434,10 @@ def main(argv=None) -> None:
                   f"miss {c['deadline_misses']}, "
                   f"preempt {c['preemptions']}, "
                   f"queue peak {c['queue_peak']}")
+    if "health" in stats:
+        for ev in stats["health"]["events"]:
+            print(f"health[{ev['round']}]: "
+                  + ", ".join(f"{k}={v}" for k, v in ev.items() if k != "round"))
     if "sparsity" in stats:
         for tag, s in stats["sparsity"]["layers"].items():
             print(f"sparsity[{tag}]: elem {s['elem_sparsity']:.2f} "

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from repro_torch.forms.linear import DTYPES, FormsLinearParams  # noqa: F401
 from repro_torch.forms.linear import apply as forms_apply
 from repro_torch.forms.linear import to_dense as forms_to_dense
+from repro_torch.forms.tree import EXPERT_WEIGHT_NAMES
 from repro_torch.serving.quant_weights import dequantize_leaf
 
 Params = Dict[str, torch.Tensor]
@@ -45,13 +46,18 @@ def wload(p: Params, name: str, dtype: torch.dtype) -> torch.Tensor:
     is dequantized, on any device, as in the reference.  A FORMS leaf is
     rebuilt densely on the CPU only: on the card it is consumed by the
     polarized-matmul kernel through :func:`linear`, and rebuilding it there
-    would serve around the kernel, so that raises.
+    would serve around the kernel, so that raises.  One exception: a
+    layer's stacked experts (``w_gate``/``w_up``/``w_down``, mags
+    ``(E, Kp, N)``), which the MoE family's expert FFN multiplies with
+    ``torch.einsum`` on the rebuilt weights, as the reference's does (no
+    kernel of the reference serves them either).
     """
     v = p[name]
     if isinstance(v, dict) and "q" in v:
         return dequantize_leaf(v, dtype)
     if isinstance(v, FormsLinearParams):
-        if v.mags.device.type != "cpu":
+        expert_slice = name in EXPERT_WEIGHT_NAMES and v.mags.ndim == 3
+        if v.mags.device.type != "cpu" and not expert_slice:
             raise NotImplementedError(
                 f"{name}: a FORMS leaf on {v.mags.device} is consumed by the "
                 "polarized-matmul kernel via linear(), not decompressed")

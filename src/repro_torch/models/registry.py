@@ -1,6 +1,7 @@
 """Arch registry: config -> a uniform :class:`Model` bundle.
 
-The port serves the dense transformer family so far; every other family
+The port serves the dense transformer family and the MoE family (GQA/MHA
+attention; olmoe); every other family, and MoE with MLA (deepseek-v3),
 raises ``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 from __future__ import annotations
@@ -12,7 +13,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import DEFAULT_DEVICE, resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import moe, transformer
 
 Params = Any
 
@@ -33,7 +34,10 @@ class Model:
     prompt's pages, ``decode_paged(params, tokens, cache, pos,
     block_tables)`` commits the new tokens).  The prefills return the
     logits (1, V) at ``length - 1``, the decodes (B, T, V): T is 1 in plain
-    decoding and K+1 in a speculative verify.
+    decoding and K+1 in a speculative verify.  ``input_fields`` are the
+    batch keys ``forward`` consumes; ``padded_prefill`` says whether a
+    prompt may be padded to its bucket (False for MoE, whose capacity-based
+    dispatch would give pad tokens expert capacity).
     """
 
     config: ModelConfig
@@ -48,6 +52,8 @@ class Model:
     prefill_paged: Callable[..., Tuple[torch.Tensor, Any]]
     decode_paged: Callable[..., Tuple[torch.Tensor, Any]]
     serving_params: Callable[[Params], Params]
+    input_fields: Tuple[str, ...] = ("tokens",)
+    padded_prefill: bool = True
 
     @property
     def supports_paged(self) -> bool:
@@ -55,8 +61,9 @@ class Model:
                 and self.decode_paged is not None)
 
 
+_FAMILIES = {"dense": transformer, "moe": moe}
+
 _NOT_PORTED = {
-    "moe": "ROADMAP queue 1, item 10 (other families: models/moe.py)",
     "whisper": "ROADMAP queue 1, item 10 (other families: models/whisper.py)",
     "xlstm": "ROADMAP queue 1, item 10 (other families: models/xlstm.py)",
     "zamba": "ROADMAP queue 1, item 10 (other families: models/zamba.py)",
@@ -66,15 +73,17 @@ _NOT_PORTED = {
 def build(cfg: ModelConfig, device: Union[str, torch.device, None] = DEFAULT_DEVICE) -> Model:
     """Bind the family of ``cfg`` to ``device`` (default ``"cuda"``; raises
     when CUDA is absent unless the caller asks for ``"cpu"``)."""
-    if cfg.family != "dense":
+    if cfg.family not in _FAMILIES:
         why = _NOT_PORTED.get(cfg.family, "no port planned")
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet: {why}")
+    if cfg.family == "moe":
+        moe.check_supported(cfg)
     if cfg.num_image_tokens:
         raise NotImplementedError(
             "the VLM patch-embedding prefix is not ported yet (ROADMAP queue 1, "
             "item 10)")
     dev = resolve_device(device)
-    mod = transformer
+    mod = _FAMILIES[cfg.family]
 
     def init(seed: int = 0, generator: Optional[torch.Generator] = None) -> Params:
         if generator is None:
@@ -101,4 +110,7 @@ def build(cfg: ModelConfig, device: Union[str, torch.device, None] = DEFAULT_DEV
         decode_paged=lambda params, tokens, cache, pos, block_tables:
             mod.decode_paged(cfg, params, tokens, cache, pos, block_tables),
         serving_params=lambda params: mod.with_head_cast(cfg, params),
+        # moe is exact-length: padded tokens would route through the
+        # capacity-based dispatch and take expert capacity from real tokens
+        padded_prefill=cfg.family != "moe",
     )

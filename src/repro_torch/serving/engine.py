@@ -6,7 +6,8 @@ The reference's hot-path properties carry over:
 
 * **Bulk prefill** — admitting a prompt costs one prefill call (full-prompt
   attention + a one-shot cache write), with prompts padded to power-of-two
-  buckets.
+  buckets; the MoE family (``Model.padded_prefill`` False) is prefilled at
+  the exact prompt length, since pad tokens would take expert capacity.
 * **In-place caches** — the cache is updated in place; the reference gets
   the same effect by donating the cache into its jitted steps.
 * **On-device sampling** — greedy and temperature sampling run on the
@@ -43,8 +44,17 @@ per slot; the scheduler advances each slot by the runner's ``counts``.  On
 the dense cache ``speculate=True`` falls back to the plain runner, as in
 the reference.
 
-Not ported yet, and refused rather than ignored: mesh sharding, health
-monitoring and per-leaf draft plans (see ROADMAP).
+With ``health=HealthConfig(...)`` (compressed trees only) the schedulers
+tick the reliability loop (``reliability/health.py``): golden-probe drift
+detection at run start and every ``probe_every`` rounds, and re-encoding of
+corrupted leaves from the build-time reference copy without dropping a
+request; ``engine.inject_faults(FaultModel(...))`` corrupts the live
+params, and ``stats()["health"]`` is the scoreboard.  ``stats_every=N``
+prints the stat line (pages, prefix hits, acceptance, drift and repairs)
+every N decode rounds.
+
+Not ported yet, and refused rather than ignored: mesh sharding (ROADMAP
+item 13).
 """
 from __future__ import annotations
 
@@ -164,7 +174,10 @@ class ModelRunner:
         return self.cache.page_size
 
     def bucket_for(self, n: int) -> int:
-        """Padded-prefill bucket (power of two, at least 8, at most max_len)."""
+        """Padded-prefill bucket (power of two, at least 8, at most
+        max_len); the exact length for a model without padded prefill."""
+        if not self.model.padded_prefill:
+            return n
         return prefill_bucket(n, self.max_len)
 
     def padded_prompt(self, prompt: np.ndarray) -> Tuple[np.ndarray, int]:
@@ -212,9 +225,9 @@ class ModelRunner:
 
     def chunk_width(self, n: int) -> int:
         """Power-of-two chunk width (at least 8, at most max_len), as the
-        reference buckets its compiled chunk variants: the same rows are
-        committed."""
-        return self.bucket_for(n)
+        reference buckets its compiled chunk variants, for every family:
+        the same rows are committed."""
+        return prefill_bucket(n, self.max_len)
 
     @torch.inference_mode()
     def prefill_chunk(self, tokens: np.ndarray, positions: np.ndarray,
@@ -301,13 +314,16 @@ class Scheduler:
 
     def __init__(self, runner: ModelRunner, *, slots: int, max_len: int,
                  allocator: Optional[KV.PageAllocator] = None,
-                 prefix: Optional[KV.PrefixCache] = None):
+                 prefix: Optional[KV.PrefixCache] = None,
+                 health: Optional[Any] = None, log_every: int = 0):
         self.runner = runner
         self.slots = slots
         self.max_len = max_len
         self.allocator = allocator
         self.prefix = prefix
+        self.health = health    # reliability.health.HealthMonitor (or None)
         self.paged = allocator is not None
+        self.log_every = int(log_every)  # decode rounds between stat lines
         self.rounds = 0
         self.max_concurrent = 0
         self.admissions: "collections.deque[Tuple[int, Tuple[int, ...]]]" = \
@@ -445,6 +461,10 @@ class Scheduler:
                     if queue and queue[0] is head and active[s] is None:
                         return
 
+        # health pass before any prefill: faults injected while the engine
+        # sat idle are repaired before they can poison KV pages
+        if self.health is not None:
+            self.health.tick(self.runner, self.rounds)
         admit_idle()
         while any(a is not None for a in active):
             n_active = sum(a is not None for a in active)
@@ -472,8 +492,35 @@ class Scheduler:
                 else:
                     cur[s] = out[counts[s] - 1, s]
                     slot_pos[s] += int(counts[s])
+            # periodic health pass between rounds: in-flight requests keep
+            # their slots, pages and positions across a repair; only the
+            # runner's params binding changes
+            if (self.health is not None and self.health.config.probe_every
+                    and self.rounds % self.health.config.probe_every == 0):
+                self.health.tick(self.runner, self.rounds)
+            self._log_round(sum(a is not None for a in active))
             admit_idle()
         return done
+
+    def _log_round(self, n_active: int) -> None:
+        """The periodic stat line, every ``log_every`` decode rounds."""
+        if not self.log_every or self.rounds % self.log_every:
+            return
+        parts = [f"round {self.rounds}", f"active {n_active}/{self.slots}"]
+        if self.allocator is not None:
+            st = self.allocator.stats()
+            parts.append(f"pages {st['used']}/{st['capacity']} "
+                         f"(hw {st['high_water']}, shared {st['shared']})")
+        if self.prefix is not None:
+            parts.append(f"prefix_hits {self.prefix.hits}")
+        if hasattr(self.runner, "spec_stats"):
+            sp = self.runner.spec_stats()
+            parts.append(f"accept {sp['acceptance']:.2f} "
+                         f"tok/round {sp['tokens_per_round']:.2f}")
+        if self.health is not None:
+            parts.append(f"drift {self.health.last_drift:.2e} "
+                         f"repairs {self.health.repairs}")
+        print("[serve] " + ", ".join(parts), flush=True)
 
 
 def _refuse(name: str, value: Any, default: Any, item: str) -> None:
@@ -501,7 +548,11 @@ class ServingEngine:
     draft per-leaf widths (``forms.autobits.plan_draft_bits``); the dense
     cache falls back to plain decoding.
     ``slo=`` (an ``SLOConfig`` or a dict of its fields) serves with the
-    fleet scheduler; it needs the paged cache.
+    fleet scheduler; it needs the paged cache.  ``health=HealthConfig(...)``
+    (compressed trees only) arms the reliability loop on either scheduler;
+    ``inject_faults`` corrupts the live params and ``stats()["health"]`` is
+    the scoreboard.  ``stats_every=N`` prints the stat line every N decode
+    rounds.
     """
 
     def __init__(self, model: Model, params: Any, *, max_len: int = 512,
@@ -519,7 +570,8 @@ class ServingEngine:
                  draft_plan: Optional[Dict[str, FormsSpec]] = None,
                  draft_fragment: Optional[int] = None, draft_layer_step: int = 1,
                  adaptive_k: bool = True,
-                 health: Optional[Any] = None, zero_skip: Optional[str] = None,
+                 health: Optional[Any] = None, stats_every: int = 0,
+                 zero_skip: Optional[str] = None,
                  zero_skip_keep: float = 0.5, zero_skip_stats: bool = False,
                  slo: Optional[Any] = None):
         dev = resolve_device(device)
@@ -527,7 +579,6 @@ class ServingEngine:
             raise ValueError(f"engine device {dev} differs from the model's "
                              f"{model.device} (build(cfg, device=...))")
         _refuse("mesh", mesh, None, "ROADMAP queue 1, item 13")
-        _refuse("health", health, None, "ROADMAP queue 1, item 9")
         if ((zero_skip not in (None, "off")) or zero_skip_stats) \
                 and not (forms or spec is not None):
             raise ValueError(
@@ -600,22 +651,30 @@ class ServingEngine:
             self.runner = ModelRunner(model, params, cache, max_len=max_len,
                                       spec=self.spec, decode_block=decode_block,
                                       rng_seed=rng_seed)
-        if slo is not None:
-            from repro_torch.serving.sched import FleetScheduler, SLOConfig
-            if isinstance(slo, dict):
-                slo = SLOConfig(**slo)
-            self.scheduler: Scheduler = FleetScheduler(
-                self.runner, slots=batch_slots, max_len=max_len, allocator=allocator,
-                prefix=prefix, cfg=slo)
-        else:
-            self.scheduler = Scheduler(self.runner, slots=batch_slots, max_len=max_len,
-                                       allocator=allocator, prefix=prefix)
         # off by default: metering adds a few device ops to every FORMS
         # matmul of every decode step
         self.sparsity_meter: Optional[SparsityMeter] = None
         if zero_skip_stats:
             self.sparsity_meter = SparsityMeter()
             self.runner.meter = self.sparsity_meter
+        # the health monitor is built last, over the exact tree the runner
+        # serves: its golden logits and reference planes describe the real
+        # serving artifact
+        self.health = None
+        if health is not None:
+            from repro_torch.reliability.health import HealthMonitor
+            self.health = HealthMonitor(model, self.runner.params, health, spec=self.spec)
+        if slo is not None:
+            from repro_torch.serving.sched import FleetScheduler, SLOConfig
+            if isinstance(slo, dict):
+                slo = SLOConfig(**slo)
+            self.scheduler: Scheduler = FleetScheduler(
+                self.runner, slots=batch_slots, max_len=max_len, allocator=allocator,
+                prefix=prefix, health=self.health, log_every=stats_every, cfg=slo)
+        else:
+            self.scheduler = Scheduler(self.runner, slots=batch_slots, max_len=max_len,
+                                       allocator=allocator, prefix=prefix,
+                                       health=self.health, log_every=stats_every)
 
     @property
     def params(self) -> Any:
@@ -648,10 +707,11 @@ class ServingEngine:
     def stats(self) -> Dict[str, Any]:
         """Serving counters: scheduler occupancy, page-pool occupancy,
         prefix-cache hits, with speculation its acceptance and tokens per
-        round, with ``zero_skip_stats`` the decode path's measured input
-        sparsity, and with the fleet scheduler the ``"slo"`` block (TTFT and
-        inter-token percentiles, preemption and deadline-miss counts, queue
-        depths per class), as a deep-copied snapshot."""
+        round, with ``health=`` the ``"health"`` scoreboard, with
+        ``zero_skip_stats`` the decode path's measured input sparsity, and
+        with the fleet scheduler the ``"slo"`` block (TTFT and inter-token
+        percentiles, preemption and deadline-miss counts, queue depths per
+        class), as a deep-copied snapshot."""
         out: Dict[str, Any] = {
             "max_concurrent": self.scheduler.max_concurrent,
             "rounds": self.scheduler.rounds,
@@ -663,11 +723,24 @@ class ServingEngine:
             out["prefix_hits"] = self.prefix_cache.hits
         if self.speculative:
             out["speculate"] = self.runner.spec_stats()
+        if self.health is not None:
+            out["health"] = self.health.stats()
         if self.sparsity_meter is not None:
             out["sparsity"] = self.sparsity_meter.summary()
         if hasattr(self.scheduler, "slo_stats"):
             out["slo"] = self.scheduler.slo_stats()
         return copy.deepcopy(out)
+
+    def inject_faults(self, fault: Any, paths: Optional[List[str]] = None) -> Any:
+        """Corrupt the live serving params with ``fault`` (a
+        ``reliability.faults.FaultModel``); returns the ``FaultReport``.
+        The health monitor's golden and reference copies were taken at
+        build, before any injection, so a later probe sees exactly the drift
+        this corruption causes and repair restores the clean tree."""
+        from repro_torch.reliability.faults import inject_tree
+        self.runner.params, report = inject_tree(self.runner.params, fault,
+                                                 spec=self.spec, paths=paths)
+        return report
 
     def run(self, requests: List[Request]) -> List[Result]:
         return self.scheduler.run(requests)

@@ -35,8 +35,10 @@ bulk admission's.  On the card a chunk's projections run at M = slots x
 width (the tensor-core route) and its attention reads the paged cache, so
 logits differ from bulk prefill's in the last bits and greedy tokens may
 part at a near-tie (``chip_smoke.py`` measures the difference).  Times come
-from ``time.perf_counter()`` on the host, as in the reference.  The
-reference's health monitor and periodic stat line are not ported.
+from ``time.perf_counter()`` on the host, as in the reference.  The health
+monitor ticks at run start and every ``probe_every`` rounds, and the stat
+line (``stats_every``) adds the queue depths, preemptions, misses and
+chunks, as in the reference.
 """
 from __future__ import annotations
 
@@ -235,6 +237,9 @@ class FleetScheduler(Scheduler):
         state = dict(queue=queue, runs=runs, done=done, cur=cur,
                      slot_pos=slot_pos, temps=temps)
 
+        if self.health is not None:
+            self.health.tick(self.runner, self.rounds)
+
         while queue or any(r is not None for r in runs):
             now = self._now()
             if all(r is None for r in runs) \
@@ -254,6 +259,10 @@ class FleetScheduler(Scheduler):
             self._prefill_round(state, max(0, budget - n_dec * per_slot))
             self._decode_round(state)
             self.rounds += 1
+            if (self.health is not None and self.health.config.probe_every
+                    and self.rounds % self.health.config.probe_every == 0):
+                self.health.tick(self.runner, self.rounds)
+            self._log_round(sum(r is not None for r in runs))
         return done
 
     def _now(self) -> float:
@@ -559,3 +568,14 @@ class FleetScheduler(Scheduler):
                 **self._class[p],
             }
         return out
+
+    def _log_round(self, n_active: int) -> None:
+        if not self.log_every or self.rounds % self.log_every:
+            return
+        super()._log_round(n_active)
+        depths = ", ".join(f"{p} q={self._queue_depth[p]}"
+                           for p in PRIORITIES)
+        print(f"[serve]   slo: {depths}, preempt {self.preemptions}, "
+              f"miss {self.deadline_misses}, "
+              f"chunks {self.chunk_calls}/{self.chunk_tokens}tok",
+              flush=True)

@@ -9,7 +9,7 @@ import pathlib
 import pytest
 import torch
 
-from repro_torch.configs import get_reduced
+from repro_torch.configs import MLAConfig, get_reduced
 from repro_torch.core.device import resolve_device
 from repro_torch.models import registry
 from repro_torch.serving.engine import ServingEngine
@@ -82,6 +82,26 @@ def test_cuda_is_the_default_and_never_silently_the_cpu(monkeypatch):
 
 
 def test_other_families_name_their_roadmap_item():
-    cfg = dataclasses.replace(get_reduced("qwen2-1.5b"), family="moe")
+    """The MoE family is ported (olmoe); whisper is not, nor MoE's MLA."""
+    cfg = dataclasses.replace(get_reduced("qwen2-1.5b"), family="whisper")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         registry.build(cfg, device="cpu")
+    mla = dataclasses.replace(get_reduced("olmoe-1b-7b"), mla=MLAConfig())
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 10b"):
+        registry.build(mla, device="cpu")
+    assert registry.build(get_reduced("olmoe-1b-7b"), device="cpu").padded_prefill is False
+
+
+@pytest.mark.parametrize("module", ["reliability/encoding.py", "reliability/faults.py",
+                                    "reliability/health.py", "models/moe.py",
+                                    "configs/olmoe_1b_7b.py"])
+def test_reliability_and_moe_are_the_ports_own(module):
+    """The fault injector is host numpy in the reference too; the port keeps
+    its own copy and draws from numpy, never from JAX."""
+    path = ROOT / "src" / "repro_torch" / module
+    assert path in PORT_FILES
+    mods = set(_imported_modules(path))
+    assert not {m for m in mods if m.split(".")[0] in ("jax", "jaxlib", "repro", "msgpack",
+                                                      "ml_dtypes")}
+    if module.startswith("reliability/") and module != "reliability/health.py":
+        assert "numpy" in mods

@@ -93,9 +93,13 @@ def test_temperature_sampling_is_deterministic_per_seed():
 def test_unported_options_are_refused():
     _, _, tm, tp = models()
     kw = dict(max_len=32, batch_slots=2, device="cpu")
-    for extra in (dict(mesh=object()), dict(health=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item"):
-            TEngine(tm, tp, **kw, **{"page_size": 8, **extra})
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 13"):
+        TEngine(tm, tp, **kw, page_size=8, mesh=object())
+    # health= is ported (reliability/health): it arms the monitor on a FORMS
+    # tree (tests/test_torch_reliability.py)
+    from repro_torch.reliability import HealthConfig
+    eng = TEngine(tm, tp, page_size=8, forms=True, health=HealthConfig(), **kw)
+    assert eng.stats()["health"]["probes"] == 0
     # draft_plan= is ported (forms/autobits): it builds a heterogeneous draft
     eng = TEngine(tm, tp, page_size=8, forms=True, speculate=True, draft_bits=4,
                   draft_plan={"attn/wq": tforms.FormsSpec(bits=2)}, **kw)
