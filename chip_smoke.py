@@ -138,6 +138,27 @@ Phases, each printing JSON lines:
                (shape, M) of the run, timed at M=4; kernel #4 bit for bit
                at the expert, attention and head matrices, timed per
                (layer, expert);
+10f. mla      — full-width deepseek-v3 (d_model 7168, 128 heads, MLA q_lora
+               1536 / kv_lora 512, one shared and routed experts top-8 of
+               moe_d_ff 2048, vocab 129280, untied head, MTP), depth cut to 4
+               layers and routed experts to 16 (printed), compressed
+               (polarizations reckoned) and served on the paged cache at
+               exact length, the slice's requests twice (the same tokens),
+               then on the dense slot cache: decode ms beside the step's
+               byte bound, prefill ms, peak memory, launches reckoned (kv_up
+               is rebuilt by the absorbed decode, not launched); with no
+               token dropped, the engine's absorbed decode logits
+               teacher-forced against the expanded forward; #1 held at every
+               (shape, M) of the run, timed at M=4; #4 bit for bit at each
+               matrix shape, timed;
+10g. whisper  — full-width whisper-small (12 + 12 layers, d_model 768,
+               vocab 51865, tied head) compressed and served on the paged
+               cache against the engine's zero encoder context, twice (the
+               same tokens), launches reckoned (the cross k/v at M = slots x
+               max_len on the tensor-core route); the model at f32: encode
+               written into enc_out, prefill against stepwise decode, card
+               against CPU; #1 held at every (shape, M) of the run, #4 bit
+               for bit at its shapes;
 11. zero_skip — the same model with ReLU and 50% fragment sparsity, one tree
                compressed once, served with zero_skip off, block and compact:
                block gives off's tokens through the skip kernel, compact's
@@ -162,6 +183,9 @@ Phases, each printing JSON lines:
 14. train_small — a reduced qwen2 (f32) trained two steps plus one fresh
                Z-update on the card and on the CPU from the same params:
                losses agree, every Z leaf is polarized;
+14b. train_moe — a reduced deepseek-v3 (MLA + MTP) and a reduced olmoe
+               (f32), two steps each on the card and on the CPU: losses
+               agree, and carry the load-balance and MTP terms;
 15. train    — full-width qwen2-1.5b (random weights from a seed) trained
                through ``repro_torch.training`` with ADMM: 6 steps of 8 x
                256 tokens, Z-updates after steps 2 (fresh), 4 (fresh, sign
@@ -3118,6 +3142,444 @@ def phase_moe():
             "attn_m4": attn_row, "head_m4": head_row, "held": held, "triple": triple}
 
 
+# --------------------------------------------------------------------------
+# MLA and multi-token prediction (deepseek-v3), whisper-small
+# --------------------------------------------------------------------------
+
+MLA_ARCH = "deepseek-v3-671b"
+MLA_CUT = dict(num_layers=4, num_experts=16)      # 61 layers, 256 experts published
+# deepseek-v3's FORMS projections (K, N): MLA, the shared expert, the MTP proj
+MLA_SHAPES = {"q_down": (7168, 1536), "q_up": (1536, 24576), "kv_down": (7168, 576),
+              "kv_up": (512, 32768), "wo": (16384, 7168), "shared_gate": (7168, 2048),
+              "shared_up": (7168, 2048), "shared_down": (2048, 7168)}
+MLA_DECODE = ("q_down", "q_up", "kv_down", "wo", "shared_gate", "shared_up", "shared_down")
+MLA_HEAD = (7168, 129280)
+MLA_MTP_PROJ = (14336, 7168)
+# absorbed decode vs expanded forward in f32 (activations and latent
+# cache): the largest logit difference as a share of the largest |logit|.
+# The two forms sum the same f32 products in other orders (1.6e-7 of 0.5
+# on the reduced model); in bf16 a router near-tie can flip an expert
+# between them, so the bf16 check holds the tokens only (a near-tie rule)
+MLA_FORMS_TOL = 1e-3
+WHISPER_ARCH = "whisper-small"
+WHISPER_SHAPES = [(768, 768), (768, 3072), (3072, 768)]
+# whisper's model-level check (f32): cache slots and context, prompt length
+WHISPER_CHECK = dict(slots=2, max_len=64, prompt=8)
+WHISPER_TOL = 1e-3          # f32: the same products summed in other orders
+
+
+def phase_train_moe():
+    """A reduced deepseek-v3 (MLA + MTP) and a reduced olmoe (f32), two
+    steps each on the card and on the CPU from the same params and
+    batches: the losses agree within 1e-4, and the loss carries the
+    load-balance term (0.01 x ``moe_aux_loss``) and, with MTP, 0.3 x the
+    shift-2 CE: it exceeds the bare next-token CE by at least the first."""
+    import torch
+    from repro_torch.configs import get_reduced
+    from repro_torch.data.synthetic import LMStreamConfig, lm_batch
+    from repro_torch.models.registry import build
+    from repro_torch.training import train_loop
+
+    tcfg = train_config(learning_rate=1e-3, admm_enabled=False)
+    rows = {}
+    for arch in (MLA_ARCH, MOE_ARCH):
+        cfg = dataclasses.replace(get_reduced(arch), dtype="float32")
+        params = build(cfg, device="cpu").init(0)
+        ds = LMStreamConfig(vocab_size=cfg.vocab_size, seq_len=32, global_batch=4)
+        out = {}
+        for dev in ("cpu", "cuda"):
+            model = build(cfg, device=dev)
+            p = _tree_to(params, dev)
+            with torch.no_grad():
+                b0 = lm_batch(ds, 0, dev)
+                hidden, aux = model.forward(p, b0, return_hidden=True)
+                bare = float(train_loop.chunked_ce(hidden, model.head_matrix(p), b0["tokens"]))
+                full = float(train_loop.hidden_loss(model, p, b0, hidden, aux))
+            state, _ = train_loop.init_train_state(model, tcfg, params=p)
+            step = train_loop.make_train_step(model, tcfg)
+            losses = []
+            for i in range(2):
+                state, metrics = step(state, lm_batch(ds, i, dev))
+                losses.append(float(metrics["loss"]))
+            out[dev] = {"losses": losses, "bare_ce": bare, "loss": full,
+                        "moe_aux_loss": float(aux["moe_aux_loss"]), "mtp": "mtp_hidden" in aux}
+        err = max(abs(a - b) / abs(b) for a, b in zip(out["cuda"]["losses"], out["cpu"]["losses"]))
+        card = out["cuda"]
+        extra = card["loss"] - card["bare_ce"] - 0.01 * card["moe_aux_loss"]
+        rows[arch] = {"runs": out, "max_rel_loss_err": err, "mtp_term": extra}
+        ok = (err <= 1e-4 and abs(card["losses"][0] - card["loss"]) <= 1e-4 * card["loss"]
+              and card["moe_aux_loss"] > 0 and card["mtp"] == (arch == MLA_ARCH)
+              and (extra > 0.1 if card["mtp"] else abs(extra) <= 1e-4 * card["loss"]))
+        if not ok:
+            raise AssertionError(f"{arch}: the MoE train step on the card: {rows[arch]}")
+    emit("train_moe", **rows)
+
+
+def polarize_rows(gen, shapes, flush):
+    """Kernel #4 (energy rule) at each matrix shape: bit for bit with its
+    plain version, timed beside it and its bound."""
+    import torch
+    from repro_torch.kernels.admm_polarize import admm_polarize
+    from repro_torch.kernels.ref import ref_admm_polarize
+    rows = []
+    for K, N in shapes:
+        v = torch.randn((K, N), generator=gen, device="cuda")
+        outp, signs = admm_polarize(v, m=8, rule="energy")
+        want_p, want_s = ref_admm_polarize(v, 8, "energy")
+        torch.cuda.synchronize()
+        rec = {"K": K, "N": N, "equal": torch.equal(outp.view(torch.int32),
+                                                     want_p.view(torch.int32))
+               and torch.equal(signs, want_s)}
+        del outp, signs, want_p, want_s
+        rec["kernel_ms"] = timed_ms(lambda: admm_polarize(v, m=8, rule="energy"), flush)
+        rec["plain_ms"] = timed_ms(lambda: ref_admm_polarize(v, 8, "energy"), flush, reps=5)
+        rec["bound_ms"], rec["bound_by"] = polarize_bound((K, N))
+        rows.append(rec)
+        del v
+        torch.cuda.empty_cache()
+    if not all(r["equal"] for r in rows):
+        raise AssertionError(f"kernel #4 disagrees with its plain version: {rows}")
+    return rows
+
+
+def teacher_forced_check(engine, prompts, tokens):
+    """The served engine's per-step logits, teacher-forced over its greedy
+    tokens (exact-length paged prefill, then T=1 decode at M = slots), held
+    against the full-sequence ``forward`` over prompt + tokens: the largest
+    difference, the largest |logit|, how many tokens are not forward's
+    argmax, and the largest margin (forward's top logit less the token's)
+    of those."""
+    import torch
+    from repro_torch.forms import default_spec
+    seq = torch.tensor([tokens[i] for i in range(len(prompts))], device="cuda")
+    with torch.inference_mode(), default_spec(engine.runner.spec):
+        forced = forced_logits(engine, prefilled(engine, prompts), seq)
+    diff, top, parted, worst = 0.0, 0.0, 0, 0.0
+    for i, p in enumerate(prompts):
+        n = len(p)
+        full = target_logits(engine, list(p) + tokens[i][:-1])[n - 1:]
+        diff = max(diff, float((forced[i] - full).abs().max()))
+        top = max(top, float(full.abs().max()))
+        picked = full.gather(1, seq[i][:, None].long())[:, 0]
+        margin = full.max(dim=1).values - picked
+        parted += int((margin > 0).sum())
+        worst = max(worst, float(margin.max()))
+    return {"max_logit_diff": diff, "max_abs_logit": top, "tokens_not_argmax": parted,
+            "worst_margin": worst}
+
+
+def phase_mla():
+    """Full-width deepseek-v3 (d_model 7168, 128 heads, MLA q_lora 1536 /
+    kv_lora 512 / nope, rope, v 128, 64, 128, moe_d_ff 2048, one shared
+    expert, top-8, vocab 129280, untied head, MTP on), depth cut to 4
+    layers and routed experts to 16 (``MLA_CUT``, with
+    ``dataclasses.replace``), random weights from seed 0, compressed by
+    FORMS (m=8, 8 bits, energy rule; the polarizations reckoned) and
+    served on the paged cache, the slice's 4 prompts at exact length, 16
+    new tokens, twice (the same tokens), then on the dense slot cache
+    (the same tokens, or a first parting at a near-tie).  Decode ms per
+    step beside its byte bound, prefill ms, peak memory, #1 launches
+    reckoned (7 per layer and the head per decode step: ``kv_up`` is
+    rebuilt by the absorbed decode, not launched).  At a capacity factor
+    of experts / top-k (no token dropped), the engine's teacher-forced
+    decode logits (absorbed) against ``forward`` (expanded) on the same
+    tree.  Then #1 held at every (shape, M) of the run and timed at M=4,
+    #4 bit for bit at each matrix shape and timed."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import paths
+    from repro_torch.forms import FormsSpec, compress_tree, compressed_paths
+    from repro_torch.kernels import polarized_matmul as pm
+    from repro_torch.models.registry import build
+    from repro_torch.serving.engine import ServingEngine
+
+    published = get_config(MLA_ARCH)
+    cfg = dataclasses.replace(published, **MLA_CUT)
+    model = build(cfg, device="cuda")
+    spec = FormsSpec(m=8, bits=8, rule="energy")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, init_ms = synced_ms(model.init, 0)
+    n_params = sum(v.numel() for v in paths.leaves(params))
+    reset_counts()
+    with torch.inference_mode():
+        (tree, rep), compress_ms = synced_ms(compress_tree, params, spec)
+    pol_launches = launch_counts()["admm_polarize"]
+    del params
+    torch.cuda.empty_cache()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    leaves = compressed_paths(tree)
+    per_block = 5 + 3 + 3 * cfg.num_experts          # MLA, shared, routed experts
+    want_pol = cfg.num_layers * per_block + (1 + per_block) + 1   # + MTP (proj, block), head
+    matrices = sum(int(torch.tensor(leaf.mags.shape[:-2]).prod()) for leaf in leaves.values())
+    if pol_launches != want_pol or matrices != want_pol or any("router" in p for p in leaves):
+        raise AssertionError(f"compress_tree polarized {pol_launches} matrices "
+                             f"({matrices} in the tree), reckoned {want_pol}")
+    tree_gb = sum(t.numel() * t.element_size() for leaf in leaves.values()
+                  for t in (leaf.mags, leaf.signs, leaf.scale)) / 1e9
+    prompts = slice_prompts(cfg)
+    lens = [len(p) for p in prompts]
+    kw = dict(spec=spec, batch_slots=4, max_len=SERVE_MAX_LEN, decode_block=4, device="cuda")
+    engine = ServingEngine(model, tree, page_size=16, **kw)
+    if [engine.runner.bucket_for(n) for n in lens] != lens:
+        raise AssertionError("the MLA engine padded a prompt")
+    route = lambda M: pm.uses_tensor_cores(torch.bfloat16, torch.uint8, "cuda", M)
+    L = cfg.num_layers
+    runs = []
+    for _ in range(2):
+        run = served(engine, prompts)
+        want = [0, 0]
+        for n in lens:
+            want[route(n)] += 8 * L          # the 5 MLA projections and the shared expert
+            want[route(1)] += 1              # the head at the prompt's last row
+        want[route(DECODE_M)] += run["decode_steps"] * (7 * L + 1)
+        got = [run["counts"]["polarized_matmul"], run["counts"]["polarized_matmul_tc"]]
+        if got != want:
+            raise AssertionError(f"mla: launched {got}, reckoned {want}")
+        run["launches"] = got
+        runs.append(run)
+    if runs[0]["tokens"] != runs[1]["tokens"]:
+        raise AssertionError("two greedy MLA runs gave other tokens")
+    serve_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    dense = served(ServingEngine(model, tree, page_size=0, **kw), prompts)
+    dense_part = first_divergence(engine, prompts, runs[0]["tokens"], dense["tokens"])
+    # absorbed (decode) against expanded (forward), no token dropped: in
+    # bf16 as served, and in f32 with an f32 latent cache
+    no_drop = dataclasses.replace(cfg, capacity_factor=cfg.num_experts / cfg.experts_per_token)
+    checks = {}
+    for dtype in ("bfloat16", "float32"):
+        m = build(dataclasses.replace(no_drop, dtype=dtype), device="cuda")
+        if dtype == "float32":
+            paged = m.init_paged_cache
+            m = dataclasses.replace(
+                m, init_paged_cache=lambda n, ps, slots=1, max_len=None, dtype=torch.float32:
+                paged(n, ps, slots, max_len, dtype=dtype))
+        check_engine = ServingEngine(m, tree, page_size=16, **kw)
+        checks[dtype] = teacher_forced_check(check_engine, prompts,
+                                             served(check_engine, prompts)["tokens"])
+        del check_engine
+    check = checks["float32"]
+    check["tol"] = MLA_FORMS_TOL * check["max_abs_logit"]
+    if dense_part is not None and not dense_part["top2_margin"] < check["max_logit_diff"]:
+        raise AssertionError(f"the dense cache parted from the paged one away from a "
+                             f"near-tie: {dense_part}")
+    if not (check["max_logit_diff"] <= check["tol"] and check["tokens_not_argmax"] == 0
+            and checks["bfloat16"]["worst_margin"] <= checks["bfloat16"]["max_logit_diff"]):
+        raise AssertionError(f"absorbed decode disagrees with the expanded forward: {checks}")
+    # the step's byte bound: #1's codes, signs and scales, and the bytes
+    # the rebuilds read (routed experts and kv_up, uint8 codes + signs)
+    def code_bytes(K, N):
+        return K * N + (K // 8) * N + N * 4
+    kern_bytes = L * sum(code_bytes(*MLA_SHAPES[n]) for n in MLA_DECODE) + code_bytes(*MLA_HEAD)
+    expert = sum(code_bytes(*MLA_SHAPES[n]) for n in ("shared_gate", "shared_up",
+                                                       "shared_down"))
+    rebuilt = L * (cfg.num_experts * expert + code_bytes(*MLA_SHAPES["kv_up"]))
+    del engine, tree
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    scrub = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    flush = lambda: scrub.zero_()
+    shapes = sorted(set(MLA_SHAPES.values()))
+    held = [held_matmul(gen, M, K, N) for M in sorted(set(lens)) for K, N in shapes]
+    held += [held_matmul(gen, 1, *MLA_HEAD)]
+    decode_rows = {name: held_matmul(gen, DECODE_M, *MLA_SHAPES[name], flush=flush)
+                   for name in ("q_down", "q_up", "kv_down", "wo", "shared_gate",
+                                "shared_down")}
+    decode_rows["shared_up"] = decode_rows["shared_gate"]
+    head_row = held_matmul(gen, DECODE_M, *MLA_HEAD, flush=flush)
+    held += list(decode_rows.values())[:-1] + [head_row]
+    layer = {k: sum(decode_rows[n][k] for n in MLA_DECODE)
+             for k in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")}
+    layer["bound_by"] = bound_by([decode_rows[n] for n in MLA_DECODE])
+    pol = polarize_rows(gen, sorted(set(MLA_SHAPES.values())) + [MLA_MTP_PROJ, MLA_HEAD],
+                        flush)
+    by_shape = {(r["K"], r["N"]): r for r in pol}
+    block_shapes = ([MLA_SHAPES[n] for n in ("q_down", "q_up", "kv_down", "kv_up", "wo")]
+                    + [MLA_SHAPES[n] for n in ("shared_gate", "shared_up", "shared_down")]
+                    * (1 + cfg.num_experts))
+    pol_layer = {k: sum(by_shape[s][k] for s in block_shapes)
+                 for k in ("kernel_ms", "plain_ms", "bound_ms")}
+    pol_layer["bound_by"] = bound_by([by_shape[s] for s in set(block_shapes)])
+    del scrub
+    last = runs[-1]
+    emit("mla", arch=cfg.name, cut={k: [getattr(published, k), v] for k, v in MLA_CUT.items()},
+         d_model=cfg.d_model, heads=cfg.num_heads, mla=dataclasses.asdict(cfg.mla),
+         top_k=cfg.experts_per_token, moe_d_ff=cfg.moe_d_ff, vocab=cfg.vocab_size,
+         mtp=cfg.mtp, params=n_params, init_ms=init_ms, compress_s=compress_ms / 1e3,
+         compression=rep.summary(), tree_gb=tree_gb, peak_gb=peak_gb,
+         serve_peak_gb=serve_peak_gb, polarize_launches=pol_launches, prompt_lens=lens,
+         decode_steps=last["decode_steps"],
+         decode_step_ms=[r["decode_step_ms"] for r in runs + [dense]],
+         mean_prefill_ms=[r["mean_prefill_ms"] for r in runs + [dense]],
+         kernel_code_gb=kern_bytes / 1e9, kernel_bound_ms=kern_bytes / HBM_BYTES_PER_S * 1e3,
+         rebuilt_code_gb=rebuilt / 1e9,
+         step_bound_ms=(kern_bytes + rebuilt) / HBM_BYTES_PER_S * 1e3,
+         launches=last["launches"], launches_per_decode_step=7 * L + 1,
+         dense_tokens_equal=dense["tokens"] == runs[0]["tokens"], dense_first_part=dense_part,
+         tokens=last["tokens"])
+    emit("mla_check", capacity_factor=no_drop.capacity_factor, **checks,
+         note="the engine's decode logits (absorbed; #1 at M=4) teacher-forced against "
+              "forward (expanded; #1 at M = prompt + 15) on the same tree: bf16 as served "
+              "(bf16 latent cache), and f32 activations with an f32 latent cache (tol)")
+    emit("mla_kernels", held=[[r["M"], r["K"], r["N"], r["route"]] for r in held],
+         max_abs_err=max(r["max_abs_err"] for r in held),
+         max_rel_err=max(r["max_rel_err"] for r in held),
+         decode_m4={n: {k: decode_rows[n][k] for k in ("kernel_ms", "plain_ms", "library_ms",
+                                                       "bound_ms", "bound_by")}
+                    for n in decode_rows}, layer_m4=layer, head_m4=head_row,
+         polarize=pol, polarize_layer=pol_layer)
+    return {"launches": last["launches"], "polarize_launches": pol_launches,
+            "layer_m4": layer, "head_m4": head_row, "held": held, "pol_layer": pol_layer}
+
+
+def phase_whisper():
+    """Full-width whisper-small (12 encoder and 12 decoder layers, d_model
+    768, 12 heads, d_ff 3072, vocab 51865, tied head; random weights from
+    seed 0), compressed by FORMS (m=8, 8 bits, energy rule; the
+    polarizations reckoned) and served on the paged cache against the zero
+    encoder context the engine leaves (as the reference's), the slice's 4
+    prompts, 16 new tokens, twice (the same tokens): decode and prefill
+    ms, launches reckoned (per decoder layer 8 projections at M = the
+    bucket or the slots, and the cross k/v at M = max_len per prefill and
+    M = slots x max_len per step, on the tensor-core route).  Then the
+    model at f32 on the same tree: ``encode`` of seeded frames written into
+    ``enc_out``, prefill logits against stepwise decode, on the card and on
+    the CPU (the plain versions), each held at WHISPER_TOL of the largest
+    |value|.  #1 held at every (shape, M) of the run and timed at M=4, #4
+    bit for bit at the three matrix shapes."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import paths
+    from repro_torch.forms import FormsSpec, compress_tree, compressed_paths
+    from repro_torch.kernels import polarized_matmul as pm
+    from repro_torch.models import whisper as W
+    from repro_torch.models.registry import build
+    from repro_torch.serving.engine import ServingEngine, prefill_bucket
+
+    cfg = get_config(WHISPER_ARCH)
+    model = build(cfg, device="cuda")
+    spec = FormsSpec(m=8, bits=8, rule="energy")
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(0)
+    n_params = sum(v.numel() for v in paths.leaves(params))
+    reset_counts()
+    with torch.inference_mode():
+        (tree, rep), compress_ms = synced_ms(compress_tree, params, spec)
+    pol_launches = launch_counts()["admm_polarize"]
+    del params
+    L, Le = cfg.num_layers, cfg.encoder_layers
+    want_pol = 1 + 6 * Le + 10 * L
+    if pol_launches != want_pol or len(compressed_paths(tree)) != 17:
+        raise AssertionError(f"whisper: {pol_launches} polarizations, reckoned {want_pol}")
+    engine = ServingEngine(model, tree, spec=spec, page_size=16, batch_slots=4,
+                           max_len=SERVE_MAX_LEN, decode_block=4, device="cuda")
+    enc_out = engine.cache.dense["enc_out"]
+    prompts = slice_prompts(cfg)
+    buckets = [prefill_bucket(len(p), SERVE_MAX_LEN) for p in prompts]
+    route = lambda M: pm.uses_tensor_cores(torch.bfloat16, torch.uint8, "cuda", M)
+    runs = []
+    for _ in range(2):
+        run = served(engine, prompts)
+        want = [0, 0]
+        for b in buckets:
+            want[route(b)] += 8 * L
+            want[route(SERVE_MAX_LEN)] += 2 * L
+        want[route(DECODE_M)] += run["decode_steps"] * 8 * L
+        want[route(DECODE_M * SERVE_MAX_LEN)] += run["decode_steps"] * 2 * L
+        got = [run["counts"]["polarized_matmul"], run["counts"]["polarized_matmul_tc"]]
+        if got != want:
+            raise AssertionError(f"whisper: launched {got}, reckoned {want}")
+        run["launches"] = got
+        runs.append(run)
+    if runs[0]["tokens"] != runs[1]["tokens"] or float(enc_out.abs().max()) != 0.0:
+        raise AssertionError("two greedy whisper runs differ, or enc_out was written")
+    serve_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del engine
+    # the model at f32, card and CPU, on the same tree
+    c = WHISPER_CHECK
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    gen_cpu = torch.Generator().manual_seed(3)
+    frames = torch.randn((c["slots"], c["max_len"], cfg.d_model), generator=gen_cpu)
+    prompt = np.random.RandomState(5).randint(0, cfg.vocab_size, c["prompt"]).astype(np.int32)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        m32 = build(cfg32, device=dev)
+        t = _tree_to_dev(tree, dev)
+        with torch.inference_mode():
+            enc = W.encode(cfg32, t, frames.to(dev))
+            cache = m32.init_cache(c["slots"], c["max_len"], dtype=torch.float32)
+            cache["enc_out"].copy_(enc)
+            pre, _ = m32.prefill(t, torch.from_numpy(prompt[None]).to(dev), cache, 1,
+                                 len(prompt))
+            cache = m32.init_cache(c["slots"], c["max_len"], dtype=torch.float32)
+            cache["enc_out"].copy_(enc)
+            pos = torch.zeros(c["slots"], dtype=torch.int32, device=dev)
+            for tok in prompt:
+                tb = torch.zeros((c["slots"], 1), dtype=torch.int32, device=dev)
+                tb[1, 0] = int(tok)
+                lg, cache = m32.decode_step(t, tb, cache, pos.clone())
+                pos[1] += 1
+        out[dev] = {"enc": enc.cpu(), "prefill": pre[0].cpu(), "step": lg[1, 0].cpu()}
+        del t
+    rel = lambda a, b: float((a - b).abs().max()) / float(b.abs().max())
+    model_check = {"prefill_vs_step_card": rel(out["cuda"]["step"], out["cuda"]["prefill"]),
+                   "prefill_vs_step_cpu": rel(out["cpu"]["step"], out["cpu"]["prefill"]),
+                   **{f"{k}_card_vs_cpu": rel(out["cuda"][k], out["cpu"][k])
+                      for k in ("enc", "prefill", "step")},
+                   "argmax_equal": int(out["cuda"]["step"].argmax()) == int(
+                       out["cpu"]["prefill"].argmax()),
+                   "tol": WHISPER_TOL}
+    if not all(v <= WHISPER_TOL for k, v in model_check.items()
+               if isinstance(v, float) and k != "tol"):
+        raise AssertionError(f"whisper's model check: {model_check}")
+    del tree
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(17)
+    scrub = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    flush = lambda: scrub.zero_()
+    held = [held_matmul(gen, M, K, N) for M in sorted(set(buckets)) for K, N in WHISPER_SHAPES]
+    attn, up, down = WHISPER_SHAPES
+    held += [held_matmul(gen, SERVE_MAX_LEN, *attn)]
+    cross = held_matmul(gen, DECODE_M * SERVE_MAX_LEN, *attn, flush=flush)
+    m4 = {s: held_matmul(gen, DECODE_M, *s, flush=flush) for s in WHISPER_SHAPES}
+    held += [cross] + list(m4.values())
+    calls = {attn: 6, up: 1, down: 1}
+    layer = {k: sum(m4[s][k] * n for s, n in calls.items())
+             for k in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")}
+    layer["bound_by"] = bound_by(list(m4.values()))
+    pol = polarize_rows(gen, WHISPER_SHAPES, flush)
+    del scrub
+    last = runs[-1]
+    emit("whisper", arch=cfg.name, layers=[Le, L], d_model=cfg.d_model, d_ff=cfg.d_ff,
+         vocab=cfg.vocab_size, params=n_params, compress_s=compress_ms / 1e3,
+         compression=rep.summary(), polarize_launches=pol_launches, buckets=buckets,
+         decode_steps=last["decode_steps"],
+         decode_step_ms=[r["decode_step_ms"] for r in runs],
+         mean_prefill_ms=[r["mean_prefill_ms"] for r in runs], serve_peak_gb=serve_peak_gb,
+         launches=last["launches"], launches_per_decode_step=[8 * L, 2 * L],
+         model_check=model_check, tokens=last["tokens"])
+    emit("whisper_kernels", held=[[r["M"], r["K"], r["N"], r["route"]] for r in held],
+         max_abs_err=max(r["max_abs_err"] for r in held),
+         max_rel_err=max(r["max_rel_err"] for r in held), layer_m4=layer, cross_kv=cross,
+         polarize=pol)
+    return {"launches": last["launches"], "polarize_launches": pol_launches,
+            "layer_m4": layer, "cross_kv": cross}
+
+
+def _tree_to_dev(tree, dev):
+    """A params tree (FORMS leaves included) copied to ``dev``."""
+    from repro_torch.forms import FormsLinearParams
+    if isinstance(tree, dict):
+        return {k: _tree_to_dev(v, dev) for k, v in tree.items()}
+    if isinstance(tree, FormsLinearParams):
+        return dataclasses.replace(tree, mags=tree.mags.to(dev), signs=tree.signs.to(dev),
+                                   scale=tree.scale.to(dev))
+    return tree.to(dev)
+
+
 def perfmodel_line(mean_eic: float) -> None:
     """The paper's hardware model (``core/perfmodel``) at the fidelity
     phase's measured mean EIC, beside its published Table V rows: model
@@ -3172,6 +3634,7 @@ def main() -> int:
     pol_rows, pol_matrix_row = phase_polarize()
     small_launches = phase_small()
     phase_train_small()
+    phase_train_moe()
     launches, slice_engine, slice_tokens = phase_slice()
     torch.cuda.empty_cache()
     spec_launches, verify_rows, uniform_draft = phase_speculate(
@@ -3191,6 +3654,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         dense_launches = phase_dense_configs()
         moe = phase_moe()
+        torch.cuda.empty_cache()
+        mla = phase_mla()
+        torch.cuda.empty_cache()
+        whisper = phase_whisper()
         torch.cuda.empty_cache()
         tree, cfg, prompts, skip_launches = phase_zero_skip()
         bit_launches, fidelity_row, mean_eic = phase_fidelity(tree, cfg, prompts)
@@ -3217,7 +3684,8 @@ def main() -> int:
             and all(ckpt_serve_launches) and ckpt_pol_launches
             and all(ab_launches[0]) and ab_launches[1][1] and all(ab_launches[2])
             and ab_launches[3] and all(rel_launches) and all(moe["launches"])
-            and moe["polarize_launches"]
+            and moe["polarize_launches"] and all(mla["launches"]) and mla["polarize_launches"]
+            and all(whisper["launches"]) and whisper["polarize_launches"]
             and all(all(v.values()) for v in dense_launches.values())):
         raise AssertionError("a kernel of a path was never launched on it")
 
@@ -3248,6 +3716,10 @@ def main() -> int:
         "reliability_launches": rel_launches[0],
         "moe_launches": moe["launches"][0],
         "moe": {"attn_m4": moe["attn_m4"], "head_m4": moe["head_m4"]},
+        "mla_launches": mla["launches"][0],
+        "mla": {"layer_m4": mla["layer_m4"], "head_m4": mla["head_m4"]},
+        "whisper_launches": whisper["launches"][0],
+        "whisper": {"layer_m4": whisper["layer_m4"]},
         "verify": [r for r in verify_rows if r["route"] == "f32"],
         "bits": [r for r in width_rows if r["route"] == "f32"],
         "heads": head_rows,
@@ -3264,6 +3736,12 @@ def main() -> int:
                "included); reliability_launches: the reliability phase's served runs with "
                "their probes (M=8); moe_launches: the olmoe-1b-7b run's (decode and the "
                "head); moe: olmoe's q/k/v/o (2048x2048) and head (2048x50304) at M=4, bf16 x; "
+               "mla_launches: deepseek-v3's run (4 layers, 16 experts; 7 per layer and the "
+               "head per decode step, the head per prefill); mla: its 7 decode projections "
+               "of one layer and its head (7168x129280) at M=4, bf16 x; whisper_launches: "
+               "whisper-small's run (8 per decoder layer per decode step); whisper: its 8 "
+               "projections of one decoder layer at M=4 (the cross k/v run on the "
+               "tensor-core route), bf16 x; "
                "bits: the same 7 at 2-, 4- and 6-bit codes, bf16 x; heads: the "
                "untied heads' shapes at M=4, bf16 x",
     }, {
@@ -3309,6 +3787,9 @@ def main() -> int:
         "autobits_launches": ab_launches[3],
         "moe_launches": moe["polarize_launches"],
         "moe_expert_triple": moe["triple"],
+        "mla_launches": mla["polarize_launches"],
+        "mla_layer": mla["pol_layer"],
+        "whisper_launches": whisper["polarize_launches"],
         "per_matrix": pol_matrix_row,
         "max_abs_err": max(max(r["sum_max_abs_err"], r["energy_max_abs_err"]) for r in pol_rows),
         "ms": total(pol_rows, "kernel_ms"), "plain_ms": total(pol_rows, "plain_ms"),
@@ -3322,7 +3803,11 @@ def main() -> int:
                "autobits_launches: the compress_tree calls of the auto-bits sweep and its "
                "validation (energy rule, one per layer matrix); moe_launches: compress_tree "
                "of olmoe-1b-7b (one per (layer, expert) matrix, attention matrix and the "
-               "head); moe_expert_triple: one (layer, expert)'s w_gate, w_up (2048x1024) "
+               "head); mla_launches: compress_tree of the cut deepseek-v3 (4 layers of 5 MLA, "
+               "3 shared and 48 expert matrices, the MTP module's proj and block, the head); "
+               "mla_layer: one such layer's 56 matrices, energy rule; whisper_launches: "
+               "compress_tree of whisper-small (193 matrices); "
+               "moe_expert_triple: one (layer, expert)'s w_gate, w_up (2048x1024) "
                "and w_down (1024x2048), energy rule; per_matrix: those calls "
                "for the 7 matrices of one qwen2-1.5b layer, energy rule",
     }, {
@@ -3342,6 +3827,9 @@ def main() -> int:
         "dense_configs_launches": dense_launches["off"]["polarized_matmul_tc"],
         "reliability_launches": rel_launches[1],
         "moe_launches": moe["launches"][1],
+        "mla_launches": mla["launches"][1],
+        "whisper_launches": whisper["launches"][1],
+        "whisper_cross_kv": whisper["cross_kv"],
         "dense_configs_skip_launches": dense_launches["block"]["polarized_matmul_tc_skip"],
         "verify": [r for r in verify_rows if r["route"] == "tc"],
         "bits": [r for r in width_rows if r["route"] == "tc"],
@@ -3373,7 +3861,11 @@ def main() -> int:
                "measured-NLL forwards at M=256; auto_draft_launches: the auto-draft "
                "speculative run's; dense_configs_launches: h2o-danube-1.8b's prefills; "
                "reliability_launches: the reliability phase's prefills; moe_launches: "
-               "olmoe-1b-7b's exact-length prefills (M = 16-64); "
+               "olmoe-1b-7b's exact-length prefills (M = 16-64); mla_launches: deepseek-v3's "
+               "exact-length prefills (8 per layer); whisper_launches: whisper-small's "
+               "prefills (M = the bucket, the cross k/v at M = max_len) and every decode "
+               "step's cross k/v (M = 4 slots x 256); whisper_cross_kv: that M=1024 call "
+               "(768x768), timed; "
                "bits: the 7 at M=64 on 2-, 4- and 6-bit codes",
     }]}
     emit("total", seconds=time.perf_counter() - t_start)

@@ -1,8 +1,9 @@
 """Config registry: ``get_config(name)`` / ``get_reduced(name)``.
 
 The registry holds the archs of the families the port serves, copied from
-the JAX package field for field: the dense ones and olmoe-1b-7b (MoE); the
-others join with their family's port.
+the JAX package field for field: the dense ones, the MoE family's
+olmoe-1b-7b and deepseek-v3-671b (MLA + MTP), and whisper-small
+(encoder-decoder); the others join with their family's port.
 """
 from __future__ import annotations
 
@@ -17,6 +18,8 @@ _ARCH_MODULES: Dict[str, str] = {
     "qwen1.5-4b": "repro_torch.configs.qwen1_5_4b",
     "yi-9b": "repro_torch.configs.yi_9b",
     "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
+    "deepseek-v3-671b": "repro_torch.configs.deepseek_v3_671b",
+    "whisper-small": "repro_torch.configs.whisper_small",
 }
 
 ARCH_NAMES: List[str] = list(_ARCH_MODULES)

@@ -18,6 +18,8 @@ self-speculative decoding.
   python -m repro_torch.launch.serve --reduced --forms --device cpu \
       --fault-sigma 0.1 --fault-stuck 0.001 --fault-repair --probe-every 4
   python -m repro_torch.launch.serve --arch olmoe-1b-7b --reduced --forms --device cpu
+  python -m repro_torch.launch.serve --arch deepseek-v3-671b --reduced --forms --device cpu
+  python -m repro_torch.launch.serve --arch whisper-small --reduced --forms --device cpu
 
 Weights are random, made from seed 0 on the device (the JAX launcher inits
 with ``PRNGKey(0)``).  With ``--forms`` the weights are compressed by
@@ -62,7 +64,10 @@ scoreboards, and re-encoding of flagged leaves from the clean reference
 copy without dropping a request.  ``--stats-every N`` prints a stat line
 (pages, prefix hits, acceptance, drift and repairs) every N decode rounds.
 ``--arch olmoe-1b-7b`` serves the MoE family (prompts at their exact
-length).
+length); ``--arch deepseek-v3-671b`` serves it with MLA (absorbed decode
+over the latent cache; the MTP module is not run in serving).  ``--arch
+whisper-small`` serves the encoder-decoder against a zero encoder context:
+the engine, as the reference's, never writes ``enc_out``.
 ``--device`` defaults to ``cuda`` and the launcher fails without a card
 unless ``--device cpu`` is given.  Requests are made as the JAX launcher
 makes them (``np.random.RandomState(0)``).

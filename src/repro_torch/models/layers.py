@@ -46,18 +46,20 @@ def wload(p: Params, name: str, dtype: torch.dtype) -> torch.Tensor:
     is dequantized, on any device, as in the reference.  A FORMS leaf is
     rebuilt densely on the CPU only: on the card it is consumed by the
     polarized-matmul kernel through :func:`linear`, and rebuilding it there
-    would serve around the kernel, so that raises.  One exception: a
-    layer's stacked experts (``w_gate``/``w_up``/``w_down``, mags
-    ``(E, Kp, N)``), which the MoE family's expert FFN multiplies with
-    ``torch.einsum`` on the rebuilt weights, as the reference's does (no
-    kernel of the reference serves them either).
+    would serve around the kernel, so that raises.  Two exceptions, each
+    rebuilt as the reference rebuilds it (no kernel of the reference
+    serves them either): a layer's stacked experts (``w_gate``/``w_up``/
+    ``w_down``, mags ``(E, Kp, N)``), which the MoE family's expert FFN
+    multiplies with ``torch.einsum``, and a layer's MLA ``kv_up``, which
+    the absorbed decode folds into the query and the output.
     """
     v = p[name]
     if isinstance(v, dict) and "q" in v:
         return dequantize_leaf(v, dtype)
     if isinstance(v, FormsLinearParams):
-        expert_slice = name in EXPERT_WEIGHT_NAMES and v.mags.ndim == 3
-        if v.mags.device.type != "cpu" and not expert_slice:
+        rebuilt = ((name in EXPERT_WEIGHT_NAMES and v.mags.ndim == 3)
+                   or (name == "kv_up" and v.mags.ndim == 2))
+        if v.mags.device.type != "cpu" and not rebuilt:
             raise NotImplementedError(
                 f"{name}: a FORMS leaf on {v.mags.device} is consumed by the "
                 "polarized-matmul kernel via linear(), not decompressed")
@@ -95,6 +97,14 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor
     xf = x.float()
     var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
     return ((xf * torch.rsqrt(var + eps)) * w).to(x.dtype)
+
+
+def layernorm(x: torch.Tensor, p: Params, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm in f32 with ``p["scale"]`` and ``p["bias"]`` (whisper)."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -245,11 +255,14 @@ def attention_block(p: Params, x: torch.Tensor, *, n_heads: int, n_kv: int,
                     q_chunk: int = DEFAULT_Q_CHUNK,
                     cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                     cache_pos: Optional[torch.Tensor] = None,
+                    use_rope: bool = True, causal: bool = True,
                     return_kv: bool = False, dtype=torch.bfloat16):
     """Full attention sub-layer.  Returns (out, new_kv_or_None).
 
-    Prefill (``cache=None``): causal self-attention over x; with
-    ``return_kv`` also the post-rope (k, v) for the one-shot page write.
+    Prefill (``cache=None``): self-attention over x, causal unless
+    ``causal=False`` (whisper's encoder); with ``return_kv`` also the
+    post-rope (k, v) for the one-shot page write.  ``use_rope=False``
+    leaves q and k unrotated (whisper's absolute positions).
     Decode (``cache=(k, v)`` gathered views of shape (B, Smax, KV, hd)):
     writes the new K/V into the views — a transient copy, not the pool —
     attends, and returns the new-token K/V for the caller's commit.
@@ -265,12 +278,13 @@ def attention_block(p: Params, x: torch.Tensor, *, n_heads: int, n_kv: int,
     q = q.reshape(b, s, n_heads, hd)
     k = k.reshape(b, s, n_kv, hd)
     v = v.reshape(b, s, n_kv, hd)
-    q = apply_rope(q, positions, rope_theta)
-    k = apply_rope(k, positions, rope_theta)
+    if use_rope:
+        q = apply_rope(q, positions, rope_theta)
+        k = apply_rope(k, positions, rope_theta)
 
     if cache is None:
         out = causal_attention(q, k, v, window=window, q_chunk=q_chunk,
-                               positions=positions)
+                               positions=positions, causal=causal)
         new_kv = (k, v) if return_kv else None
     else:
         k_cache, v_cache = cache
@@ -282,6 +296,21 @@ def attention_block(p: Params, x: torch.Tensor, *, n_heads: int, n_kv: int,
         new_kv = (k_t, v_t)
     out = out.reshape(b, s, n_heads * hd)
     return linear(p, "wo", out, dtype), new_kv
+
+
+def cross_attention_block(p: Params, x: torch.Tensor, enc: torch.Tensor, *,
+                          n_heads: int, hd: int, dtype=torch.bfloat16) -> torch.Tensor:
+    """Encoder-decoder cross attention (whisper's decoder): MHA over the
+    whole encoder output, no mask, f32 scores."""
+    b, s, _ = x.shape
+    se = enc.shape[1]
+    q = linear(p, "wq", x, dtype).reshape(b, s, n_heads, hd)
+    k = linear(p, "wk", enc, dtype).reshape(b, se, n_heads, hd)
+    v = linear(p, "wv", enc, dtype).reshape(b, se, n_heads, hd)
+    scores = torch.einsum("bqhd,bshd->bhqs", q.float(), k.float()) * attn_scale(hd, x.device)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhqs,bshd->bqhd", probs, v.float()).to(dtype)
+    return linear(p, "wo", out.reshape(b, s, n_heads * hd), dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -327,6 +356,13 @@ def swiglu(p: Params, x: torch.Tensor, dtype=torch.bfloat16, act: str = "silu",
     if frag_drop > 0.0:
         h = sparsify_fragments(h, frag_m, frag_drop)
     return linear(p, "down", h, dtype)
+
+
+def gelu_mlp(p: Params, x: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+    """Biased two-layer MLP with the tanh-approximate GELU, which is
+    ``jax.nn.gelu``'s default (whisper)."""
+    h = F.gelu(linear(p, "up", x, dtype) + wload(p, "b_up", dtype), approximate="tanh")
+    return linear(p, "down", h, dtype) + wload(p, "b_down", dtype)
 
 
 def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor,

@@ -1,8 +1,10 @@
-"""MoE transformer family (olmoe: 64 experts, top-8), in PyTorch.
+"""MoE transformer family (olmoe: 64 experts, top-8; deepseek-v3: MLA, one
+shared and 256 routed experts top-8, and multi-token prediction), in
+PyTorch.
 
-GQA/MHA attention blocks with a capacity-based mixture-of-experts FFN, as
-the JAX package's ``models/moe.py``: the router picks each token's top-k
-experts, a sort gives each (token, expert) pair its position in the
+GQA/MHA or MLA attention blocks with a capacity-based mixture-of-experts
+FFN, as the JAX package's ``models/moe.py``: the router picks each token's
+top-k experts, a sort gives each (token, expert) pair its position in the
 expert's buffer, pairs past ``cap = max(4, int(capacity_factor * T * k /
 E))`` are dropped, the experts run batched on the ``(E, cap, d)`` buffer
 and the outputs are combined with the normalized gates.  This is the
@@ -16,25 +18,34 @@ token count, so padding a prompt would change which tokens are dropped:
 the family is served at the exact prompt length
 (``registry.Model.padded_prefill``).
 
-Projections (attention, the router, the untied head) go through
+MLA (deepseek-v3): forward and prefill run the expanded form (per-head
+q/k of ``nope + rope`` dims and v of ``v_head_dim`` through
+``layers.causal_attention``); decode runs the *absorbed* form, attending
+in the latent space against a cache of the compressed latents ``c_kv``
+(``kv_lora_rank`` wide) and the shared rope key ``k_rope``, dense ``(L, B,
+Smax, .)`` or paged ``(L, P, page, .)``.  The multi-token-prediction module
+(``params["mtp"]``: ``proj`` of ``[h_t, emb(token_{t+1})]``, one unstacked
+block and a norm) runs in ``forward`` only; serving never runs it, in
+either package.
+
+Projections (attention, the shared expert, the untied head) go through
 ``layers.linear``: the polarized-matmul kernel on a FORMS tree, except the
 router, which ``compress_tree`` leaves dense in both packages (the
-crossbar predicate's ``"/ro"`` matches ``router``).  The
-expert FFN is ``torch.einsum`` on the dequantized stacked experts, as the
-reference's ``einsum`` on ``L.wload`` is (no Pallas kernel there either):
-``layers.wload`` rebuilds a layer's ``(E, K, N)`` expert slice on the card
-for it.  MLA attention and the multi-token-prediction module (deepseek-v3)
-are ROADMAP item 10b.
+crossbar predicate's ``"/ro"`` matches ``router``).  Two products run on
+weights rebuilt by ``layers.wload``, as the reference's ``einsum`` on
+``L.wload`` does (no Pallas kernel there either): the expert FFN
+(``torch.einsum`` on a layer's ``(E, K, N)`` experts) and the absorbed
+decode's ``kv_up`` (folded into the query and the output).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import MLAConfig, ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import (_serving_head, layer_params,
                                             unstack_layers, with_head_cast)
@@ -44,16 +55,7 @@ Params = Dict[str, Any]
 
 __all__ = ["init", "forward", "head_matrix", "init_cache", "init_paged_cache",
            "prefill", "prefill_paged", "decode_step", "decode_paged",
-           "moe_ffn", "with_head_cast"]
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """MLA and the MTP module (deepseek-v3) are not ported yet: the
-    registry refuses such a config before it binds this family."""
-    if cfg.mla is not None or cfg.mtp:
-        raise NotImplementedError(
-            f"{cfg.name}: MLA attention and the multi-token-prediction module "
-            f"(deepseek-v3) are not ported yet (ROADMAP queue 1, item 10b)")
+           "moe_ffn", "mla_full", "mla_decode", "with_head_cast"]
 
 
 def _normal(g: torch.Generator, shape, std: float) -> torch.Tensor:
@@ -141,41 +143,175 @@ def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig, dtype
 
 
 # ---------------------------------------------------------------------------
-# blocks / model
+# MLA attention (deepseek-v3)
 # ---------------------------------------------------------------------------
 
-def init(cfg: ModelConfig, generator: torch.Generator) -> Params:
-    """Random params on the generator's device, shaped and keyed like the
-    reference's ``init`` (same distributions; other draws)."""
-    g, dev = generator, generator.device
-    n, d = cfg.num_layers, cfg.d_model
-    hd, nh, nkv = cfg.hd(), cfg.num_heads, cfg.num_kv_heads
+def mla_init(g: torch.Generator, cfg: ModelConfig, n: int) -> Params:
+    """``n`` layers of MLA projections and norms, drawn as the reference
+    draws them (other draws)."""
+    m: MLAConfig = cfg.mla
+    d, h, dev = cfg.d_model, cfg.num_heads, g.device
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+
+    def dense(d_in, d_out):
+        return _normal(g, (n, d_in, d_out), d_in ** -0.5)
+
     return {
-        "embed": _normal(g, (cfg.vocab_size, d), 0.02),
-        "blocks": {
-            "norm1": torch.ones((n, d), device=dev),
-            "norm2": torch.ones((n, d), device=dev),
-            "attn": {"wq": _normal(g, (n, d, nh * hd), d ** -0.5),
-                     "wk": _normal(g, (n, d, nkv * hd), d ** -0.5),
-                     "wv": _normal(g, (n, d, nkv * hd), d ** -0.5),
-                     "wo": _normal(g, (n, nh * hd, d), (nh * hd) ** -0.5)},
-            "moe": moe_ffn_init(g, cfg, n),
-        },
-        "final_norm": torch.ones((d,), device=dev),
-        "head": _normal(g, (d, cfg.vocab_size), 0.02),
+        "q_down": dense(d, m.q_lora_rank),
+        "q_up": dense(m.q_lora_rank, h * qk),
+        "kv_down": dense(d, m.kv_lora_rank + m.qk_rope_head_dim),
+        "kv_up": dense(m.kv_lora_rank, h * (m.qk_nope_head_dim + m.v_head_dim)),
+        "wo": dense(h * m.v_head_dim, d),
+        "q_norm": torch.ones((n, m.q_lora_rank), device=dev),
+        "kv_norm": torch.ones((n, m.kv_lora_rank), device=dev),
     }
 
 
+def _mla_q(p: Params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor, dtype):
+    """Per-head ``(q_nope, q_rope)`` with rope applied, and the new tokens'
+    latents ``(c_kv, k_rope)``."""
+    m: MLAConfig = cfg.mla
+    b, s, _ = x.shape
+    nope, rope, r = m.qk_nope_head_dim, m.qk_rope_head_dim, m.kv_lora_rank
+    cq = L.rmsnorm(L.linear(p, "q_down", x, dtype), p["q_norm"], cfg.norm_eps)
+    q = L.linear(p, "q_up", cq, dtype).reshape(b, s, cfg.num_heads, nope + rope)
+    q_rope = L.apply_rope(q[..., nope:], positions, cfg.rope_theta)
+    kv = L.linear(p, "kv_down", x, dtype)
+    c_kv = L.rmsnorm(kv[..., :r], p["kv_norm"], cfg.norm_eps)
+    k_rope = L.apply_rope(kv[..., r:], positions, cfg.rope_theta)
+    return q[..., :nope], q_rope, c_kv, k_rope
+
+
+def _mla_qkv_full(p: Params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
+                  dtype):
+    """Expanded-form q, k, v for full-sequence attention, and the latents."""
+    m: MLAConfig = cfg.mla
+    b, s, _ = x.shape
+    h, nope, rope = cfg.num_heads, m.qk_nope_head_dim, m.qk_rope_head_dim
+    q_nope, q_rope, c_kv, k_rope = _mla_q(p, x, cfg, positions, dtype)
+    kvu = L.linear(p, "kv_up", c_kv, dtype).reshape(b, s, h, nope + m.v_head_dim)
+    k_nope, v = kvu[..., :nope], kvu[..., nope:]
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    k_full = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, rope)], dim=-1)
+    return q_full, k_full, v, c_kv, k_rope
+
+
+def mla_full(p: Params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
+             dtype, q_chunk: int) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Expanded-form MLA.  Returns (out, latents): the per-position decode
+    cache entries ``{"c_kv", "k_rope"}``, for prefill's one-shot write."""
+    q, k, v, c_kv, k_rope = _mla_qkv_full(p, x, cfg, positions, dtype)
+    out = L.causal_attention(q, k, v, q_chunk=q_chunk, positions=positions)
+    b, s = x.shape[:2]
+    return L.linear(p, "wo", out.reshape(b, s, -1), dtype), {"c_kv": c_kv, "k_rope": k_rope}
+
+
+def mla_decode(p: Params, x: torch.Tensor, cfg: ModelConfig, cache: Dict[str, torch.Tensor],
+               pos: torch.Tensor, dtype) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Absorbed-form decode: attention in the compressed latent space.
+
+    cache: ``{"c_kv": (B, Smax, r), "k_rope": (B, Smax, rope)}`` views (a
+    dense cache's leaves or paged gathers); x is (B, T, d) (T = 1, or K+1
+    for a speculative verify); pos is (B,) first-token positions or a
+    (B, T) grid.  The new latents are written into the views in place
+    (rows past the view are dropped), and only the new tokens' latents
+    are returned, for the caller's commit.  The casts are the reference's:
+    the query's latent and rope parts go to the cache dtype, the scores
+    and the latent output sum in f32, the probabilities go to the cache
+    dtype and the latent output to ``dtype``.
+    """
+    m: MLAConfig = cfg.mla
+    b, s, _ = x.shape
+    h, nope, dv, r = cfg.num_heads, m.qk_nope_head_dim, m.v_head_dim, m.kv_lora_rank
+    positions = L.position_grid(pos, b, s)                # (B, T)
+    q_nope, q_rope, c_new, k_rope_new = _mla_q(p, x, cfg, positions, dtype)
+    c_cache, r_cache = cache["c_kv"], cache["k_rope"]
+    c_t, r_t = c_new.to(c_cache.dtype), k_rope_new.to(r_cache.dtype)
+    L.write_view(c_cache, c_t, positions)
+    L.write_view(r_cache, r_t, positions)
+
+    # absorb: q_lat[b,t,h,r] = q_nope @ W_uk(h)^T
+    w = L.wload(p, "kv_up", dtype).reshape(r, h, nope + dv)
+    w_uk, w_uv = w[..., :nope], w[..., nope:]
+    q_lat = torch.einsum("bthn,rhn->bthr", q_nope.float(), w_uk.float()).to(dtype)
+    scale = L.attn_scale(nope + m.qk_rope_head_dim, x.device)
+    scores = (torch.einsum("bthr,bsr->bhts", q_lat.to(c_cache.dtype).float(), c_cache.float())
+              + torch.einsum("bthp,bsp->bhts", q_rope.to(r_cache.dtype).float(),
+                             r_cache.float())) * scale
+    kpos = torch.arange(c_cache.shape[1], dtype=torch.int32, device=x.device)
+    mask = kpos[None, None, :] <= positions[:, :, None]    # (B, T, S)
+    scores = torch.where(mask[:, None], scores, L.MASK_VALUE)
+    probs = torch.softmax(scores, dim=-1)
+    o_lat = torch.einsum("bhts,bsr->bthr", probs.to(c_cache.dtype).float(),
+                         c_cache.float()).to(dtype)
+    o = torch.einsum("bthr,rhv->bthv", o_lat.float(), w_uv.float()).to(dtype)
+    return L.linear(p, "wo", o.reshape(b, s, h * dv), dtype), {"c_kv": c_t, "k_rope": r_t}
+
+
+# ---------------------------------------------------------------------------
+# blocks / model
+# ---------------------------------------------------------------------------
+
+def _blocks_init(g: torch.Generator, cfg: ModelConfig, n: int) -> Params:
+    d, dev = cfg.d_model, g.device
+    hd, nh, nkv = cfg.hd(), cfg.num_heads, cfg.num_kv_heads
+    p: Params = {"norm1": torch.ones((n, d), device=dev),
+                 "norm2": torch.ones((n, d), device=dev)}
+    if cfg.mla is not None:
+        p["mla"] = mla_init(g, cfg, n)
+    else:
+        p["attn"] = {"wq": _normal(g, (n, d, nh * hd), d ** -0.5),
+                     "wk": _normal(g, (n, d, nkv * hd), d ** -0.5),
+                     "wv": _normal(g, (n, d, nkv * hd), d ** -0.5),
+                     "wo": _normal(g, (n, nh * hd, d), (nh * hd) ** -0.5)}
+    p["moe"] = moe_ffn_init(g, cfg, n)
+    return p
+
+
+def init(cfg: ModelConfig, generator: torch.Generator) -> Params:
+    """Random params on the generator's device, shaped and keyed like the
+    reference's ``init`` (same distributions; other draws).  With
+    ``cfg.mtp`` the MTP module's block is one unstacked block."""
+    g, dev = generator, generator.device
+    d = cfg.d_model
+    params: Params = {
+        "embed": _normal(g, (cfg.vocab_size, d), 0.02),
+        "blocks": _blocks_init(g, cfg, cfg.num_layers),
+        "final_norm": torch.ones((d,), device=dev),
+        "head": _normal(g, (d, cfg.vocab_size), 0.02),
+    }
+    if cfg.mtp:
+        params["mtp"] = {"proj": _normal(g, (2 * d, d), (2 * d) ** -0.5),
+                         "block": layer_params(_blocks_init(g, cfg, 1), 0),
+                         "norm": torch.ones((d,), device=dev)}
+    return params
+
+
 def _block_apply(cfg: ModelConfig, bp: Params, x: torch.Tensor, positions: torch.Tensor,
-                 cache, cache_pos, dtype, q_chunk: int, collect_kv: bool = False):
-    h, new_kv = L.attention_block(
-        bp["attn"], L.rmsnorm(x, bp["norm1"], cfg.norm_eps),
-        n_heads=cfg.num_heads, n_kv=cfg.num_kv_heads, hd=cfg.hd(),
-        rope_theta=cfg.rope_theta, positions=positions, q_chunk=q_chunk,
-        cache=cache, cache_pos=cache_pos, return_kv=collect_kv, dtype=dtype)
+                 cache: Optional[Dict[str, torch.Tensor]], cache_pos, dtype, q_chunk: int,
+                 collect_kv: bool = False):
+    """One block.  ``cache``: this layer's cache views by leaf name (MLA
+    latents or GQA K/V), or None for full-sequence attention.  Returns (x,
+    the load-balance loss, the new rows by leaf name or None)."""
+    xa = L.rmsnorm(x, bp["norm1"], cfg.norm_eps)
+    new = None
+    if cfg.mla is not None:
+        if cache is None:
+            h, latents = mla_full(bp["mla"], xa, cfg, positions, dtype, q_chunk)
+            new = latents if collect_kv else None
+        else:
+            h, new = mla_decode(bp["mla"], xa, cfg, cache, cache_pos, dtype)
+    else:
+        h, new_kv = L.attention_block(
+            bp["attn"], xa, n_heads=cfg.num_heads, n_kv=cfg.num_kv_heads, hd=cfg.hd(),
+            rope_theta=cfg.rope_theta, positions=positions, q_chunk=q_chunk,
+            cache=(cache["k"], cache["v"]) if cache is not None else None,
+            cache_pos=cache_pos, return_kv=collect_kv, dtype=dtype)
+        if new_kv is not None:
+            new = {"k": new_kv[0], "v": new_kv[1]}
     x = x + h
     y, aux = moe_ffn(bp["moe"], L.rmsnorm(x, bp["norm2"], cfg.norm_eps), cfg, dtype)
-    return x + y, aux, new_kv
+    return x + y, aux, new
 
 
 def head_matrix(cfg: ModelConfig, params: Params):
@@ -187,7 +323,11 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor], *,
             return_hidden: bool = False
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full-sequence forward.  Returns (logits (B, S, V), aux) with
-    ``aux["moe_aux_loss"]`` the mean over layers of the load-balance loss."""
+    ``aux["moe_aux_loss"]`` the mean over layers of the load-balance loss.
+    With the MTP module, the hidden state at t and the embedding of token
+    t+1 go through ``proj``, its block and its norm to predict token t+2:
+    its load-balance loss adds ``/ num_layers``, and ``aux`` gains
+    ``mtp_logits`` (or ``mtp_hidden`` with ``return_hidden``)."""
     dtype = L.DTYPES[cfg.dtype]
     x = L.embed_lookup(params["embed"], batch["tokens"], dtype)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
@@ -205,44 +345,69 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor], *,
         auxs.append(aux)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     aux_out = {"moe_aux_loss": torch.stack(auxs).mean()}
+    if cfg.mtp and "mtp" in params:
+        mtp = params["mtp"]
+        emb_next = torch.roll(L.embed_lookup(params["embed"], batch["tokens"], dtype),
+                              -1, dims=1)
+        hm = L.linear(mtp, "proj", torch.cat([x, emb_next], dim=-1), dtype)
+        hm, mtp_aux = body(hm, mtp["block"])
+        hm = L.rmsnorm(hm, mtp["norm"], cfg.norm_eps)
+        aux_out["moe_aux_loss"] = aux_out["moe_aux_loss"] + mtp_aux / max(cfg.num_layers, 1)
+        if return_hidden:
+            aux_out["mtp_hidden"] = hm
+        else:
+            aux_out["mtp_logits"] = L.lm_logits(hm, _serving_head(cfg, params), dtype)
     if return_hidden:
         return x, aux_out
     return L.lm_logits(x, _serving_head(cfg, params), dtype), aux_out
 
 
+def _cache_widths(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
+    """The trailing dims of each cache leaf: MLA latents or GQA K/V."""
+    if cfg.mla is not None:
+        return {"c_kv": (cfg.mla.kv_lora_rank,), "k_rope": (cfg.mla.qk_rope_head_dim,)}
+    return {"k": (cfg.num_kv_heads, cfg.hd()), "v": (cfg.num_kv_heads, cfg.hd())}
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device,
                dtype=torch.bfloat16) -> Dict[str, torch.Tensor]:
-    """The dense slot cache: ``(L, batch, max_len, kv, hd)`` per leaf."""
-    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.hd())
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    """The dense slot cache: ``(L, batch, max_len, ...)`` per leaf, MLA
+    latents ``(.., r)`` and ``(.., rope)`` or GQA K/V ``(.., kv, hd)``."""
+    return {name: torch.zeros((cfg.num_layers, batch, max_len, *w), dtype=dtype,
+                              device=device)
+            for name, w in _cache_widths(cfg).items()}
 
 
-def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
-                     device, dtype=torch.bfloat16) -> KV.PagedKVCache:
-    """Page-pool cache of GQA K/V, ``(L, num_pages, page_size, kv, hd)``."""
-    shape = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads, cfg.hd())
-    return KV.PagedKVCache(pool={"k": torch.zeros(shape, dtype=dtype, device=device),
-                                 "v": torch.zeros(shape, dtype=dtype, device=device)},
-                           page_size=page_size)
+def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int, device,
+                     dtype=torch.bfloat16, slots: int = 1,
+                     max_len: Optional[int] = None) -> KV.PagedKVCache:
+    """Page-pool cache, ``(L, num_pages, page_size, ...)`` per leaf: MLA
+    latents or GQA K/V.  (``slots``/``max_len`` size only slot-addressed
+    leaves, which this family has none of.)"""
+    del slots, max_len
+    return KV.PagedKVCache(
+        pool={name: torch.zeros((cfg.num_layers, num_pages, page_size, *w), dtype=dtype,
+                                device=device)
+              for name, w in _cache_widths(cfg).items()},
+        page_size=page_size)
 
 
 def _prefill_core(cfg: ModelConfig, params: Params, tokens: torch.Tensor, length: int):
     """Bulk prefill compute over a (1, S) prompt.  Returns the logits of
-    the last real token (1, V) and the full-prompt K/V rows
-    ``(L, 1, S, kv, hd)`` per leaf."""
+    the last real token (1, V) and the full-prompt rows ``(L, 1, S, ...)``
+    per cache leaf."""
     dtype = L.DTYPES[cfg.dtype]
     x = L.embed_lookup(params["embed"], tokens, dtype)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
-    ks, vs = [], []
+    rows: Dict[str, list] = {name: [] for name in _cache_widths(cfg)}
     for i in range(cfg.num_layers):
-        x, _, (k, v) = _block_apply(cfg, layer_params(params["blocks"], i), x, positions,
-                                    None, None, dtype, L.DEFAULT_Q_CHUNK, collect_kv=True)
-        ks.append(k)
-        vs.append(v)
+        x, _, new = _block_apply(cfg, layer_params(params["blocks"], i), x, positions,
+                                 None, None, dtype, L.DEFAULT_Q_CHUNK, collect_kv=True)
+        for name, arr in new.items():
+            rows[name].append(arr)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     logits = L.lm_logits(x[:, length - 1:length], _serving_head(cfg, params), dtype)
-    return logits[:, 0], {"k": torch.stack(ks), "v": torch.stack(vs)}
+    return logits[:, 0], {name: torch.stack(arrs) for name, arrs in rows.items()}
 
 
 def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
@@ -270,25 +435,26 @@ def prefill_paged(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
 
 
 def _decode_core(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
-                 k_cache: torch.Tensor, v_cache: torch.Tensor, pos: torch.Tensor):
-    """Decode compute against ``(L, B, S, kv, hd)`` cache views; token t of
-    row b sits at ``pos[b] + t``.  A multi-token verify (T > 1) routes B*T
-    tokens through the dispatch, so drops can differ from T = 1, as in the
-    reference."""
+                 views: Dict[str, torch.Tensor], pos: torch.Tensor):
+    """Decode compute against ``(L, B, S, ...)`` cache views (MLA latents
+    or GQA K/V), written in place; token t of row b sits at ``pos[b] + t``.
+    Returns (logits (B, T, V), the new-token rows ``(L, B, T, ...)`` per
+    leaf).  A multi-token verify (T > 1) routes B*T tokens through the
+    dispatch, so drops can differ from T = 1, as in the reference."""
     dtype = L.DTYPES[cfg.dtype]
     b, t = tokens.shape
     x = L.embed_lookup(params["embed"], tokens, dtype)
     positions = L.position_span(pos.to(torch.int32).expand(b), t)
-    k_tok, v_tok = [], []
+    toks: Dict[str, list] = {name: [] for name in views}
     for i in range(cfg.num_layers):
-        x, _, (k, v) = _block_apply(cfg, layer_params(params["blocks"], i), x, positions,
-                                    (k_cache[i], v_cache[i]), positions, dtype,
-                                    L.DEFAULT_Q_CHUNK)
-        k_tok.append(k)
-        v_tok.append(v)
+        x, _, new = _block_apply(cfg, layer_params(params["blocks"], i), x, positions,
+                                 {name: v[i] for name, v in views.items()}, positions,
+                                 dtype, L.DEFAULT_Q_CHUNK)
+        for name, arr in new.items():
+            toks[name].append(arr)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     logits = L.lm_logits(x, _serving_head(cfg, params), dtype)
-    return logits, torch.stack(k_tok), torch.stack(v_tok)
+    return logits, {name: torch.stack(arrs) for name, arrs in toks.items()}
 
 
 def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
@@ -297,17 +463,16 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     """Decode step on the dense cache; the attention layers write the new
     rows into the cache leaves in place (rows past max_len are dropped)."""
     pos = pos.to(torch.int32).expand(tokens.shape[0])
-    logits, _, _ = _decode_core(cfg, params, tokens, cache["k"], cache["v"], pos)
+    logits, _ = _decode_core(cfg, params, tokens, cache, pos)
     return logits, cache
 
 
 def decode_paged(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                  cache: KV.PagedKVCache, pos: torch.Tensor,
                  block_tables: torch.Tensor) -> Tuple[torch.Tensor, KV.PagedKVCache]:
-    """Paged decode step: block-table gathers, attention, then the new
-    tokens' rows committed into their pages in place."""
+    """Paged decode step: block-table gathers, attention (MLA absorbed or
+    GQA), then the new tokens' rows committed into their pages in place."""
     pos = pos.to(torch.int32).expand(tokens.shape[0])
     views = KV.gather_views(cache, block_tables)
-    logits, k_tok, v_tok = _decode_core(cfg, params, tokens, views["k"], views["v"], pos)
-    cache = KV.commit_tokens(cache, {"k": k_tok, "v": v_tok}, block_tables, pos)
-    return logits, cache
+    logits, toks = _decode_core(cfg, params, tokens, views, pos)
+    return logits, KV.commit_tokens(cache, toks, block_tables, pos)

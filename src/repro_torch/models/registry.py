@@ -1,8 +1,10 @@
 """Arch registry: config -> a uniform :class:`Model` bundle.
 
-The port serves the dense transformer family and the MoE family (GQA/MHA
-attention; olmoe); every other family, and MoE with MLA (deepseek-v3),
-raises ``NotImplementedError`` naming the ROADMAP item that ports it.
+The port serves the dense transformer family, the MoE family (GQA/MHA
+attention as in olmoe, MLA with multi-token prediction as in deepseek-v3)
+and whisper's encoder-decoder; the recurrent families (xlstm, zamba) and
+the VLM patch prefix raise ``NotImplementedError`` naming the ROADMAP item
+that ports them.
 """
 from __future__ import annotations
 
@@ -13,7 +15,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import DEFAULT_DEVICE, resolve_device
-from repro_torch.models import moe, transformer
+from repro_torch.models import moe, transformer, whisper
 
 Params = Any
 
@@ -29,7 +31,10 @@ class Model:
     ``embed.T``, never the serving copy).  Serving has two caches: the
     dense slot cache (``init_cache(batch, max_len)``; ``prefill(params,
     tokens (1, S), cache, slot, length)`` and ``decode_step(params, tokens
-    (B, T), cache, pos (B,))``) and the paged one (``init_paged_cache``;
+    (B, T), cache, pos (B,))``) and the paged one (``init_paged_cache(
+    num_pages, page_size, slots, max_len)``, where ``slots``/``max_len``
+    size the slot-addressed leaves beside the pool: whisper's encoder
+    output;
     ``prefill_paged(params, tokens, cache, pages, slot, length)`` writes the
     prompt's pages, ``decode_paged(params, tokens, cache, pos,
     block_tables)`` commits the new tokens).  The prefills return the
@@ -61,12 +66,12 @@ class Model:
                 and self.decode_paged is not None)
 
 
-_FAMILIES = {"dense": transformer, "moe": moe}
+_FAMILIES = {"dense": transformer, "moe": moe, "whisper": whisper}
 
 _NOT_PORTED = {
-    "whisper": "ROADMAP queue 1, item 10 (other families: models/whisper.py)",
-    "xlstm": "ROADMAP queue 1, item 10 (other families: models/xlstm.py)",
-    "zamba": "ROADMAP queue 1, item 10 (other families: models/zamba.py)",
+    "xlstm": "ROADMAP queue 1, item 10b (other families: models/xlstm.py)",
+    "zamba": "ROADMAP queue 1, item 10b (other families: models/zamba.py with "
+             "ssm_common.py)",
 }
 
 
@@ -76,12 +81,10 @@ def build(cfg: ModelConfig, device: Union[str, torch.device, None] = DEFAULT_DEV
     if cfg.family not in _FAMILIES:
         why = _NOT_PORTED.get(cfg.family, "no port planned")
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet: {why}")
-    if cfg.family == "moe":
-        moe.check_supported(cfg)
     if cfg.num_image_tokens:
         raise NotImplementedError(
             "the VLM patch-embedding prefix is not ported yet (ROADMAP queue 1, "
-            "item 10)")
+            "item 10b)")
     dev = resolve_device(device)
     mod = _FAMILIES[cfg.family]
 
@@ -103,13 +106,15 @@ def build(cfg: ModelConfig, device: Union[str, torch.device, None] = DEFAULT_DEV
             mod.prefill(cfg, params, tokens, cache, slot, length),
         decode_step=lambda params, tokens, cache, pos:
             mod.decode_step(cfg, params, tokens, cache, pos),
-        init_paged_cache=lambda num_pages, page_size, dtype=torch.bfloat16:
-            mod.init_paged_cache(cfg, num_pages, page_size, dev, dtype),
+        init_paged_cache=lambda num_pages, page_size, slots=1, max_len=None,
+        dtype=torch.bfloat16: mod.init_paged_cache(cfg, num_pages, page_size, dev, dtype,
+                                                   slots=slots, max_len=max_len),
         prefill_paged=lambda params, tokens, cache, pages, slot, length:
             mod.prefill_paged(cfg, params, tokens, cache, pages, slot, length),
         decode_paged=lambda params, tokens, cache, pos, block_tables:
             mod.decode_paged(cfg, params, tokens, cache, pos, block_tables),
         serving_params=lambda params: mod.with_head_cast(cfg, params),
+        input_fields=("frames", "tokens") if cfg.family == "whisper" else ("tokens",),
         # moe is exact-length: padded tokens would route through the
         # capacity-based dispatch and take expert capacity from real tokens
         padded_prefill=cfg.family != "moe",

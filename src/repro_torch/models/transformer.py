@@ -7,7 +7,7 @@ leading L axis exactly like the reference tree; where the reference runs
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -159,9 +159,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device,
 
 
 def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
-                     device, dtype=torch.bfloat16) -> KV.PagedKVCache:
+                     device, dtype=torch.bfloat16, slots: int = 1,
+                     max_len: Optional[int] = None) -> KV.PagedKVCache:
     """Page-pool cache of ``(L, num_pages, page_size, kv, hd)`` per leaf.
-    bf16 by default whatever ``cfg.dtype`` is, as in the reference."""
+    bf16 by default whatever ``cfg.dtype`` is, as in the reference.
+    (``slots``/``max_len`` size only slot-addressed leaves, which this
+    family has none of.)"""
+    del slots, max_len
     shape = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads, cfg.hd())
     return KV.PagedKVCache(pool={"k": torch.zeros(shape, dtype=dtype, device=device),
                                  "v": torch.zeros(shape, dtype=dtype, device=device)},

@@ -624,7 +624,7 @@ class ServingEngine:
                 num_pages = batch_slots * KV.pages_for(max_len, self.page_size) + 1
             allocator = KV.PageAllocator(num_pages)
             prefix = KV.PrefixCache(self.page_size) if prefix_cache else None
-            cache = model.init_paged_cache(num_pages, self.page_size)
+            cache = model.init_paged_cache(num_pages, self.page_size, batch_slots, max_len)
         else:
             cache = model.init_cache(batch_slots, max_len)
         self.draft_report: Optional[CompressReport] = None
@@ -641,7 +641,8 @@ class ServingEngine:
             with torch.inference_mode():
                 draft_model, draft_params, self.draft_report = SP.make_draft(
                     model, params, spec_cfg, plan=draft_plan)
-            draft_cache = draft_model.init_paged_cache(num_pages, self.page_size)
+            draft_cache = draft_model.init_paged_cache(num_pages, self.page_size,
+                                                       batch_slots, max_len)
             self.runner: ModelRunner = SP.SpeculativeRunner(
                 model, params, cache, draft_model=draft_model,
                 draft_params=draft_params, draft_cache=draft_cache, spec_cfg=spec_cfg,

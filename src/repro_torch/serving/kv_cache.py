@@ -8,7 +8,8 @@ to a physical page id.
 Device side:
 
 * :class:`PagedKVCache` — the page pools (``(layers, num_pages, page_size,
-  ...)`` per leaf).
+  ...)`` per leaf), and the leaves that stay slot-addressed beside them
+  (whisper's encoder output).
 * :func:`gather_views` — block-table gather producing the per-slot
   contiguous ``(layers, slots, cap, ...)`` views decode attention reads.
 * :func:`commit_tokens` / :func:`commit_token` / :func:`commit_pages` — the
@@ -36,18 +37,23 @@ SCRATCH_PAGE = 0
 @dataclasses.dataclass
 class PagedKVCache:
     """Page-pool serving cache: ``pool`` leaves are ``(layers, num_pages,
-    page_size, ...)``.  The reference's slot-addressed ``dense`` leaves
-    (whisper's encoder output) come with that family's port."""
+    page_size, ...)``, the paged counterparts of the dense cache's
+    ``(layers, slots, max_len, ...)`` leaves.  ``dense`` holds the leaves
+    that stay slot-addressed, ``(slots, ...)`` (whisper's ``enc_out``;
+    empty for the other families): the page functions below read and
+    write only the pool, so they carry ``dense`` through unchanged."""
 
     pool: Dict[str, torch.Tensor]
     page_size: int
+    dense: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
 
     @property
     def num_pages(self) -> int:
         return next(iter(self.pool.values())).shape[1]
 
     def nbytes(self) -> int:
-        return sum(t.numel() * t.element_size() for t in self.pool.values())
+        return sum(t.numel() * t.element_size()
+                   for t in (*self.pool.values(), *self.dense.values()))
 
 
 def pages_for(rows: int, page_size: int) -> int:

@@ -107,7 +107,9 @@ def _take_layers(tree: Any, keep: torch.Tensor) -> Any:
 
 def skip_layers(model: Model, params: Any, layer_step: int) -> Tuple[Model, Any]:
     """Keep every ``layer_step``-th stacked block layer (layer 0 always):
-    slices the leading layer axis of every leaf under ``blocks`` (FORMS
+    slices the leading layer axis of every leaf under the stacked block
+    collection (``blocks``, or whisper's decoder ``dec_blocks``: its
+    encoder runs only when the caller encodes, and keeps full depth; FORMS
     leaves slice their planes together) and rebuilds the model at the
     reduced depth on the same device.  Other leaves are shared."""
     if layer_step <= 1:
@@ -115,7 +117,9 @@ def skip_layers(model: Model, params: Any, layer_step: int) -> Tuple[Model, Any]
     cfg = model.config
     keep = torch.arange(0, cfg.num_layers, layer_step)
     out = dict(params)
-    out["blocks"] = _take_layers(params["blocks"], keep.to(model.device))
+    for name in ("blocks", "dec_blocks"):
+        if name in out:
+            out[name] = _take_layers(params[name], keep.to(model.device))
     return build(dataclasses.replace(cfg, num_layers=int(keep.numel())), model.device), out
 
 

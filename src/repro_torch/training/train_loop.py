@@ -40,13 +40,25 @@ class TrainState:
     rng: torch.Generator                         # draws int8_ef rounding noise
 
 
-def lm_loss(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """Next-token cross entropy from materialized logits (small-scale path)."""
+def _nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -torch.gather(logp, -1, targets.long()[..., None])[..., 0].mean()
+
+
+def lm_loss(logits: torch.Tensor, tokens: torch.Tensor,
+            aux: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+    """Next-token cross entropy from materialized logits (small-scale path),
+    plus the MoE load-balance term (``0.01 * aux["moe_aux_loss"]``) and the
+    multi-token-prediction term (``0.3 *`` the CE of ``aux["mtp_logits"]``
+    at position t against token t+2) when ``aux`` holds them."""
+    aux = aux or {}
     s = tokens.shape[1]
-    logits = logits[:, -s:, :]
-    targets = tokens[:, 1:].long()
-    logp = torch.log_softmax(logits[:, :-1, :].float(), dim=-1)
-    return -torch.gather(logp, -1, targets[..., None])[..., 0].mean()
+    loss = _nll(logits[:, -s:, :][:, :-1, :], tokens[:, 1:])
+    if "moe_aux_loss" in aux:
+        loss = loss + 0.01 * aux["moe_aux_loss"]
+    if "mtp_logits" in aux:
+        loss = loss + 0.3 * _nll(aux["mtp_logits"][:, -s:, :][:, :-2, :], tokens[:, 2:])
+    return loss
 
 
 CE_CHUNK = 8192  # tokens per chunk of the memory-efficient CE
@@ -91,12 +103,18 @@ def chunked_ce(hidden: torch.Tensor, head: torch.Tensor, tokens: torch.Tensor,
 
 
 def hidden_loss(model: Model, params: Params, batch: Dict[str, torch.Tensor],
-                hidden: torch.Tensor) -> torch.Tensor:
+                hidden: torch.Tensor, aux: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Training loss from the final hidden states (never materializes the
-    full logits).  The dense family has no auxiliary losses; the
-    reference's MoE and multi-token-prediction terms come with those
-    families."""
-    return chunked_ce(hidden, model.head_matrix(params), batch["tokens"], shift=1)
+    full logits), with the auxiliary terms ``forward`` returned in ``aux``:
+    ``0.01 *`` the MoE load-balance loss, and ``0.3 *`` the shift-2 CE of
+    the multi-token-prediction module's hidden states."""
+    head = model.head_matrix(params)
+    loss = chunked_ce(hidden, head, batch["tokens"], shift=1)
+    if "moe_aux_loss" in aux:
+        loss = loss + 0.01 * aux["moe_aux_loss"]
+    if "mtp_hidden" in aux:
+        loss = loss + 0.3 * chunked_ce(aux["mtp_hidden"], head, batch["tokens"], shift=2)
+    return loss
 
 
 def _value_and_grad(loss_fn: Callable, params: Params, *args) -> Tuple[torch.Tensor, Params]:
@@ -121,8 +139,8 @@ def make_train_step(model: Model, tcfg: TrainConfig,
     table = constraint_table
 
     def loss_fn(params, batch, admm_state):
-        hidden, _ = model.forward(params, batch, remat=tcfg.remat, return_hidden=True)
-        loss = hidden_loss(model, params, batch, hidden)
+        hidden, aux = model.forward(params, batch, remat=tcfg.remat, return_hidden=True)
+        loss = hidden_loss(model, params, batch, hidden, aux)
         if admm_state is not None:
             loss = loss + admm_mod.admm_penalty(params, admm_state, table)
         return loss

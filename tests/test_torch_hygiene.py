@@ -82,19 +82,27 @@ def test_cuda_is_the_default_and_never_silently_the_cpu(monkeypatch):
 
 
 def test_other_families_name_their_roadmap_item():
-    """The MoE family is ported (olmoe); whisper is not, nor MoE's MLA."""
-    cfg = dataclasses.replace(get_reduced("qwen2-1.5b"), family="whisper")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        registry.build(cfg, device="cpu")
-    mla = dataclasses.replace(get_reduced("olmoe-1b-7b"), mla=MLAConfig())
+    """The MoE family (with MLA and MTP) and whisper are ported; xlstm,
+    zamba and the VLM prefix are not, and name their item."""
+    for family in ("xlstm", "zamba"):
+        cfg = dataclasses.replace(get_reduced("qwen2-1.5b"), family=family)
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 10b"):
+            registry.build(cfg, device="cpu")
+    vlm = dataclasses.replace(get_reduced("qwen2-1.5b"), num_image_tokens=16)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 10b"):
-        registry.build(mla, device="cpu")
+        registry.build(vlm, device="cpu")
+    mla = dataclasses.replace(get_reduced("olmoe-1b-7b"), mla=MLAConfig())
+    assert registry.build(mla, device="cpu").padded_prefill is False
     assert registry.build(get_reduced("olmoe-1b-7b"), device="cpu").padded_prefill is False
+    whisper = registry.build(get_reduced("whisper-small"), device="cpu")
+    assert whisper.input_fields == ("frames", "tokens") and whisper.padded_prefill
 
 
 @pytest.mark.parametrize("module", ["reliability/encoding.py", "reliability/faults.py",
                                     "reliability/health.py", "models/moe.py",
-                                    "configs/olmoe_1b_7b.py"])
+                                    "configs/olmoe_1b_7b.py", "models/whisper.py",
+                                    "configs/deepseek_v3_671b.py",
+                                    "configs/whisper_small.py"])
 def test_reliability_and_moe_are_the_ports_own(module):
     """The fault injector is host numpy in the reference too; the port keeps
     its own copy and draws from numpy, never from JAX."""

@@ -17,7 +17,11 @@ one JAX ``lm_batch``.  Tolerances, all float32:
   QKV-bias entries are ~1e-7 against differences of ~4e-9) its update
   differs by up to ~1% of the learning rate, ~2e-6 here, which is more than
   1e-5 of a small leaf's largest value (the k bias: ~0.1);
-* three more steps with Z-updates within 1e-4.
+* three more steps with Z-updates within 1e-4;
+* the MoE archs (reduced olmoe and deepseek-v3 with its MTP module): one
+  step's loss within 1e-5, with the load-balance and MTP terms, and the
+  routers' and the MTP module's gradients within 1e-5 of the largest
+  gradient of the tree.
 
 int8 moment codes may sit on a rounding edge and differ by 1: they are
 counted.  With int8 moments a row's small second moments quantize to code
@@ -36,18 +40,22 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import get_reduced as jax_reduced
 from repro.configs.base import TrainConfig as JTrainConfig
 from repro.core import admm as jadmm
 from repro.data import synthetic as jdata
+from repro.models.registry import build as jax_build
 from repro.training import grad_compress as jgc
 from repro.training import optimizer as jopt
 from repro.training import train_loop as jtl
-from repro_torch.bridge import train_state_from_numpy
+from repro_torch.bridge import params_from_numpy, train_state_from_numpy
+from repro_torch.configs import get_reduced as torch_reduced
 from repro_torch.configs.base import TrainConfig
 from repro_torch.core import admm as tadmm
 from repro_torch.core import paths
 from repro_torch.data import synthetic as tdata
 from repro_torch.launch import train as tlaunch
+from repro_torch.models.registry import build as torch_build
 from repro_torch.training import grad_compress as tgc
 from repro_torch.training import optimizer as topt
 from repro_torch.training import train_loop as ttl
@@ -165,8 +173,8 @@ def _grads(jm, tm, js, ts, table, ttable, jb, tb):
         return loss if js.admm is None else loss + jadmm.admm_penalty(p, js.admm, table)
 
     def tloss(p, b, admm_state):
-        h, _ = tm.forward(p, b, remat=True, return_hidden=True)
-        loss = ttl.hidden_loss(tm, p, b, h)
+        h, aux = tm.forward(p, b, remat=True, return_hidden=True)
+        loss = ttl.hidden_loss(tm, p, b, h, aux)
         return loss if admm_state is None else loss + tadmm.admm_penalty(p, admm_state, ttable)
 
     return (jax.jit(jax.grad(jloss))(js.params),
@@ -209,6 +217,81 @@ def test_one_step_from_a_bridged_state_matches_reference(variant):
         n = sum(p.numel() for p in paths.leaves(ts2.params))
         assert sum(edges) <= 1e-3 * 4 * n, (sum(edges), 4 * n)
         assert sum(outliers) <= 1e-4 * n, (sum(outliers), n)
+
+
+MOE_ARCHS = ("olmoe-1b-7b", "deepseek-v3-671b")
+
+
+@functools.lru_cache(maxsize=None)
+def moe_models(arch):
+    """The reduced MoE arch (float32) in both packages, the reference's
+    init carried across, and the reference's jitted train step."""
+    cfg = dataclasses.replace(jax_reduced(arch), dtype="float32")
+    jm = jax_build(cfg)
+    jp = jm.init(jax.random.PRNGKey(0))
+    tm = torch_build(dataclasses.replace(torch_reduced(arch), dtype="float32"), device="cpu")
+    jstep = jax.jit(jtl.make_train_step(jm, JTrainConfig(**BASE)))
+    return jm, jp, tm, params_from_numpy(to_numpy(jp), device="cpu"), jstep
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_train_step_carries_the_aux_and_mtp_terms(arch):
+    """One step of the reduced MoE archs from the bridged init: the loss
+    adds ``0.01 * moe_aux_loss`` (and with deepseek's MTP module ``0.3 *``
+    its shift-2 CE) as the reference's does, so the loss agrees within
+    1e-5 and the routers and the MTP module get the reference's gradients
+    (within 1e-5 of the largest gradient of the tree)."""
+    jm, jp, tm, tp, jstep = moe_models(arch)
+    jb, tb = _batch(0, batch=2)
+    with torch.no_grad():
+        hidden, aux = tm.forward(tp, tb, return_hidden=True)
+        bare = float(ttl.chunked_ce(hidden, tm.head_matrix(tp), tb["tokens"]))
+        full = float(ttl.hidden_loss(tm, tp, tb, hidden, aux))
+    assert float(aux["moe_aux_loss"]) > 0.5 and ("mtp_hidden" in aux) == (arch != "olmoe-1b-7b")
+    assert full - bare >= 0.01 * float(aux["moe_aux_loss"]) - 1e-6
+
+    def jloss(p):
+        h, a = jm.forward(p, jb, remat=True, return_hidden=True)
+        return jtl.hidden_loss(jm, p, jb, h, a)
+
+    def tloss(p, b):
+        h, a = tm.forward(p, b, remat=True, return_hidden=True)
+        return ttl.hidden_loss(tm, p, b, h, a)
+
+    jg = jax.jit(jax.grad(jloss))(jp)
+    _, tg = ttl._value_and_grad(tloss, tp, tb)
+    top = max(float(np.abs(np.asarray(g)).max()) for g in jax.tree_util.tree_leaves(jg))
+    jgf = dict(jadmm.iter_weights(jg))
+    checked = 0
+    for path, g in tadmm.iter_weights(tg):
+        if "router" in path or path.startswith("mtp/"):
+            np.testing.assert_allclose(g.numpy(), np.asarray(jgf[path]), rtol=0,
+                                       atol=1e-5 * top, err_msg=f"grad {path}")
+            checked += 1
+    assert checked >= (1 if arch == "olmoe-1b-7b" else 10)
+    state, _ = ttl.init_train_state(tm, TrainConfig(**BASE), params=tp)
+    _, tmet = ttl.make_train_step(tm, TrainConfig(**BASE))(state, tb)
+    js = jtl.TrainState(params=jp, opt=jopt.adamw_init(jp, "float32"),
+                        step=jnp.zeros((), jnp.int32), admm=None, grad_err=None,
+                        rng=jax.random.PRNGKey(0))
+    _, jmet = jstep(js, jb)
+    np.testing.assert_allclose(float(tmet["loss"]), float(jmet["loss"]), rtol=1e-5)
+    np.testing.assert_allclose(float(tmet["loss"]), full, rtol=1e-5)
+
+
+def test_lm_loss_with_aux_matches_reference():
+    """The materialized-logits loss carries the same two terms."""
+    rng = np.random.RandomState(5)
+    logits = rng.normal(size=(2, 9, 32)).astype(np.float32)
+    mtp = rng.normal(size=(2, 9, 32)).astype(np.float32)
+    toks = rng.randint(0, 32, (2, 9)).astype(np.int32)
+    for aux in ({}, {"moe_aux_loss": 1.25}, {"moe_aux_loss": 1.25, "mtp_logits": mtp}):
+        want = jtl.lm_loss(jnp.asarray(logits), jnp.asarray(toks),
+                           {k: jnp.asarray(v) for k, v in aux.items()})
+        got = ttl.lm_loss(torch.from_numpy(logits), torch.from_numpy(toks),
+                          {k: torch.as_tensor(v) for k, v in aux.items()})
+        np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
+    assert float(got) > float(ttl.lm_loss(torch.from_numpy(logits), torch.from_numpy(toks)))
 
 
 def test_three_steps_and_z_updates_stay_with_reference():
