@@ -159,6 +159,27 @@ Phases, each printing JSON lines:
                written into enc_out, prefill against stepwise decode, card
                against CPU; #1 held at every (shape, M) of the run, #4 bit
                for bit at its shapes;
+10h. xlstm    — full-width xlstm-350m (24 blocks: 21 mLSTM on the chunked
+               linear recurrence, 3 sLSTM stepped token by token; d_model
+               1024, vocab 50304, untied head), not cut, compressed (163
+               polarizations reckoned) and served with page_size=16 asked
+               for: the engine falls back to the dense slot cache (its
+               O(1) state has no paged path), the slice's 4 prompts at
+               exact length, twice (the same tokens): decode ms beside the
+               step's byte bound (codes read once, the state read and
+               written), prefill ms, peak memory, #1 launches reckoned from
+               the config and the tree (163 per step; the sLSTM's inputs on
+               f32 x take the f32 kernel at every M); the model at f32 on
+               the same tree: prefill vs stepwise decode, card vs CPU, and
+               forward at S=256 in two chunks vs one; #1 held at every
+               (shape, M, x dtype), N = 4 (wi/wf) included, timed at M=4;
+               #4 bit for bit at its three shapes, timed;
+10i. zamba    — full-width zamba2-2.7b (54 Mamba2 blocks in 9 groups, the
+               shared attention block after each; vocab 32000), not cut,
+               served as xlstm (116 polarizations, 172 #1 launches per
+               step); the model check on the full-width model cut to 6
+               layers (one group); #1 and #4 held and timed at its six
+               matrix shapes;
 11. zero_skip — the same model with ReLU and 50% fragment sparsity, one tree
                compressed once, served with zero_skip off, block and compact:
                block gives off's tokens through the skip kernel, compact's
@@ -2454,24 +2475,26 @@ def autobits_m():
                   | {acfg.calib_batch * acfg.calib_len})
 
 
-def held_matmul(gen, M, K, N, bits=8, flush=None):
-    """Kernel #1 through its route on bf16 x (as the served models give it)
-    and ``bits``-bit codes: two launches equal bit for bit and held against
-    the plain version within REL_TOL; with ``flush``, timed beside the plain
-    version, the bf16 ``torch.matmul`` of the pre-folded weight and the
-    bound."""
+def held_matmul(gen, M, K, N, bits=8, flush=None, x_dtype=None):
+    """Kernel #1 through its route on bf16 x (as the served models give it;
+    ``x_dtype=torch.float32`` for the f32 projections of the sLSTM) and
+    ``bits``-bit codes: two launches equal bit for bit and held against the
+    plain version within REL_TOL; with ``flush``, timed beside the plain
+    version, the ``torch.matmul`` of the pre-folded weight in x's dtype and
+    the bound."""
     import torch
     from repro_torch.kernels import polarized_matmul as pm
     from repro_torch.kernels.ref import ref_polarized_matmul_fast
 
-    x, mags, signs, scale = kernel_inputs(gen, M, K, N, levels=2 ** bits,
-                                          x_dtype=torch.bfloat16)
+    x_dtype = x_dtype or torch.bfloat16
+    x, mags, signs, scale = kernel_inputs(gen, M, K, N, levels=2 ** bits, x_dtype=x_dtype)
     got = pm.polarized_matmul(x, mags, signs, scale, 8)
     again = pm.polarized_matmul(x, mags, signs, scale, 8)
     want = ref_polarized_matmul_fast(x, mags, signs, scale, 8)
     torch.cuda.synchronize()
     abs_err = float((got - want).abs().max())
-    rec = {"M": M, "K": K, "N": N, "bits": bits, "max_code": int(mags.max()),
+    rec = {"M": M, "K": K, "N": N, "bits": bits, "x": str(x_dtype).removeprefix("torch."),
+           "max_code": int(mags.max()),
            "route": "tc" if pm.uses_tensor_cores(x.dtype, mags.dtype, "cuda", M) else "f32",
            "max_abs_err": abs_err, "max_rel_err": abs_err / float(want.abs().max())}
     if not torch.equal(got, again):
@@ -2479,12 +2502,12 @@ def held_matmul(gen, M, K, N, bits=8, flush=None):
     if not rec["max_rel_err"] <= REL_TOL:
         raise AssertionError(f"kernel #1 disagrees with its plain version: {rec}")
     if flush is not None:
-        wb = (mags.float() * signs.float().repeat_interleave(8, dim=0)).to(torch.bfloat16)
+        wb = (mags.float() * signs.float().repeat_interleave(8, dim=0)).to(x_dtype)
         rec["kernel_ms"] = timed_ms(lambda: pm.polarized_matmul(x, mags, signs, scale, 8), flush)
         rec["plain_ms"] = timed_ms(lambda: ref_polarized_matmul_fast(x, mags, signs, scale, 8),
                                    flush)
         rec["library_ms"] = timed_ms(lambda: torch.matmul(x, wb), flush)
-        rec["bound_ms"], rec["bound_by"] = bound(M, K, N, 1, x_bytes=2)
+        rec["bound_ms"], rec["bound_by"] = bound(M, K, N, 1, x_bytes=x.element_size())
     return rec
 
 
@@ -3569,11 +3592,354 @@ def phase_whisper():
             "layer_m4": layer, "cross_kv": cross}
 
 
+# --------------------------------------------------------------------------
+# the recurrent families: xlstm-350m (sLSTM + mLSTM), zamba2-2.7b (Mamba2 +
+# shared attention), served on the dense slot cache
+# --------------------------------------------------------------------------
+
+XLSTM_ARCH = "xlstm-350m"
+XLSTM_SQUARE = (1024, 1024)   # mLSTM wq/wk/wv/wo/wout, sLSTM wz/wi/wf/wo_g/wout
+XLSTM_GATES = (1024, 4)       # mLSTM wi/wf: N = num_heads, the element-wise staging path
+XLSTM_HEAD = (1024, 50304)
+ZAMBA_ARCH = "zamba2-2.7b"
+ZAMBA_SHAPES = {"in_proj": (2560, 10448), "out_proj": (5120, 2560), "attn": (2560, 2560),
+                "mlp_in": (2560, 10240), "mlp_out": (10240, 2560)}
+ZAMBA_HEAD = (2560, 32000)
+ZAMBA_CHECK_LAYERS = 6        # the model check's cut: one group (6 Mamba blocks + the shared one)
+# the model check: an f32 model on the served tree; prefill of slot 1 of 2
+# against stepwise decode, card against CPU, and forward at S = 256 with
+# the default chunk (128: two chunks) against one chunk of 256
+RECURRENT_CHECK = dict(slots=2, max_len=64, prompt=8, seq=256)
+# of the largest |logit|: f32, other summation orders; the chunked form's
+# decay ratios are differences of cumulative log-decays, which at zamba's
+# fast decays reach ~1e3-1e4 within a chunk, so one chunk of 256 against two
+# of 128 differs by ~f32 eps x that (8.2e-4 for zamba2-2.7b on an H100, PERF.md)
+RECURRENT_TOL = 1e-3
+
+
+def serve_recurrent(cfg, want_pol, prefill_launches, step_launches, state_leaves, step_calls):
+    """A recurrent family at ``cfg``, random weights from seed 0, compressed
+    by FORMS (m=8, 8 bits, energy rule; ``want_pol`` polarizations
+    reckoned) and served with ``page_size=16`` asked for: the engine falls
+    back to the dense slot cache (``engine.paged`` False).  The slice's 4
+    prompts at exact length, 16 new tokens, 4 slots, max_len 256,
+    decode_block 4, twice (the same tokens), every run's launches equal to
+    ``prefill_launches(n)`` ([f32, tc] of an n-token prefill) per prompt
+    plus ``step_launches`` per decode step on the f32 kernel (M = 4), which
+    the tree reckons too: ``step_calls(path)`` calls of each compressed
+    leaf per decode step.
+    The decode step's byte bound: every code, sign and scale of the tree
+    read once, and the recurrent state (the cache leaves in
+    ``state_leaves``) read and written once."""
+    import torch
+    from repro_torch.core import paths
+    from repro_torch.forms import FormsSpec, compress_tree, compressed_paths
+    from repro_torch.kernels import polarized_matmul as pm
+    from repro_torch.models.registry import build
+    from repro_torch.serving.engine import ServingEngine, cache_nbytes
+
+    model = build(cfg, device="cuda")
+    spec = FormsSpec(m=8, bits=8, rule="energy")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, init_ms = synced_ms(model.init, 0)
+    n_params = sum(v.numel() for v in paths.leaves(params))
+    reset_counts()
+    with torch.inference_mode():
+        (tree, rep), compress_ms = synced_ms(compress_tree, params, spec)
+    pol_launches = launch_counts()["admm_polarize"]
+    del params
+    torch.cuda.empty_cache()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    leaves = compressed_paths(tree)
+    matrices = sum(math.prod(leaf.mags.shape[:-2]) for leaf in leaves.values())
+    if pol_launches != want_pol or matrices != want_pol:
+        raise AssertionError(f"{cfg.name}: compress_tree polarized {pol_launches} matrices "
+                             f"({matrices} in the tree), reckoned {want_pol}")
+    if sum(step_calls(p) for p in leaves) != step_launches:
+        raise AssertionError(f"{cfg.name}: the tree reckons {sum(map(step_calls, leaves))} "
+                             f"launches per decode step, the config {step_launches}")
+    tree_bytes = sum(t.numel() * t.element_size() for leaf in leaves.values()
+                     for t in (leaf.mags, leaf.signs, leaf.scale))
+    engine = ServingEngine(model, tree, spec=spec, page_size=16, batch_slots=4,
+                           max_len=SERVE_MAX_LEN, decode_block=4, device="cuda")
+    if engine.paged or engine.page_allocator is not None:
+        raise AssertionError(f"{cfg.name}: the engine did not fall back to the dense cache")
+    prompts = slice_prompts(cfg)
+    lens = [len(p) for p in prompts]
+    if [engine.runner.bucket_for(n) for n in lens] != lens:
+        raise AssertionError(f"{cfg.name}: the engine padded a prompt")
+    if pm.uses_tensor_cores(torch.bfloat16, torch.uint8, "cuda", DECODE_M):
+        raise AssertionError("the decode step's M takes the tensor-core route")
+    runs = []
+    for _ in range(2):
+        run = served(engine, prompts)
+        want = [run["decode_steps"] * step_launches, 0]
+        for n in lens:
+            want = [a + b for a, b in zip(want, prefill_launches(n))]
+        got = [run["counts"]["polarized_matmul"], run["counts"]["polarized_matmul_tc"]]
+        if got != want:
+            raise AssertionError(f"{cfg.name}: launched {got}, reckoned {want}")
+        run["launches"] = got
+        runs.append(run)
+    if runs[0]["tokens"] != runs[1]["tokens"]:
+        raise AssertionError(f"two greedy {cfg.name} runs gave other tokens")
+    state_bytes = cache_nbytes({name: engine.cache[name] for name in state_leaves})
+    last = runs[-1]
+    line = dict(arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model, vocab=cfg.vocab_size,
+                params=n_params, init_ms=init_ms, compress_s=compress_ms / 1e3,
+                compression=rep.summary(), tree_gb=tree_bytes / 1e9, peak_gb=peak_gb,
+                serve_peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                page_size_asked=16, paged=engine.paged,
+                note="no paged path (O(1) recurrent state): the dense slot cache serves",
+                cache_gb=engine.cache_bytes() / 1e9, state_gb=state_bytes / 1e9,
+                polarize_launches=pol_launches, prompt_lens=lens,
+                decode_steps=last["decode_steps"],
+                decode_step_ms=[r["decode_step_ms"] for r in runs],
+                step_bound_ms=(tree_bytes + 2 * state_bytes) / HBM_BYTES_PER_S * 1e3,
+                mean_prefill_ms=[r["mean_prefill_ms"] for r in runs],
+                launches=last["launches"], launches_per_decode_step=step_launches,
+                tokens=last["tokens"])
+    del engine
+    return line, tree
+
+
+def _first_layers(blocks, n: int):
+    """The first ``n`` layers of a stacked block tree (FORMS leaves too)."""
+    from repro_torch.forms import FormsLinearParams
+    if isinstance(blocks, dict):
+        return {k: _first_layers(v, n) for k, v in blocks.items()}
+    if isinstance(blocks, FormsLinearParams):
+        return dataclasses.replace(blocks, mags=blocks.mags[:n], signs=blocks.signs[:n],
+                                   scale=blocks.scale[:n])
+    return blocks[:n]
+
+
+def recurrent_model_check(cfg, tree, module):
+    """The model at f32 on the served tree (RECURRENT_CHECK): the prefill
+    logits of slot 1 of 2 against stepwise decode, on the card and on the
+    CPU (the plain versions), card against CPU; and on the card ``forward``
+    at S = 256 with the default chunk (two chunks of 128, the carry between
+    them) against one chunk of 256 (``module``'s recurrence swapped for
+    the call; its largest |cumulative log-decay| printed, which scales the
+    f32 error of the decay ratios).  Each held at RECURRENT_TOL of the
+    largest |logit|."""
+    import numpy as np
+    import torch
+    from repro_torch.models import ssm_common
+    from repro_torch.models.registry import build
+
+    c = RECURRENT_CHECK
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    rng = np.random.RandomState(5)
+    prompt = rng.randint(0, cfg.vocab_size, c["prompt"]).astype(np.int32)
+    seq = torch.from_numpy(rng.randint(0, cfg.vocab_size, (1, c["seq"])).astype(np.int32))
+    if ssm_common.chunk_width(c["seq"], ssm_common.DEFAULT_CHUNK) * 2 != c["seq"]:
+        raise AssertionError("the forward check does not run two chunks")
+    out, t0 = {}, time.perf_counter()
+    for dev in ("cuda", "cpu"):
+        m32 = build(cfg32, device=dev)
+        t = _tree_to_dev(tree, dev)
+        with torch.inference_mode():
+            cache = m32.init_cache(c["slots"], c["max_len"], dtype=torch.float32)
+            pre, _ = m32.prefill(t, torch.from_numpy(prompt[None]).to(dev), cache, 1,
+                                 len(prompt))
+            cache = m32.init_cache(c["slots"], c["max_len"], dtype=torch.float32)
+            pos = torch.zeros(c["slots"], dtype=torch.int32, device=dev)
+            for tok in prompt:
+                tb = torch.zeros((c["slots"], 1), dtype=torch.int32, device=dev)
+                tb[1, 0] = int(tok)
+                lg, cache = m32.decode_step(t, tb, cache, pos.clone())
+                pos[1] += 1
+            out[dev] = {"prefill": pre[0].cpu(), "step": lg[1, 0].cpu()}
+            if dev == "cuda":
+                two, _ = m32.forward(t, {"tokens": seq.to(dev)})
+                orig, cums = module.chunked_linear_recurrence, []
+
+                def one_chunk(q, k, v, log_a, gate, *, chunk, **kw):
+                    # the largest |cumulative log-decay| in the one chunk:
+                    # the decay ratios are differences of such sums, so
+                    # they carry about f32 eps times it of absolute error
+                    cums.append(float(torch.cumsum(log_a.float(), 1).abs().max()))
+                    return orig(q, k, v, log_a, gate, chunk=c["seq"], **kw)
+
+                module.chunked_linear_recurrence = one_chunk
+                try:
+                    one, _ = m32.forward(t, {"tokens": seq.to(dev)})
+                finally:
+                    module.chunked_linear_recurrence = orig
+                out["chunks"] = {"two": two.cpu(), "one": one.cpu(), "max_cum": max(cums)}
+        del t, cache
+        torch.cuda.empty_cache()
+    rel = lambda a, b: float((a - b).abs().max()) / float(b.abs().max())  # noqa: E731
+    check = {"prefill_vs_step_card": rel(out["cuda"]["step"], out["cuda"]["prefill"]),
+             "prefill_vs_step_cpu": rel(out["cpu"]["step"], out["cpu"]["prefill"]),
+             **{f"{k}_card_vs_cpu": rel(out["cuda"][k], out["cpu"][k])
+                for k in ("prefill", "step")},
+             "two_chunks_vs_one": rel(out["chunks"]["two"], out["chunks"]["one"]),
+             "max_abs_cum_log_decay": out["chunks"]["max_cum"],
+             "argmax_equal": int(out["cuda"]["step"].argmax()) == int(
+                 out["cpu"]["prefill"].argmax()),
+             "tol": RECURRENT_TOL, "layers": cfg.num_layers,
+             "seconds": time.perf_counter() - t0}
+    if not all(v <= RECURRENT_TOL for k, v in check.items()
+               if isinstance(v, float) and k not in ("tol", "seconds", "max_abs_cum_log_decay")):
+        raise AssertionError(f"{cfg.name}'s model check: {check}")
+    return check
+
+
+def phase_xlstm():
+    """Full-width xlstm-350m (24 blocks: 21 mLSTM and 3 sLSTM at 0, 8 and
+    16; d_model 1024, 4 heads of 256, vocab 50304, untied head), not cut:
+    ``serve_recurrent`` with 163 polarizations reckoned (7 per mLSTM, 5 per
+    sLSTM, the head) and 163 #1 launches per decode step on the f32 kernel
+    (the sLSTM's wz/wi/wf/wo_g take f32 x at every M, so its prefill runs
+    them on the f32 kernel at M = S).  The model check on the same tree.
+    #1 held at every (shape, M, x dtype) of the run, N = 4 included (the
+    mLSTM's wi/wf), timed at M=4 beside the library call and the bound; #4
+    bit for bit at the three matrix shapes, timed."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import polarized_matmul as pm
+    from repro_torch.models import xlstm
+
+    cfg = get_config(XLSTM_ARCH)
+    n_s = sum(1 for i in range(cfg.num_layers) if i % cfg.slstm_every == 0)
+    n_m = cfg.num_layers - n_s
+    route = lambda M: pm.uses_tensor_cores(torch.bfloat16, torch.uint8, "cuda", M)  # noqa: E731
+
+    def prefill_launches(n):
+        want = [4 * n_s, 0]                  # the sLSTM's f32-x input projections
+        want[route(n)] += 7 * n_m + n_s      # the mLSTM's 7, the sLSTM's wout
+        want[route(1)] += 1                  # the head at the prompt's last row
+        return want
+
+    per_step = 7 * n_m + 5 * n_s + 1
+    line, tree = serve_recurrent(cfg, 7 * n_m + 5 * n_s + 1, prefill_launches, per_step,
+                                 [f"layer{i}" for i in range(cfg.num_layers)],
+                                 lambda path: 1)   # every leaf is one 2-D matrix
+    check = recurrent_model_check(cfg, tree, xlstm)
+    del tree
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(19)
+    scrub = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    flush = lambda: scrub.zero_()  # noqa: E731
+    f32 = torch.float32
+    held = [held_matmul(gen, M, *shape, x_dtype=xd) for M in sorted(set(line["prompt_lens"]))
+            for shape, xd in ((XLSTM_SQUARE, None), (XLSTM_GATES, None), (XLSTM_SQUARE, f32))]
+    held.append(held_matmul(gen, 1, *XLSTM_HEAD))
+    m4 = {"square": held_matmul(gen, DECODE_M, *XLSTM_SQUARE, flush=flush),
+          "gates": held_matmul(gen, DECODE_M, *XLSTM_GATES, flush=flush),
+          "square_f32": held_matmul(gen, DECODE_M, *XLSTM_SQUARE, flush=flush, x_dtype=f32),
+          "head": held_matmul(gen, DECODE_M, *XLSTM_HEAD, flush=flush)}
+    held += list(m4.values())
+    calls = {"square": 5 * n_m + n_s, "gates": 2 * n_m, "square_f32": 4 * n_s, "head": 1}
+    step = {k: sum(m4[n][k] * c for n, c in calls.items())
+            for k in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")}
+    step["bound_by"] = bound_by(list(m4.values()))
+    pol = polarize_rows(gen, [XLSTM_SQUARE, XLSTM_GATES, XLSTM_HEAD], flush)
+    by_shape = {(r["K"], r["N"]): r for r in pol}
+    pol_calls = {XLSTM_SQUARE: 5 * n_m + 5 * n_s, XLSTM_GATES: 2 * n_m, XLSTM_HEAD: 1}
+    pol_tree = {k: sum(by_shape[s][k] * c for s, c in pol_calls.items())
+                for k in ("kernel_ms", "plain_ms", "bound_ms")}
+    pol_tree["bound_by"] = bound_by(pol)
+    del scrub
+    emit("xlstm", **line)
+    emit("xlstm_check", **check)
+    emit("xlstm_kernels", held=[[r["M"], r["K"], r["N"], r["x"], r["route"]] for r in held],
+         max_abs_err=max(r["max_abs_err"] for r in held),
+         max_rel_err=max(r["max_rel_err"] for r in held),
+         m4={n: {k: r[k] for k in ("route", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+                                   "bound_by")} for n, r in m4.items()},
+         decode_step_m4=step, polarize=pol, polarize_tree=pol_tree)
+    return {"launches": line["launches"], "polarize_launches": line["polarize_launches"],
+            "step_m4": step, "gates_m4": m4["gates"], "pol_tree": pol_tree}
+
+
+def phase_zamba():
+    """Full-width zamba2-2.7b (54 Mamba2 blocks in 9 groups of 6, each
+    followed by the shared attention block: 32 heads of 80, d_ff 10240;
+    d_in 5120 in 80 SSM heads of 64, state 64; vocab 32000, untied head),
+    not cut: ``serve_recurrent`` with 116 polarizations reckoned (in_proj
+    and out_proj per layer, the shared block's 7, the head) and 172 #1
+    launches per decode step (2 per Mamba block, 7 per shared-block
+    application, the head).  The model check on the full-width model cut to
+    ZAMBA_CHECK_LAYERS layers (one group), which keeps its CPU side near a
+    minute.  #1 held at every (shape, M) of the run, timed at M=4; #4 bit
+    for bit at each matrix shape, timed."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import polarized_matmul as pm
+    from repro_torch.models import zamba
+
+    cfg = get_config(ZAMBA_ARCH)
+    L, groups = cfg.num_layers, cfg.num_layers // cfg.shared_attn_every
+    route = lambda M: pm.uses_tensor_cores(torch.bfloat16, torch.uint8, "cuda", M)  # noqa: E731
+    per_call = 2 * L + 7 * groups
+
+    def prefill_launches(n):
+        want = [0, 0]
+        want[route(n)] += per_call
+        want[route(1)] += 1
+        return want
+
+    # a stacked Mamba leaf runs once per layer, a shared-block leaf once per
+    # application, the head once
+    line, tree = serve_recurrent(
+        cfg, 2 * L + 7 + 1, prefill_launches, per_call + 1, ["ssm", "conv"],
+        lambda path: L if path.startswith("blocks/") else
+        groups if path.startswith("shared_attn/") else 1)
+    cut = dataclasses.replace(cfg, num_layers=ZAMBA_CHECK_LAYERS)
+    check = recurrent_model_check(cut, {**tree, "blocks": _first_layers(tree["blocks"],
+                                                                         ZAMBA_CHECK_LAYERS)},
+                                  zamba)
+    check["cut"] = {"num_layers": [L, ZAMBA_CHECK_LAYERS]}
+    del tree
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(23)
+    scrub = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    flush = lambda: scrub.zero_()  # noqa: E731
+    held = [held_matmul(gen, M, *shape) for M in sorted(set(line["prompt_lens"]))
+            for shape in ZAMBA_SHAPES.values()]
+    held.append(held_matmul(gen, 1, *ZAMBA_HEAD))
+    m4 = {n: held_matmul(gen, DECODE_M, *shape, flush=flush) for n, shape in ZAMBA_SHAPES.items()}
+    m4["head"] = held_matmul(gen, DECODE_M, *ZAMBA_HEAD, flush=flush)
+    held += list(m4.values())
+    calls = {"in_proj": L, "out_proj": L, "attn": 4 * groups, "mlp_in": 2 * groups,
+             "mlp_out": groups, "head": 1}
+    step = {k: sum(m4[n][k] * c for n, c in calls.items())
+            for k in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")}
+    step["bound_by"] = bound_by(list(m4.values()))
+    pol = polarize_rows(gen, list(ZAMBA_SHAPES.values()) + [ZAMBA_HEAD], flush)
+    by_shape = {(r["K"], r["N"]): r for r in pol}
+    pol_calls = {ZAMBA_SHAPES["in_proj"]: L, ZAMBA_SHAPES["out_proj"]: L,
+                 ZAMBA_SHAPES["attn"]: 4, ZAMBA_SHAPES["mlp_in"]: 2, ZAMBA_SHAPES["mlp_out"]: 1,
+                 ZAMBA_HEAD: 1}
+    pol_tree = {k: sum(by_shape[s][k] * c for s, c in pol_calls.items())
+                for k in ("kernel_ms", "plain_ms", "bound_ms")}
+    pol_tree["bound_by"] = bound_by(pol)
+    del scrub
+    emit("zamba", **line)
+    emit("zamba_check", **check)
+    emit("zamba_kernels", held=[[r["M"], r["K"], r["N"], r["route"]] for r in held],
+         max_abs_err=max(r["max_abs_err"] for r in held),
+         max_rel_err=max(r["max_rel_err"] for r in held),
+         m4={n: {k: r[k] for k in ("route", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+                                   "bound_by")} for n, r in m4.items()},
+         decode_step_m4=step, polarize=pol, polarize_tree=pol_tree)
+    return {"launches": line["launches"], "polarize_launches": line["polarize_launches"],
+            "step_m4": step, "pol_tree": pol_tree}
+
+
 def _tree_to_dev(tree, dev):
     """A params tree (FORMS leaves included) copied to ``dev``."""
     from repro_torch.forms import FormsLinearParams
     if isinstance(tree, dict):
         return {k: _tree_to_dev(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to_dev(v, dev) for v in tree]
     if isinstance(tree, FormsLinearParams):
         return dataclasses.replace(tree, mags=tree.mags.to(dev), signs=tree.signs.to(dev),
                                    scale=tree.scale.to(dev))
@@ -3659,6 +4025,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         whisper = phase_whisper()
         torch.cuda.empty_cache()
+        xlstm = phase_xlstm()
+        torch.cuda.empty_cache()
+        zamba = phase_zamba()
+        torch.cuda.empty_cache()
         tree, cfg, prompts, skip_launches = phase_zero_skip()
         bit_launches, fidelity_row, mean_eic = phase_fidelity(tree, cfg, prompts)
         perfmodel_line(mean_eic)
@@ -3686,6 +4056,8 @@ def main() -> int:
             and ab_launches[3] and all(rel_launches) and all(moe["launches"])
             and moe["polarize_launches"] and all(mla["launches"]) and mla["polarize_launches"]
             and all(whisper["launches"]) and whisper["polarize_launches"]
+            and all(xlstm["launches"]) and xlstm["polarize_launches"]
+            and all(zamba["launches"]) and zamba["polarize_launches"]
             and all(all(v.values()) for v in dense_launches.values())):
         raise AssertionError("a kernel of a path was never launched on it")
 
@@ -3720,6 +4092,10 @@ def main() -> int:
         "mla": {"layer_m4": mla["layer_m4"], "head_m4": mla["head_m4"]},
         "whisper_launches": whisper["launches"][0],
         "whisper": {"layer_m4": whisper["layer_m4"]},
+        "xlstm_launches": xlstm["launches"][0],
+        "xlstm": {"step_m4": xlstm["step_m4"], "gates_m4": xlstm["gates_m4"]},
+        "zamba_launches": zamba["launches"][0],
+        "zamba": {"step_m4": zamba["step_m4"]},
         "verify": [r for r in verify_rows if r["route"] == "f32"],
         "bits": [r for r in width_rows if r["route"] == "f32"],
         "heads": head_rows,
@@ -3741,7 +4117,12 @@ def main() -> int:
                "of one layer and its head (7168x129280) at M=4, bf16 x; whisper_launches: "
                "whisper-small's run (8 per decoder layer per decode step); whisper: its 8 "
                "projections of one decoder layer at M=4 (the cross k/v run on the "
-               "tensor-core route), bf16 x; "
+               "tensor-core route), bf16 x; xlstm_launches: xlstm-350m's run (163 per "
+               "decode step, the sLSTM's f32-x inputs at every prefill, the head per "
+               "prefill); xlstm: its 163 projections of one decode call at M=4 (the sLSTM's "
+               "16 on f32 x) and gates_m4 its 1024x4 wi/wf at M=4 (N = 4, element-wise "
+               "staging); zamba_launches: zamba2-2.7b's run (172 per decode step, the head "
+               "per prefill); zamba: its 172 projections of one decode call at M=4, bf16 x; "
                "bits: the same 7 at 2-, 4- and 6-bit codes, bf16 x; heads: the "
                "untied heads' shapes at M=4, bf16 x",
     }, {
@@ -3790,6 +4171,10 @@ def main() -> int:
         "mla_launches": mla["polarize_launches"],
         "mla_layer": mla["pol_layer"],
         "whisper_launches": whisper["polarize_launches"],
+        "xlstm_launches": xlstm["polarize_launches"],
+        "xlstm_tree": xlstm["pol_tree"],
+        "zamba_launches": zamba["polarize_launches"],
+        "zamba_tree": zamba["pol_tree"],
         "per_matrix": pol_matrix_row,
         "max_abs_err": max(max(r["sum_max_abs_err"], r["energy_max_abs_err"]) for r in pol_rows),
         "ms": total(pol_rows, "kernel_ms"), "plain_ms": total(pol_rows, "plain_ms"),
@@ -3806,7 +4191,10 @@ def main() -> int:
                "head); mla_launches: compress_tree of the cut deepseek-v3 (4 layers of 5 MLA, "
                "3 shared and 48 expert matrices, the MTP module's proj and block, the head); "
                "mla_layer: one such layer's 56 matrices, energy rule; whisper_launches: "
-               "compress_tree of whisper-small (193 matrices); "
+               "compress_tree of whisper-small (193 matrices); xlstm_launches, xlstm_tree: "
+               "compress_tree of xlstm-350m (163 matrices, 42 of them 1024x4) and their "
+               "summed times; zamba_launches, zamba_tree: of zamba2-2.7b (116: in_proj and "
+               "out_proj of 54 layers, the shared block's 7, the head); "
                "moe_expert_triple: one (layer, expert)'s w_gate, w_up (2048x1024) "
                "and w_down (1024x2048), energy rule; per_matrix: those calls "
                "for the 7 matrices of one qwen2-1.5b layer, energy rule",
@@ -3830,6 +4218,8 @@ def main() -> int:
         "mla_launches": mla["launches"][1],
         "whisper_launches": whisper["launches"][1],
         "whisper_cross_kv": whisper["cross_kv"],
+        "xlstm_launches": xlstm["launches"][1],
+        "zamba_launches": zamba["launches"][1],
         "dense_configs_skip_launches": dense_launches["block"]["polarized_matmul_tc_skip"],
         "verify": [r for r in verify_rows if r["route"] == "tc"],
         "bits": [r for r in width_rows if r["route"] == "tc"],
@@ -3865,7 +4255,8 @@ def main() -> int:
                "exact-length prefills (8 per layer); whisper_launches: whisper-small's "
                "prefills (M = the bucket, the cross k/v at M = max_len) and every decode "
                "step's cross k/v (M = 4 slots x 256); whisper_cross_kv: that M=1024 call "
-               "(768x768), timed; "
+               "(768x768), timed; xlstm_launches, zamba_launches: the recurrent families' "
+               "exact-length prefills (M = 16-64; xlstm's mLSTM wi/wf at N = 4); "
                "bits: the 7 at M=64 on 2-, 4- and 6-bit codes",
     }]}
     emit("total", seconds=time.perf_counter() - t_start)

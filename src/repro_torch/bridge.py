@@ -54,13 +54,17 @@ def forms_leaf_from_numpy(mags: np.ndarray, signs: np.ndarray, scale: np.ndarray
 
 
 def params_from_numpy(tree: Any, device: Union[str, torch.device] = DEFAULT_DEVICE) -> Any:
-    """A nested dict of numpy arrays (and compressed-leaf dicts) as tensors."""
+    """A tree of nested dicts and lists of numpy arrays (and compressed-leaf
+    dicts) as tensors."""
     dev = resolve_device(device)
     if isinstance(tree, Mapping):
         if set(tree) == _FORMS_KEYS:
             return forms_leaf_from_numpy(tree["mags"], tree["signs"], tree["scale"],
                                          tree["meta"], dev)
         return {k: params_from_numpy(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        # xLSTM's per-layer blocks: a list stays a list, in index order
+        return [params_from_numpy(v, dev) for v in tree]
     return _tensor(tree, dev)
 
 

@@ -2,8 +2,9 @@
 
 The registry holds the archs of the families the port serves, copied from
 the JAX package field for field: the dense ones, the MoE family's
-olmoe-1b-7b and deepseek-v3-671b (MLA + MTP), and whisper-small
-(encoder-decoder); the others join with their family's port.
+olmoe-1b-7b and deepseek-v3-671b (MLA + MTP), whisper-small
+(encoder-decoder), and the recurrent families' xlstm-350m (sLSTM + mLSTM)
+and zamba2-2.7b (Mamba2 + shared attention).
 """
 from __future__ import annotations
 
@@ -20,6 +21,8 @@ _ARCH_MODULES: Dict[str, str] = {
     "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
     "deepseek-v3-671b": "repro_torch.configs.deepseek_v3_671b",
     "whisper-small": "repro_torch.configs.whisper_small",
+    "xlstm-350m": "repro_torch.configs.xlstm_350m",
+    "zamba2-2.7b": "repro_torch.configs.zamba2_2_7b",
 }
 
 ARCH_NAMES: List[str] = list(_ARCH_MODULES)

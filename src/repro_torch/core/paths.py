@@ -2,9 +2,12 @@
 
 Weights are keyed by the same ``"blocks/attn/wq"``-style path in the port and
 in the JAX package, so compression reports, per-leaf plans and ADMM state
-line up.  A params tree is nested dicts of tensors; its leaves are visited
-with the keys in sorted order, the order of the reference's flattened
-pytree.
+line up.  A params tree is nested dicts and lists of tensors (xLSTM's
+``blocks`` is a list of per-layer dicts, so its paths read
+``blocks/0/mlstm/wq``); its leaves are visited in the order of the
+reference's flattened pytree: dict keys sorted, list elements in index
+order.  Never order leaves by their rendered path strings: ``blocks/10``
+sorts before ``blocks/2``.
 """
 from __future__ import annotations
 
@@ -16,11 +19,26 @@ def path_str(path) -> str:
     return "/".join(str(p) for p in path)
 
 
-def iter_leaves(tree: Any, prefix: Tuple = ()) -> Iterator[Tuple[str, Any]]:
-    """Yield (path, leaf) for every non-None leaf, keys in sorted order."""
+def children(tree: Any) -> List[Tuple[Any, Any]]:
+    """``(key, child)`` of a dict (keys sorted) or a list (index order);
+    empty for a leaf."""
     if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from iter_leaves(tree[k], prefix + (k,))
+        return [(k, tree[k]) for k in sorted(tree)]
+    if isinstance(tree, list):
+        return list(enumerate(tree))
+    return []
+
+
+def is_node(tree: Any) -> bool:
+    """Whether ``tree`` is an inner node of a params tree (a dict or list)."""
+    return isinstance(tree, (dict, list))
+
+
+def iter_leaves(tree: Any, prefix: Tuple = ()) -> Iterator[Tuple[str, Any]]:
+    """Yield (path, leaf) for every non-None leaf, in flatten order."""
+    if is_node(tree):
+        for k, v in children(tree):
+            yield from iter_leaves(v, prefix + (k,))
     elif tree is not None:
         yield path_str(prefix), tree
 
@@ -34,11 +52,22 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     """``fn`` applied leaf by leaf over trees of one structure."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
     return fn(tree, *rest)
+
+
+def map_with_path(fn: Callable[[str, Any], Any], tree: Any, prefix: Tuple = ()) -> Any:
+    """The structure of ``tree`` with every leaf (None included) replaced by
+    ``fn(path, leaf)``; dicts keep their key order, lists stay lists."""
+    if isinstance(tree, dict):
+        return {k: map_with_path(fn, v, prefix + (k,)) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [map_with_path(fn, v, prefix + (i,)) for i, v in enumerate(tree)]
+    return fn(path_str(prefix), tree)
 
 
 def rebuild(tree: Any, by_path: Dict[str, Any], prefix: Tuple = ()) -> Any:
     """The structure of ``tree`` with every leaf taken from ``by_path``."""
-    if isinstance(tree, dict):
-        return {k: rebuild(v, by_path, prefix + (k,)) for k, v in tree.items()}
-    return by_path[path_str(prefix)] if tree is not None else None
+    return map_with_path(lambda p, leaf: by_path[p] if leaf is not None else None,
+                         tree, prefix)

@@ -1,6 +1,8 @@
 """Whole-tree FORMS compression: ``compress_tree`` / ``decompress_tree``.
 
-``compress_tree(params, spec)`` walks a nested-dict parameter tree and
+``compress_tree(params, spec)`` walks a parameter tree of nested dicts and
+lists (xLSTM's per-layer ``blocks`` list; its paths read
+``blocks/0/mlstm/wq``), in the reference's flatten order, and
 replaces every crossbar-mappable weight with a
 :class:`~repro_torch.forms.linear.FormsLinearParams` (uint8 magnitudes +
 int8 fragment signs + f32 scales).  Scan-stacked ``(L, K, N)`` weights are
@@ -17,7 +19,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch.core.fragments import conv_to_matrix, is_crossbar_weight
-from repro_torch.core.paths import path_str
+from repro_torch.core.paths import children, is_node, path_str, tree_map
 from repro_torch.forms.linear import FormsLinearParams, from_dense, to_dense
 from repro_torch.forms.spec import FormsSpec
 
@@ -127,7 +129,8 @@ def compress_tree(
     predicate: Callable[[str, Tuple[int, ...]], bool] = is_crossbar_weight,
     plan: Optional[Dict[str, FormsSpec]] = None,
 ) -> Tuple[Any, CompressReport]:
-    """Compress every crossbar-mappable weight of a nested-dict params tree.
+    """Compress every crossbar-mappable weight of a params tree (nested
+    dicts and lists).
 
     Returns ``(compressed, report)``: the same structure with weight leaves
     replaced by ``FormsLinearParams``; other leaves pass through untouched,
@@ -139,8 +142,11 @@ def compress_tree(
     compressed: Dict[str, Any] = {}
 
     def visit(tree, prefix):
-        if isinstance(tree, dict):
-            return {k: visit(tree[k], prefix + (k,)) for k in sorted(tree)}
+        if is_node(tree):
+            # leaves in flatten order (dict keys sorted, lists by index), so
+            # the report and the polarization launches go as the reference's
+            done = {k: visit(v, prefix + (k,)) for k, v in children(tree)}
+            return [done[i] for i in range(len(tree))] if isinstance(tree, list) else done
         pstr = path_str(prefix)
         if isinstance(tree, FormsLinearParams):
             compressed[pstr] = tree
@@ -174,19 +180,16 @@ def compress_tree(
 def decompress_tree(params: Any) -> Any:
     """Exact inverse of :func:`compress_tree`: every ``FormsLinearParams``
     leaf becomes its dense reconstruction (original shape and dtype)."""
-    if isinstance(params, dict):
-        return {k: decompress_tree(v) for k, v in params.items()}
-    if isinstance(params, FormsLinearParams):
-        return to_dense(params)
-    return params
+    return tree_map(lambda leaf: to_dense(leaf) if isinstance(leaf, FormsLinearParams)
+                    else leaf, params)
 
 
 def compressed_paths(params: Any, prefix: Tuple = ()) -> Dict[str, FormsLinearParams]:
     """Map path -> FormsLinearParams for every compressed leaf."""
-    if isinstance(params, dict):
+    if is_node(params):
         out: Dict[str, FormsLinearParams] = {}
-        for k in sorted(params):
-            out.update(compressed_paths(params[k], prefix + (k,)))
+        for k, v in children(params):
+            out.update(compressed_paths(v, prefix + (k,)))
         return out
     if isinstance(params, FormsLinearParams):
         return {path_str(prefix): params}

@@ -20,6 +20,8 @@ self-speculative decoding.
   python -m repro_torch.launch.serve --arch olmoe-1b-7b --reduced --forms --device cpu
   python -m repro_torch.launch.serve --arch deepseek-v3-671b --reduced --forms --device cpu
   python -m repro_torch.launch.serve --arch whisper-small --reduced --forms --device cpu
+  python -m repro_torch.launch.serve --arch xlstm-350m --reduced --forms --device cpu
+  python -m repro_torch.launch.serve --arch zamba2-2.7b --reduced --forms --device cpu
 
 Weights are random, made from seed 0 on the device (the JAX launcher inits
 with ``PRNGKey(0)``).  With ``--forms`` the weights are compressed by
@@ -67,7 +69,11 @@ copy without dropping a request.  ``--stats-every N`` prints a stat line
 length); ``--arch deepseek-v3-671b`` serves it with MLA (absorbed decode
 over the latent cache; the MTP module is not run in serving).  ``--arch
 whisper-small`` serves the encoder-decoder against a zero encoder context:
-the engine, as the reference's, never writes ``enc_out``.
+the engine, as the reference's, never writes ``enc_out``.  ``--arch
+xlstm-350m`` and ``--arch zamba2-2.7b`` serve the recurrent families at
+the exact prompt length on the dense slot cache: their O(1) state has no
+paged path, so ``--page-size`` falls back (the launcher says so) and the
+SLO flags are refused.
 ``--device`` defaults to ``cuda`` and the launcher fails without a card
 unless ``--device cpu`` is given.  Requests are made as the JAX launcher
 makes them (``np.random.RandomState(0)``).
@@ -141,7 +147,9 @@ def main(argv=None) -> None:
     ap.add_argument("--prompt-len", type=int, default=None,
                     help="fixed prompt length (default: random 2-5)")
     ap.add_argument("--page-size", type=int, default=16, metavar="ROWS",
-                    help="KV-cache page size (0: the dense slot cache)")
+                    help="KV-cache page size for paged serving (attention families; "
+                         "the recurrent families always use the dense slot cache); "
+                         "0 = the dense slot cache")
     ap.add_argument("--num-pages", type=int, default=None,
                     help="page-pool size (default: every slot can hold a "
                          "full max_len request)")
@@ -306,6 +314,10 @@ def main(argv=None) -> None:
     if act_over:
         cfg = dataclasses.replace(cfg, **act_over)
     model = build(cfg, device=args.device)
+    if slo_flags and not model.supports_paged:
+        raise SystemExit(f"{'/'.join(slo_flags)} need the SLO fleet scheduler, but family "
+                         f"{cfg.family!r} has no paged path (O(1) recurrent state — "
+                         "nothing to chunk or evict): pick an attention family")
     params = model.init(0)
     spec = (FormsSpec(m=args.fragment, bits=args.bits, rule=args.sign_rule,
                       encoding=args.encoding)
@@ -355,6 +367,9 @@ def main(argv=None) -> None:
               f"(+1 scratch), {engine.cache_bytes() / 2**20:.1f} MiB, "
               f"prefix_cache={'on' if engine.prefix_cache else 'off'}")
     else:
+        if args.page_size:
+            print(f"paged cache: unsupported for family {cfg.family!r} "
+                  "(O(1) recurrent state) — dense slot cache")
         print(f"dense slot cache: {engine.slots} slots x {engine.max_len} rows, "
               f"{engine.cache_bytes() / 2**20:.1f} MiB")
     if engine.speculative:

@@ -1,10 +1,13 @@
 """Arch registry: config -> a uniform :class:`Model` bundle.
 
-The port serves the dense transformer family, the MoE family (GQA/MHA
-attention as in olmoe, MLA with multi-token prediction as in deepseek-v3)
-and whisper's encoder-decoder; the recurrent families (xlstm, zamba) and
-the VLM patch prefix raise ``NotImplementedError`` naming the ROADMAP item
-that ports them.
+The port serves every family of the JAX package: the dense transformer,
+the MoE family (GQA/MHA attention as in olmoe, MLA with multi-token
+prediction as in deepseek-v3), whisper's encoder-decoder, and the
+recurrent families xlstm (sLSTM + mLSTM) and zamba (Mamba2 + shared
+attention), whose O(1) decode state has no paged path: their
+``init_paged_cache``/``prefill_paged``/``decode_paged`` are None, so the
+engine serves them on the dense slot cache.  The VLM patch prefix raises
+``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 from __future__ import annotations
 
@@ -15,7 +18,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import DEFAULT_DEVICE, resolve_device
-from repro_torch.models import moe, transformer, whisper
+from repro_torch.models import moe, transformer, whisper, xlstm, zamba
 
 Params = Any
 
@@ -42,7 +45,9 @@ class Model:
     decoding and K+1 in a speculative verify.  ``input_fields`` are the
     batch keys ``forward`` consumes; ``padded_prefill`` says whether a
     prompt may be padded to its bucket (False for MoE, whose capacity-based
-    dispatch would give pad tokens expert capacity).
+    dispatch would give pad tokens expert capacity, and for the recurrent
+    families, whose state consumes every token).  The recurrent families
+    have no paged functions (None): ``supports_paged`` is False.
     """
 
     config: ModelConfig
@@ -53,9 +58,9 @@ class Model:
     init_cache: Callable[..., Any]
     prefill: Callable[..., Tuple[torch.Tensor, Any]]
     decode_step: Callable[..., Tuple[torch.Tensor, Any]]
-    init_paged_cache: Callable[..., Any]
-    prefill_paged: Callable[..., Tuple[torch.Tensor, Any]]
-    decode_paged: Callable[..., Tuple[torch.Tensor, Any]]
+    init_paged_cache: Optional[Callable[..., Any]]
+    prefill_paged: Optional[Callable[..., Tuple[torch.Tensor, Any]]]
+    decode_paged: Optional[Callable[..., Tuple[torch.Tensor, Any]]]
     serving_params: Callable[[Params], Params]
     input_fields: Tuple[str, ...] = ("tokens",)
     padded_prefill: bool = True
@@ -66,12 +71,13 @@ class Model:
                 and self.decode_paged is not None)
 
 
-_FAMILIES = {"dense": transformer, "moe": moe, "whisper": whisper}
+_FAMILIES = {"dense": transformer, "moe": moe, "whisper": whisper, "xlstm": xlstm,
+             "zamba": zamba}
 
+# what the port still refuses, with the ROADMAP item that ports it
 _NOT_PORTED = {
-    "xlstm": "ROADMAP queue 1, item 10b (other families: models/xlstm.py)",
-    "zamba": "ROADMAP queue 1, item 10b (other families: models/zamba.py with "
-             "ssm_common.py)",
+    "num_image_tokens": "the VLM patch-embedding prefix is not ported yet (ROADMAP "
+                        "queue 1, item 10b)",
 }
 
 
@@ -79,12 +85,10 @@ def build(cfg: ModelConfig, device: Union[str, torch.device, None] = DEFAULT_DEV
     """Bind the family of ``cfg`` to ``device`` (default ``"cuda"``; raises
     when CUDA is absent unless the caller asks for ``"cpu"``)."""
     if cfg.family not in _FAMILIES:
-        why = _NOT_PORTED.get(cfg.family, "no port planned")
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet: {why}")
+        raise NotImplementedError(f"family {cfg.family!r} is not a family of the JAX "
+                                  f"package (known: {sorted(_FAMILIES)})")
     if cfg.num_image_tokens:
-        raise NotImplementedError(
-            "the VLM patch-embedding prefix is not ported yet (ROADMAP queue 1, "
-            "item 10b)")
+        raise NotImplementedError(_NOT_PORTED["num_image_tokens"])
     dev = resolve_device(device)
     mod = _FAMILIES[cfg.family]
 
@@ -94,6 +98,19 @@ def build(cfg: ModelConfig, device: Union[str, torch.device, None] = DEFAULT_DEV
             generator.manual_seed(seed)
         return mod.init(cfg, generator)
 
+    # the recurrent families (O(1) state) have no paged path: None here,
+    # and the engine falls back to the dense slot cache
+    paged_kw: Dict[str, Any] = dict(init_paged_cache=None, prefill_paged=None,
+                                    decode_paged=None)
+    if hasattr(mod, "init_paged_cache"):
+        paged_kw = dict(
+            init_paged_cache=lambda num_pages, page_size, slots=1, max_len=None,
+            dtype=torch.bfloat16: mod.init_paged_cache(cfg, num_pages, page_size, dev, dtype,
+                                                       slots=slots, max_len=max_len),
+            prefill_paged=lambda params, tokens, cache, pages, slot, length:
+                mod.prefill_paged(cfg, params, tokens, cache, pages, slot, length),
+            decode_paged=lambda params, tokens, cache, pos, block_tables:
+                mod.decode_paged(cfg, params, tokens, cache, pos, block_tables))
     return Model(
         config=cfg,
         device=dev,
@@ -106,16 +123,11 @@ def build(cfg: ModelConfig, device: Union[str, torch.device, None] = DEFAULT_DEV
             mod.prefill(cfg, params, tokens, cache, slot, length),
         decode_step=lambda params, tokens, cache, pos:
             mod.decode_step(cfg, params, tokens, cache, pos),
-        init_paged_cache=lambda num_pages, page_size, slots=1, max_len=None,
-        dtype=torch.bfloat16: mod.init_paged_cache(cfg, num_pages, page_size, dev, dtype,
-                                                   slots=slots, max_len=max_len),
-        prefill_paged=lambda params, tokens, cache, pages, slot, length:
-            mod.prefill_paged(cfg, params, tokens, cache, pages, slot, length),
-        decode_paged=lambda params, tokens, cache, pos, block_tables:
-            mod.decode_paged(cfg, params, tokens, cache, pos, block_tables),
+        **paged_kw,
         serving_params=lambda params: mod.with_head_cast(cfg, params),
         input_fields=("frames", "tokens") if cfg.family == "whisper" else ("tokens",),
-        # moe is exact-length: padded tokens would route through the
-        # capacity-based dispatch and take expert capacity from real tokens
-        padded_prefill=cfg.family != "moe",
+        # exact-length prefill: padded tokens would route through moe's
+        # capacity-based dispatch and take expert capacity from real tokens,
+        # and the recurrent state consumes every token
+        padded_prefill=cfg.family not in ("xlstm", "zamba", "moe"),
     )

@@ -1,0 +1,268 @@
+"""xLSTM LM (sLSTM + mLSTM blocks, arXiv:2405.04517), in PyTorch.
+
+As the reference (``repro/models/xlstm.py``): every ``slstm_every``-th
+block is an sLSTM (scalar memory with recurrent weights: a per-step loop),
+all others are mLSTM (matrix memory) on the chunked linear recurrence of
+``ssm_common``.  The exponential input gate is a sigmoid; the mLSTM
+normalizer rides as an extra value channel (``v' = [v, 1]``, the state
+``dk + 1`` wide); blocks are residual pre-norm without FFNs.
+
+The params tree holds a **list**: ``blocks[i]`` is ``{"mlstm": {...}}`` or
+``{"slstm": {...}}``, so paths read ``blocks/0/slstm/wz``.  The sLSTM's
+recurrent matrices ``rz/ri/rf/ro`` (H, dh, dh) stay dense (the crossbar
+predicate leaves them out) and are a ``torch.einsum``, as in the reference.
+
+Decode state is O(1) in the sequence: per mLSTM layer a (B, H, dk, dk+1)
+f32 matrix, per sLSTM layer a tuple of three distinct (B, d) f32 tensors
+(c, n, h).  Prefill overwrites a slot's whole state with the final state of
+a fresh pass; decode advances every slot's state, live or not.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+from repro_torch.models.ssm_common import (DEFAULT_CHUNK, chunked_linear_recurrence,
+                                           recurrence_decode_step)
+from repro_torch.models.transformer import (_normal, _serving_head, head_matrix,
+                                            with_head_cast)
+
+Params = Dict[str, Any]
+
+__all__ = ["init", "forward", "head_matrix", "init_cache", "prefill", "decode_step",
+           "with_head_cast", "mlstm_block", "mlstm_decode", "slstm_block", "slstm_decode"]
+
+
+def _is_slstm(cfg: ModelConfig, i: int) -> bool:
+    return cfg.slstm_every > 0 and i % cfg.slstm_every == 0
+
+
+def _dense(g: torch.Generator, d_in: int, d_out: int, std: Optional[float] = None):
+    return _normal(g, (d_in, d_out), std or d_in ** -0.5, g.device)
+
+
+def _mlstm_init(g: torch.Generator, cfg: ModelConfig) -> Params:
+    d, h, dk = cfg.d_model, cfg.num_heads, cfg.hd()
+    return {
+        "norm": torch.ones((d,), device=g.device),
+        "wq": _dense(g, d, h * dk), "wk": _dense(g, d, h * dk), "wv": _dense(g, d, h * dk),
+        "wi": _dense(g, d, h, 0.02), "wf": _dense(g, d, h, 0.02),
+        "wo": _dense(g, d, h * dk), "wout": _dense(g, h * dk, d),
+        "bf": torch.full((h,), 2.0, device=g.device),   # forget-gate bias: remember
+    }
+
+
+def _mlstm_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig, dtype):
+    b, s, _ = x.shape
+    h, dk = cfg.num_heads, cfg.hd()
+    q = L.linear(p, "wq", x, dtype).reshape(b, s, h, dk)
+    k = (L.linear(p, "wk", x, dtype).reshape(b, s, h, dk)
+         / torch.sqrt(L._f32_scalar(float(dk), x.device)).to(dtype))
+    v = L.linear(p, "wv", x, dtype).reshape(b, s, h, dk)
+    v_aug = torch.cat([v, torch.ones((b, s, h, 1), dtype=dtype, device=x.device)], dim=-1)
+    log_a = F.logsigmoid(L.linear(p, "wf", x, dtype).float() + p["bf"])
+    gate = torch.sigmoid(L.linear(p, "wi", x, dtype).float())
+    o = torch.sigmoid(L.linear(p, "wo", x, dtype))
+    return q, k, v_aug, log_a, gate, o
+
+
+def _mlstm_finish(p: Params, y_aug: torch.Tensor, o: torch.Tensor, b: int, s: int, dtype):
+    # the normalizer channel: num / max(|den|, 1), in the recurrence's
+    # output dtype
+    num, den = y_aug[..., :-1], y_aug[..., -1:]
+    y = num / torch.clamp(den.abs(), min=1.0)
+    y = y.reshape(b, s, -1).to(dtype) * o
+    return L.linear(p, "wout", y, dtype)
+
+
+def mlstm_block(p: Params, x: torch.Tensor, cfg: ModelConfig, dtype,
+                state: Optional[torch.Tensor] = None, chunk: int = DEFAULT_CHUNK):
+    """Full-sequence mLSTM.  Returns (out, final_state)."""
+    b, s, _ = x.shape
+    xa = L.rmsnorm(x, p["norm"], cfg.norm_eps)
+    q, k, v_aug, log_a, gate, o = _mlstm_qkv(p, xa, cfg, dtype)
+    y_aug, fstate = chunked_linear_recurrence(q, k, v_aug, log_a, gate,
+                                              init_state=state, chunk=chunk)
+    return x + _mlstm_finish(p, y_aug, o, b, s, dtype), fstate
+
+
+def mlstm_decode(p: Params, x: torch.Tensor, cfg: ModelConfig, dtype, state: torch.Tensor,
+                 out: Optional[torch.Tensor] = None):
+    """One decode step (x: (B, 1, d)); ``out`` receives the new state."""
+    b = x.shape[0]
+    xa = L.rmsnorm(x, p["norm"], cfg.norm_eps)
+    q, k, v_aug, log_a, gate, o = _mlstm_qkv(p, xa, cfg, dtype)
+    y_aug, new_state = recurrence_decode_step(
+        q[:, 0], k[:, 0], v_aug[:, 0], log_a[:, 0], gate[:, 0], state, out=out)
+    return x + _mlstm_finish(p, y_aug[:, None], o, b, 1, dtype), new_state
+
+
+def _slstm_init(g: torch.Generator, cfg: ModelConfig) -> Params:
+    d, h = cfg.d_model, cfg.num_heads
+    dh = d // h
+    r = lambda: _normal(g, (h, dh, dh), dh ** -0.5, g.device)  # noqa: E731
+    return {
+        "norm": torch.ones((d,), device=g.device),
+        "wz": _dense(g, d, d), "rz": r(),
+        "wi": _dense(g, d, d), "ri": r(),
+        "wf": _dense(g, d, d), "rf": r(),
+        "wo_g": _dense(g, d, d), "ro": r(),
+        "wout": _dense(g, d, d),
+        "bf": torch.full((d,), 2.0, device=g.device),
+    }
+
+
+def _slstm_cell(p: Params, zx, ix, fx, ox, state, h_heads):
+    """One sLSTM step.  state: (c, n, hprev), each (B, d) f32."""
+    c, n, hp = state
+    hh = hp.reshape(*h_heads)
+    rec = lambda r: torch.einsum("bhd,hde->bhe", hh, r).reshape(c.shape)  # noqa: E731
+    z = torch.tanh(zx + rec(p["rz"]))
+    i = torch.sigmoid(ix + rec(p["ri"]))
+    f = torch.sigmoid(fx + rec(p["rf"]) + p["bf"])
+    o = torch.sigmoid(ox + rec(p["ro"]))
+    c = f * c + i * z
+    n = f * n + i
+    hcur = o * c / torch.clamp(n, min=1.0)
+    return (c, n, hcur), hcur
+
+
+def _slstm_inputs(p: Params, x: torch.Tensor, cfg: ModelConfig):
+    # the sLSTM's input projections run in f32, as the reference's
+    # L.linear(p, "wz", xa, float32): on the card the f32 kernel serves
+    # them, at M = S in prefill
+    xa = L.rmsnorm(x, p["norm"], cfg.norm_eps).float()
+    return tuple(L.linear(p, name, xa, torch.float32) for name in ("wz", "wi", "wf", "wo_g"))
+
+
+def slstm_block(p: Params, x: torch.Tensor, cfg: ModelConfig, dtype,
+                state: Optional[Tuple[torch.Tensor, ...]] = None):
+    """Full-sequence sLSTM, one step at a time.  Returns (out, final_state)."""
+    b, s, d = x.shape
+    heads = (b, cfg.num_heads, d // cfg.num_heads)
+    zx, ix, fx, ox = _slstm_inputs(p, x, cfg)
+    if state is None:
+        state = tuple(torch.zeros((b, d), dtype=torch.float32, device=x.device)
+                      for _ in range(3))
+    hs = []
+    for t in range(s):
+        state, hcur = _slstm_cell(p, zx[:, t], ix[:, t], fx[:, t], ox[:, t], state, heads)
+        hs.append(hcur)
+    y = L.linear(p, "wout", torch.stack(hs, dim=1).to(dtype), dtype)
+    return x + y, state
+
+
+def slstm_decode(p: Params, x: torch.Tensor, cfg: ModelConfig, dtype, state):
+    b, _, d = x.shape
+    zx, ix, fx, ox = (t[:, 0] for t in _slstm_inputs(p, x, cfg))
+    new_state, hcur = _slstm_cell(p, zx, ix, fx, ox, state, (b, cfg.num_heads, d // cfg.num_heads))
+    y = L.linear(p, "wout", hcur[:, None].to(dtype), dtype)
+    return x + y, new_state
+
+
+# ---------------------------------------------------------------------------
+# model
+# ---------------------------------------------------------------------------
+
+def init(cfg: ModelConfig, generator: torch.Generator) -> Params:
+    """Random params on the generator's device, shaped and keyed like the
+    reference's ``init`` (same distributions; other draws): ``blocks`` is a
+    list of per-layer dicts."""
+    dev = generator.device
+    blocks = [{"slstm": _slstm_init(generator, cfg)} if _is_slstm(cfg, i)
+              else {"mlstm": _mlstm_init(generator, cfg)} for i in range(cfg.num_layers)]
+    return {
+        "embed": _normal(generator, (cfg.vocab_size, cfg.d_model), 0.02, dev),
+        "blocks": blocks,
+        "final_norm": torch.ones((cfg.d_model,), device=dev),
+        "head": _normal(generator, (cfg.d_model, cfg.vocab_size), 0.02, dev),
+    }
+
+
+def _block_fn(cfg: ModelConfig, bp: Params, dtype):
+    if "slstm" in bp:
+        return lambda x: slstm_block(bp["slstm"], x, cfg, dtype)[0]
+    return lambda x: mlstm_block(bp["mlstm"], x, cfg, dtype)[0]
+
+
+def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor], *,
+            remat: bool = False, q_chunk: int = 0, return_hidden: bool = False
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Full-sequence forward.  Returns (logits (B, S, V), {}); with
+    ``return_hidden`` the final hidden states instead.  ``remat``
+    recomputes each block in the backward pass, as the reference's
+    ``jax.checkpoint`` per block."""
+    del q_chunk
+    dtype = L.DTYPES[cfg.dtype]
+    x = L.embed_lookup(params["embed"], batch["tokens"], dtype)
+    for bp in params["blocks"]:
+        fn = _block_fn(cfg, bp, dtype)
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(fn, x, use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = fn(x)
+    x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    if return_hidden:
+        return x, {}
+    return L.lm_logits(x, _serving_head(cfg, params), dtype), {}
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device,
+               dtype=torch.bfloat16) -> Dict[str, Any]:
+    """The O(1) recurrent state, f32 whatever ``dtype`` is; ``max_len`` is
+    irrelevant (kept for the interface).  An sLSTM layer holds three
+    distinct buffers (c, n, h)."""
+    del max_len, dtype
+    h, dk, d = cfg.num_heads, cfg.hd(), cfg.d_model
+    zeros = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=device)  # noqa: E731
+    return {f"layer{i}": (tuple(zeros(batch, d) for _ in range(3)) if _is_slstm(cfg, i)
+                          else zeros(batch, h, dk, dk + 1))
+            for i in range(cfg.num_layers)}
+
+
+def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, cache: Dict[str, Any],
+            slot: int, length: int) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Bulk prefill of one slot: a full-sequence pass from a fresh state
+    (chunked mLSTM, stepped sLSTM), then each layer's final state written
+    over the slot's whole state, in place.  tokens: (1, S), NOT padded: the
+    recurrent state consumes every token, so the engine prefills this
+    family at the exact prompt length (``Model.padded_prefill``)."""
+    dtype = L.DTYPES[cfg.dtype]
+    x = L.embed_lookup(params["embed"], tokens, dtype)
+    for i, bp in enumerate(params["blocks"]):
+        leaf = cache[f"layer{i}"]
+        if "slstm" in bp:
+            x, fstate = slstm_block(bp["slstm"], x, cfg, dtype)
+            for buf, st in zip(leaf, fstate):
+                buf[slot].copy_(st[0])
+        else:
+            x, fstate = mlstm_block(bp["mlstm"], x, cfg, dtype)
+            leaf[slot].copy_(fstate[0])
+    x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    logits = L.lm_logits(x[:, length - 1:length], _serving_head(cfg, params), dtype)
+    return logits[:, 0], cache
+
+
+def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor, cache: Dict[str, Any],
+                pos: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """One decode step for every slot (tokens (B, 1)); the state carries the
+    position, so ``pos`` is unused.  Every layer's state advances in place in
+    the cache's buffers."""
+    del pos
+    dtype = L.DTYPES[cfg.dtype]
+    x = L.embed_lookup(params["embed"], tokens, dtype)
+    for i, bp in enumerate(params["blocks"]):
+        key = f"layer{i}"
+        if "slstm" in bp:
+            x, new_state = slstm_decode(bp["slstm"], x, cfg, dtype, cache[key])
+            for buf, st in zip(cache[key], new_state):
+                buf.copy_(st)
+        else:
+            x, _ = mlstm_decode(bp["mlstm"], x, cfg, dtype, cache[key], out=cache[key])
+    x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return L.lm_logits(x, _serving_head(cfg, params), dtype), cache

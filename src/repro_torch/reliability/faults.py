@@ -48,7 +48,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.fragments import is_crossbar_weight
-from repro_torch.core.paths import path_str
+from repro_torch.core.paths import iter_leaves, map_with_path
 from repro_torch.forms.linear import FormsLinearParams
 from repro_torch.forms.spec import FormsSpec
 from repro_torch.reliability import encoding as ENC
@@ -447,17 +447,7 @@ def _run_bounded(jobs: List[Tuple[int, Callable[[], Any]]], budget: int) -> List
 def replace_leaves(tree: Any, new: Dict[str, Any], prefix: Tuple = ()) -> Any:
     """``tree`` with the leaves at the paths of ``new`` replaced; every
     other leaf is passed through by reference."""
-    if isinstance(tree, dict):
-        return {k: replace_leaves(v, new, prefix + (k,)) for k, v in tree.items()}
-    return new.get(path_str(prefix), tree)
-
-
-def _walk(tree: Any, prefix: Tuple = ()) -> Iterator[Tuple[str, Any]]:
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _walk(tree[k], prefix + (k,))
-    elif tree is not None:
-        yield path_str(prefix), tree
+    return map_with_path(lambda p, leaf: new.get(p, leaf), tree, prefix)
 
 
 def inject_tree(
@@ -481,7 +471,7 @@ def inject_tree(
     wanted = set(paths) if paths is not None else None
     report = FaultReport(model=fault)
     todo: List[Tuple[str, FormsLinearParams]] = []
-    for pstr, leaf in _walk(params):
+    for pstr, leaf in iter_leaves(params):
         if isinstance(leaf, FormsLinearParams):
             if wanted is None or pstr in wanted:
                 todo.append((pstr, leaf))

@@ -6,8 +6,10 @@ The reference's hot-path properties carry over:
 
 * **Bulk prefill** — admitting a prompt costs one prefill call (full-prompt
   attention + a one-shot cache write), with prompts padded to power-of-two
-  buckets; the MoE family (``Model.padded_prefill`` False) is prefilled at
-  the exact prompt length, since pad tokens would take expert capacity.
+  buckets; the MoE family and the recurrent families
+  (``Model.padded_prefill`` False) are prefilled at the exact prompt
+  length, since pad tokens would take expert capacity or advance the
+  recurrent state.
 * **In-place caches** — the cache is updated in place; the reference gets
   the same effect by donating the cache into its jitted steps.
 * **On-device sampling** — greedy and temperature sampling run on the
@@ -20,7 +22,10 @@ With ``page_size=...`` (the default, 16) the cache is a page pool: the
 :class:`Scheduler` admits by free-page budget and shares page-aligned
 prompt prefixes through a :class:`~repro_torch.serving.kv_cache.PrefixCache`.
 ``page_size=0`` (or None) serves on the dense ``(layers, slots, max_len,
-...)`` slot cache and admits by free slot.
+...)`` slot cache and admits by free slot.  The recurrent families (xlstm,
+zamba: O(1) decode state, ``Model.supports_paged`` False) have no paged
+path and serve on the dense slot cache whatever ``page_size`` asks, as in
+the reference (``engine.paged`` says which cache serves).
 With ``forms=True``/``spec=...`` the engine compresses the weights once
 (``repro_torch.forms.compress_tree``) and serves the compressed tree: every
 projection runs the polarized-matmul kernel on uint8 magnitudes and int8
@@ -28,7 +33,8 @@ fragment signs.  ``zero_skip="block"``/``"compact"`` serves it with input
 zero-skipping, and ``zero_skip_stats=True`` measures the decode path's
 per-layer input sparsity into ``stats()["sparsity"]``.
 
-With ``slo=SLOConfig(...)`` (paged cache only) the engine runs the SLO
+With ``slo=SLOConfig(...)`` (paged cache only; refused for the recurrent
+families) the engine runs the SLO
 fleet scheduler (``serving/sched.py``): chunked prefill under a per-round
 token budget through :meth:`ModelRunner.prefill_chunk`, priority classes
 with preemption by page eviction, EDF within a class, and TTFT and
@@ -41,8 +47,8 @@ self-speculative (``serving/speculate.py``): a low-bit draft derived from
 the served weights drafts up to ``draft_k`` tokens and the target verifies
 them in one multi-token call, so a round yields 1 to ``draft_k + 1`` tokens
 per slot; the scheduler advances each slot by the runner's ``counts``.  On
-the dense cache ``speculate=True`` falls back to the plain runner, as in
-the reference.
+the dense cache (the recurrent families included) ``speculate=True`` falls
+back to the plain runner, as in the reference.
 
 With ``health=HealthConfig(...)`` (compressed trees only) the schedulers
 tick the reliability loop (``reliability/health.py``): golden-probe drift
@@ -135,10 +141,12 @@ def sample_on_device(logits: torch.Tensor, temps: torch.Tensor,
 
 
 def cache_nbytes(cache: Any) -> int:
-    """Device bytes of a paged cache or of the dense cache's leaves."""
+    """Device bytes of a paged cache or of the dense cache's leaves (an
+    sLSTM layer's leaf is a tuple of three tensors)."""
     if isinstance(cache, KV.PagedKVCache):
         return cache.nbytes()
-    return sum(t.numel() * t.element_size() for t in cache.values())
+    return sum(t.numel() * t.element_size() for v in cache.values()
+               for t in (v if isinstance(v, tuple) else (v,)))
 
 
 class ModelRunner:
@@ -532,7 +540,8 @@ class ServingEngine:
     """Continuous-batching engine facade: optional FORMS compression, a
     :class:`ModelRunner` (or the speculative runner) and a
     :class:`Scheduler`, over a paged KV cache (``page_size=...``, the
-    default 16) or the dense slot cache (``page_size=0``).
+    default 16) or the dense slot cache (``page_size=0``, and the recurrent
+    families whatever ``page_size`` is).
 
     ``device`` defaults to ``"cuda"`` and must match the model's device;
     without CUDA the caller has to ask for ``"cpu"``.  ``plan={path:
@@ -607,15 +616,19 @@ class ServingEngine:
                                                                 plan=plan)
         self.max_len = max_len
         self.slots = batch_slots
-        self.paged = bool(page_size)
+        # the recurrent families have no paged path: page_size falls back to
+        # the dense slot cache, as in the reference
+        self.paged = bool(page_size) and model.supports_paged
         self.page_size: Optional[int] = int(page_size) if self.paged else None
         if slo is not None and not self.paged:
             raise ValueError(
                 "slo= (the SLO-aware fleet scheduler) schedules pages: chunked "
                 "prefill and preemption by page eviction need the paged KV cache "
-                "— pass page_size=...")
-        # speculation verifies on the paged cache; the dense cache falls
-        # back to the plain runner, as in the reference
+                "— pass page_size=... and an attention family (recurrent families "
+                "have no paged path)")
+        # speculation verifies on the paged cache; the dense cache (and so
+        # the recurrent families) falls back to the plain runner, as in the
+        # reference
         self.speculative = bool(speculate) and self.paged
         allocator = prefix = None
         if self.paged:

@@ -82,12 +82,12 @@ def test_cuda_is_the_default_and_never_silently_the_cpu(monkeypatch):
 
 
 def test_other_families_name_their_roadmap_item():
-    """The MoE family (with MLA and MTP) and whisper are ported; xlstm,
-    zamba and the VLM prefix are not, and name their item."""
-    for family in ("xlstm", "zamba"):
-        cfg = dataclasses.replace(get_reduced("qwen2-1.5b"), family=family)
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 10b"):
-            registry.build(cfg, device="cpu")
+    """The MoE family (with MLA and MTP), whisper and the recurrent families
+    (xlstm, zamba) are ported; the VLM prefix is not, and names its item."""
+    for arch in ("xlstm-350m", "zamba2-2.7b"):
+        model = registry.build(get_reduced(arch), device="cpu")
+        assert not model.padded_prefill and not model.supports_paged
+        assert model.init_paged_cache is None and model.decode_paged is None
     vlm = dataclasses.replace(get_reduced("qwen2-1.5b"), num_image_tokens=16)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 10b"):
         registry.build(vlm, device="cpu")
@@ -102,7 +102,9 @@ def test_other_families_name_their_roadmap_item():
                                     "reliability/health.py", "models/moe.py",
                                     "configs/olmoe_1b_7b.py", "models/whisper.py",
                                     "configs/deepseek_v3_671b.py",
-                                    "configs/whisper_small.py"])
+                                    "configs/whisper_small.py", "models/ssm_common.py",
+                                    "models/xlstm.py", "models/zamba.py",
+                                    "configs/xlstm_350m.py", "configs/zamba2_2_7b.py"])
 def test_reliability_and_moe_are_the_ports_own(module):
     """The fault injector is host numpy in the reference too; the port keeps
     its own copy and draws from numpy, never from JAX."""

@@ -246,12 +246,16 @@ def test_only_a_layers_expert_slices_are_rebuilt_off_the_cpu():
 
 def test_mla_is_refused_naming_its_item():
     """MLA and the MTP module are ported now (``tests/test_torch_mla.py``):
-    an olmoe config given them builds, with the latent cache; what the
-    registry still refuses names its ROADMAP item."""
+    an olmoe config given them builds, with the latent cache; so do the
+    recurrent families (exact-length prefill, no paged path); what the
+    registry still refuses, the VLM prefix, names its ROADMAP item."""
     mla = dataclasses.replace(get_reduced(ARCH), mla=MLAConfig(), mtp=True, dtype="float32")
     model = torch_build(mla, device="cpu")
     assert set(model.init_cache(1, 8)) == {"c_kv", "k_rope"}
     assert "mtp" in model.init(0)
-    for over in (dict(family="xlstm"), dict(family="zamba"), dict(num_image_tokens=4)):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 10b"):
-            torch_build(dataclasses.replace(get_reduced(ARCH), **over), device="cpu")
+    for family in ("xlstm", "zamba"):
+        recurrent = torch_build(dataclasses.replace(get_reduced(ARCH), family=family),
+                                device="cpu")
+        assert recurrent.padded_prefill is False and recurrent.supports_paged is False
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 10b"):
+        torch_build(dataclasses.replace(get_reduced(ARCH), num_image_tokens=4), device="cpu")

@@ -6,6 +6,7 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+import torch
 
 from repro.configs import get_reduced as jax_reduced
 from repro import forms as jforms
@@ -26,10 +27,13 @@ def configs(dtype="float32"):
 
 
 def to_numpy(tree):
-    """A JAX params tree as nested numpy dicts; compressed leaves become the
-    bridge's ``{"mags", "signs", "scale", "meta"}`` dicts."""
+    """A JAX params tree as nested numpy dicts (and lists, as xLSTM's
+    blocks); compressed leaves become the bridge's ``{"mags", "signs",
+    "scale", "meta"}`` dicts."""
     if isinstance(tree, dict):
         return {k: to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_numpy(v) for v in tree]
     if isinstance(tree, JaxForms):
         meta = {f: getattr(tree, f) for f in FORMS_META}
         return {"mags": np.asarray(tree.mags), "signs": np.asarray(tree.signs),
@@ -92,3 +96,46 @@ def shared_codes(m=8, bits=8):
         return jnp.asarray(t.numpy())
 
     return conv(tc), tc
+
+
+def port_to_jax(tree):
+    """A port params tree (dicts, lists, FORMS leaves, CPU tensors) as the
+    reference's, the same numbers and codes."""
+    if isinstance(tree, dict):
+        return {k: port_to_jax(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [port_to_jax(v) for v in tree]
+    if isinstance(tree, tforms.FormsLinearParams):
+        return _jax_leaf(tree)
+    return jnp.asarray(tree.numpy())
+
+
+def prefill_and_stepwise(model, params, prompt, to, slot=1, slots=2, max_len=16):
+    """(prefill logits (V,), stepwise decode's last logits (V,)) of
+    ``prompt`` at ``slot`` of a 2-slot f32 dense cache, in either package
+    (``to``: ``torch.from_numpy`` or ``jnp.asarray``): the reference's
+    ``test_prefill_matches_stepwise_all_families`` for a model prefilled at
+    the exact prompt length."""
+    port = to is torch.from_numpy
+    f32 = torch.float32 if port else jnp.float32
+    cache = model.init_cache(slots, max_len, dtype=f32)
+    toks = np.asarray(prompt, np.int32)[None, :]
+    pre, _ = model.prefill(params, to(toks), cache, slot, len(prompt))
+    cache = model.init_cache(slots, max_len, dtype=f32)
+    pos = np.zeros(slots, np.int32)
+    for t in prompt:
+        tb = np.zeros((slots, 1), np.int32)
+        tb[slot, 0] = t
+        lg, cache = model.decode_step(params, to(tb), cache, to(pos.copy()))
+        pos[slot] += 1
+    return np.asarray(pre[0]), np.asarray(lg[slot, 0])
+
+
+def engine_requests(cls, n=3, new=6, vocab=256):
+    rng = np.random.RandomState(0)
+    return [cls(uid=i, prompt=rng.randint(0, vocab, rng.randint(3, 12)), max_new_tokens=new)
+            for i in range(n)]
+
+
+def result_tokens(results):
+    return {r.uid: list(r.tokens) for r in results}
