@@ -117,13 +117,14 @@ Phases, each printing JSON lines:
                decode and prefill ms;
 10d. reliability — ``reliability/*`` on the slice's engine and tree
                (HealthConfig(probe_every=4)): zero-noise injection into the
-               whole tree under binary and vecom (the slice's tokens, every
+               attention leaves (a cut of the whole tree, printed) under
+               binary and vecom (the slice's tokens, every
                probe's drift exactly 0); stuck cells on two named leaves
                before the run (the first tick flags exactly those two, the
                repair's drift at most the threshold, the slice's tokens);
                a chaos fault at round 2 with probes every 2 rounds (every
                request completes, a repair logged); variation sigma=0.1,
-               rho=0.6 on the whole tree, binary then vecom, without the
+               rho=0.6 on the same leaves, binary then vecom, without the
                monitor (codes changed and mean |dcode|, vecom below binary,
                greedy agreement reported); one stats_every line; each run's
                launches reckoned with its probes (M=8); probe ms, scan s,
@@ -180,6 +181,29 @@ Phases, each printing JSON lines:
                step); the model check on the full-width model cut to 6
                layers (one group); #1 and #4 held and timed at its six
                matrix shapes;
+10j. cnn      — the paper's CNN pipeline (``launch/cnn_pipeline``): on
+               ``tiny_cnn()`` at the reference's step counts (m=4), trained
+               and evaluated on the card with ``tests/test_system.py``'s
+               thresholds, each phase's ms and images/s, launches reckoned;
+               then LeNet-5, VGG-16 and ResNet-18 at their published widths,
+               not cut (random weights from seed 0, batch 64): 1 pretrain
+               step, 2 ADMM SGD steps ending in one fresh Z-update (timed),
+               project_hard, 1 fine-tune step; #4 bit for bit at every conv
+               and FC matrix (sum rule, K padded), timed; compress_tree;
+               the compressed forward against the decompressed one and, at
+               batch 4, against the CPU; #1 held at every FC (shape, M),
+               timed at M=64 beside the f32 torch.matmul and the bound;
+               apply_simulated on every FC leaf, #3 exact and timed; the
+               mean EIC and the paper's ReRAM model numbers (not card
+               times);
+10k. vlm      — full-width phi-3-vision-4.2b (32 layers, d_model 3072, MHA,
+               vocab 32064, untied head), random weights from seed 0,
+               compressed (225 polarizations reckoned) and served text-only
+               on the paged cache with the slice's settings, twice (the same
+               tokens), launches reckoned; the f32 model cut to 2 layers at
+               full width: forward on 1,024 patch positions + 16 tokens,
+               card vs CPU on the hidden states; #1 held at every (shape, M)
+               of the run, timed at M=4;
 11. zero_skip — the same model with ReLU and 50% fragment sparsity, one tree
                compressed once, served with zero_skip off, block and compact:
                block gives off's tokens through the skip kernel, compact's
@@ -207,6 +231,8 @@ Phases, each printing JSON lines:
 14b. train_moe — a reduced deepseek-v3 (MLA + MTP) and a reduced olmoe
                (f32), two steps each on the card and on the CPU: losses
                agree, and carry the load-balance and MTP terms;
+14c. train_recurrent — reduced xlstm-350m and zamba2-2.7b (f32), two steps
+               each on the card and on the CPU: losses agree;
 15. train    — full-width qwen2-1.5b (random weights from a seed) trained
                through ``repro_torch.training`` with ADMM: 6 steps of 8 x
                256 tokens, Z-updates after steps 2 (fresh), 4 (fresh, sign
@@ -2849,6 +2875,11 @@ def phase_dense_configs():
 STUCK_LEAVES = ("blocks/attn/wo", "blocks/attn/wq")
 CHAOS_LEAF = "blocks/attn/wk"
 PROBE_EVERY = 4
+# the zero-noise and sigma injections' leaves: the attention leaves, 12% of
+# the tree's cells.  A cut: the whole tree's four host injections took
+# ~250 s of a ~800 s script (the injector walks each leaf's cells on one
+# sequential normal stream, the reference's semantics)
+INJECT_LEAVES = ("blocks/attn/wk", "blocks/attn/wo", "blocks/attn/wq", "blocks/attn/wv")
 
 
 def host_peak_gb() -> float:
@@ -2871,21 +2902,21 @@ def with_encoding(tree, encoding: str):
 def phase_reliability(plain_engine, plain_tokens):
     """``reliability/*`` on the slice-1 engine's full-width qwen2-1.5b tree
     (FORMS m=8, 8 bits, paged, the slice's 4 requests of 16 new tokens),
-    ``HealthConfig(probe_every=4)``: (1) zero noise on the whole tree under
-    ``binary`` and ``vecom``: the slice's tokens, every probe's drift
-    exactly 0; (2) stuck cells (1e-3 on, 1e-3 off) on two named leaves
+    ``HealthConfig(probe_every=4)``: (1) zero noise on INJECT_LEAVES (a cut
+    of the whole tree, printed) under ``binary`` and ``vecom``: the slice's
+    tokens, every probe's drift exactly 0; (2) stuck cells (1e-3 on, 1e-3 off) on two named leaves
     before the run: the first tick flags exactly those two, repair brings
     the drift to at most the threshold (exactly 0), the slice's tokens;
     (3) a chaos fault scheduled for round 2 (probes every 2 rounds here, so
     it strikes mid-run): every request completes, a repair is logged;
-    (4) variation sigma=0.1, rho=0.6 on the whole tree, binary then vecom,
+    (4) variation sigma=0.1, rho=0.6 on INJECT_LEAVES, binary then vecom,
     served without the monitor: codes changed, mean |dcode| (vecom below
     binary), greedy agreement with the slice's tokens (no gate: random
     weights have near-ties); (5) the stat line of ``stats_every=4``.  Each
     run's launches reckoned: the route's prefills and decode steps, and two
     probe forwards at M=8 (the f32 kernel) per probe.  Times: probe ms,
     scan s (1.31 GB device to host and compared), repair ms, each
-    whole-tree injection's s, and the host's peak RSS."""
+    injection's s, and the host's peak RSS."""
     import contextlib
     import io
 
@@ -2901,7 +2932,9 @@ def phase_reliability(plain_engine, plain_tokens):
     prompts = slice_prompts(cfg)
     per_call = 7 * cfg.num_layers
     route = lambda M: pm.uses_tensor_cores(torch.bfloat16, torch.uint8, "cuda", M)
-    cells = sum(leaf.mags.numel() * 4 for leaf in compressed_paths(tree).values())
+    leaves = compressed_paths(tree)
+    cells = sum(leaf.mags.numel() * 4 for leaf in leaves.values())
+    cut_cells = sum(leaves[p].mags.numel() * 4 for p in INJECT_LEAVES)
     peak0 = host_peak_gb()
 
     def engine(encoding="binary", health=True, probe_every=PROBE_EVERY, **kw):
@@ -2942,13 +2975,16 @@ def phase_reliability(plain_engine, plain_tokens):
         torch.cuda.synchronize()
         return rep, time.perf_counter() - t
 
-    out = {"cells": cells, "host_peak_gb_before": peak0}
+    out = {"cells": cells, "host_peak_gb_before": peak0,
+           "cut": {"injected_leaves": list(INJECT_LEAVES), "cells": cut_cells,
+                   "of_cells": cells, "note": "zero-noise and sigma injections on the "
+                                              "attention leaves, not the whole tree"}}
     launches = [0, 0]
     # 1. zero noise, both encodings
     for enc in ("binary", "vecom"):
         eng = engine(enc)
         drifts = watched(eng)
-        rep, inj_s = injected(eng, FaultModel())
+        rep, inj_s = injected(eng, FaultModel(), paths=list(INJECT_LEAVES))
         run = run_checked(eng, f"zero-noise {enc}")
         h = eng.stats()["health"]
         out[f"zero_{enc}"] = {"inject_s": inj_s, "codes_changed": rep.codes_changed,
@@ -3008,10 +3044,11 @@ def phase_reliability(plain_engine, plain_tokens):
         raise AssertionError(f"chaos: {out['chaos']}")
     del eng
     gc.collect()
-    # 4. variation on the whole tree, binary then vecom, without the monitor
+    # 4. variation on the attention leaves, binary then vecom, without the monitor
     for enc in ("binary", "vecom"):
         eng = engine(enc, health=False)
-        rep, inj_s = injected(eng, FaultModel(sigma=0.1, rho=0.6, seed=0))
+        rep, inj_s = injected(eng, FaultModel(sigma=0.1, rho=0.6, seed=0),
+                              paths=list(INJECT_LEAVES))
         run = served(eng, prompts)
         pairs = [(run["tokens"][u], plain_tokens[u]) for u in plain_tokens]
         out[f"sigma_{enc}"] = {
@@ -3238,24 +3275,25 @@ def phase_train_moe():
     emit("train_moe", **rows)
 
 
-def polarize_rows(gen, shapes, flush):
-    """Kernel #4 (energy rule) at each matrix shape: bit for bit with its
-    plain version, timed beside it and its bound."""
+def polarize_rows(gen, shapes, flush, rule="energy"):
+    """Kernel #4 (``rule``: energy, as ``compress_tree`` calls it, or the
+    ADMM Z-update's sum) at each matrix shape: bit for bit with its plain
+    version, timed beside it and its bound."""
     import torch
     from repro_torch.kernels.admm_polarize import admm_polarize
     from repro_torch.kernels.ref import ref_admm_polarize
     rows = []
     for K, N in shapes:
         v = torch.randn((K, N), generator=gen, device="cuda")
-        outp, signs = admm_polarize(v, m=8, rule="energy")
-        want_p, want_s = ref_admm_polarize(v, 8, "energy")
+        outp, signs = admm_polarize(v, m=8, rule=rule)
+        want_p, want_s = ref_admm_polarize(v, 8, rule)
         torch.cuda.synchronize()
         rec = {"K": K, "N": N, "equal": torch.equal(outp.view(torch.int32),
                                                      want_p.view(torch.int32))
                and torch.equal(signs, want_s)}
         del outp, signs, want_p, want_s
-        rec["kernel_ms"] = timed_ms(lambda: admm_polarize(v, m=8, rule="energy"), flush)
-        rec["plain_ms"] = timed_ms(lambda: ref_admm_polarize(v, 8, "energy"), flush, reps=5)
+        rec["kernel_ms"] = timed_ms(lambda: admm_polarize(v, m=8, rule=rule), flush)
+        rec["plain_ms"] = timed_ms(lambda: ref_admm_polarize(v, 8, rule), flush, reps=5)
         rec["bound_ms"], rec["bound_by"] = polarize_bound((K, N))
         rows.append(rec)
         del v
@@ -3933,6 +3971,441 @@ def phase_zamba():
             "step_m4": step, "pol_tree": pol_tree}
 
 
+# --------------------------------------------------------------------------
+# the paper's CNN pipeline, the VLM patch prefix, recurrent training
+# --------------------------------------------------------------------------
+
+CNN_CHECK_BATCH = 4         # the card-vs-CPU forward
+CNN_TOL = 1e-4              # of the largest |logit|: card vs CPU, compressed vs decompressed
+CNN_ADMM_STEPS = 2          # the full-width configs' ADMM SGD steps, one fresh Z-update
+CNN_FULL_LR = 1e-4          # their SGD rate: ResNet-18 (no normalization) diverges from
+                            # random weights at the pipeline's 0.05 (loss 18 -> 4e8 -> nan)
+VLM_ARCH = "phi-3-vision-4.2b"
+VLM_CHECK_LAYERS = 2        # the f32 model card vs CPU: full width, this many layers
+VLM_CHECK_TEXT = 16         # text tokens after the 1,024 patch positions
+VLM_TOL = 1e-4              # of the largest |hidden|, card vs CPU
+RECURRENT_TRAIN = ("xlstm-350m", "zamba2-2.7b")
+
+
+def held_fc(name, leaf, x, flush=None):
+    """Kernel #1 on a compressed FC leaf at its input ``x`` (M, K) f32,
+    K padded to whole fragments as ``forms.apply`` pads it: two launches
+    equal bit for bit and held against the plain version within REL_TOL;
+    with ``flush``, timed beside the plain version, the f32 ``torch.matmul``
+    of x and the dense weight, and the bound."""
+    import torch
+    from repro_torch.forms import to_dense
+    from repro_torch.kernels import polarized_matmul as pm
+    from repro_torch.kernels.ref import ref_polarized_matmul_fast
+
+    kp = leaf.mags.shape[0]
+    xp = torch.nn.functional.pad(x, (0, kp - x.shape[1])).contiguous()
+    args = (xp, leaf.mags, leaf.signs, leaf.scale, leaf.m)
+    got, again = pm.polarized_matmul(*args), pm.polarized_matmul(*args)
+    want = ref_polarized_matmul_fast(*args)
+    torch.cuda.synchronize()
+    abs_err = float((got - want).abs().max())
+    rec = {"leaf": name, "M": x.shape[0], "K": leaf.k, "Kp": kp, "N": leaf.n,
+           "route": "tc" if pm.uses_tensor_cores(xp.dtype, leaf.mags.dtype, "cuda",
+                                                 x.shape[0]) else "f32",
+           "max_abs_err": abs_err, "max_rel_err": abs_err / max(float(want.abs().max()), 1e-30)}
+    if not torch.equal(got, again):
+        raise AssertionError(f"two launches differ: {rec}")
+    if not rec["max_rel_err"] <= REL_TOL:
+        raise AssertionError(f"kernel #1 disagrees with its plain version: {rec}")
+    if flush is not None:
+        w = to_dense(leaf)
+        rec["kernel_ms"] = timed_ms(lambda: pm.polarized_matmul(*args), flush)
+        rec["plain_ms"] = timed_ms(lambda: ref_polarized_matmul_fast(*args), flush)
+        rec["library_ms"] = timed_ms(lambda: torch.matmul(x, w), flush)
+        rec["bound_ms"], rec["bound_by"] = bound(x.shape[0], kp, leaf.n, 1, m=leaf.m)
+    return rec
+
+
+def cnn_tiny_pipeline():
+    """The port's pipeline on ``tiny_cnn()`` at the reference's step counts
+    (``tests/test_system.py``'s m = 4) on the card, then the launcher's
+    second half (``cnn_pipeline.evaluate``): ``test_system.py``'s thresholds,
+    each phase's ms, images/s, and the kernels' launches reckoned (#4 once
+    per matrix per fresh Z-update and per compressed leaf, #1 once per FC
+    leaf in the compressed forward, #3 once)."""
+    import torch
+    from repro_torch.core import admm as A
+    from repro_torch.core import polarization as P
+    from repro_torch.core.quantization import quantize_activations
+    from repro_torch.core.zeroskip import eic_stats
+    from repro_torch.data.synthetic import image_batch
+    from repro_torch.launch import cnn_pipeline as CP
+    from repro_torch.models import cnn as C
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    t = CP.train_forms_cnn(fragment=4, device="cuda")
+    train_counts = launch_counts()
+    reset_counts()
+    e, eval_ms = synced_ms(CP.evaluate, t)
+    counts = launch_counts()
+    wall = time.perf_counter() - t0
+    n_mat, n_fc = len(t["table"]), sum(1 for s in t["cfg"].arch if s[0] == "fc")
+    fresh = sum(1 for i in range(240) if (i + 1) % 30 == 0 and i < 240 * 0.6)
+    want = {"admm_polarize": fresh * n_mat + n_mat, "polarized_matmul": n_fc,
+            "bitserial_crossbar": 1}
+    got = {k: train_counts[k] + counts[k] for k in want}
+    polarized = all(bool(P.is_polarized(A._as_matrix(t["projected"][p], c), c.polarize.m))
+                    for p, c in t["table"].items())
+    img, _ = image_batch(t["ds"], 2000, "cuda")
+    with torch.no_grad():
+        _, acts = C.forward(t["cfg"], t["projected"], img, collect_activations=True)
+    saved = [eic_stats(quantize_activations(a.reshape(a.shape[0], -1), 16)[0], 4, 16).savings
+             for _, a in acts]
+    rep = e["rep"]
+    train_s = sum(t["phase_s"][k] for k in ("pretrain", "admm", "finetune"))
+    line = {"config": t["cfg"].name, "fragment": 4, "acc_pre": t["acc_pre"],
+            "acc_post": t["acc_post"], "phase_ms": {k: v * 1e3 for k, v in t["phase_s"].items()},
+            "evaluate_ms": eval_ms, "wall_s": wall, "images": t["images"],
+            "train_images_per_s": t["images"] / train_s, "polarized": polarized,
+            "quant_factor": rep.quant_factor, "polarization_factor": rep.polarization_factor,
+            "crossbar_reduction": rep.total, "max_zero_skip_savings": max(saved),
+            "compressed_argmax_agreement": e["agree"], "sim_rel_l2": e["sim_rel"],
+            "decompress_residual": e["resid"], "mean_eic": e["mean_eic"],
+            "fps_model": e["fps"], "launches": got, "launches_reckoned": want}
+    ok = (t["acc_pre"] > 0.6 and t["acc_post"] > t["acc_pre"] - 0.15 and polarized
+          and rep.quant_factor == 2.0 and rep.polarization_factor == 2.0 and rep.total >= 2.0
+          and max(saved) > 0.15 and got == want)
+    if not ok:
+        raise AssertionError(f"the tiny CNN pipeline on the card: {line}")
+    emit("cnn_tiny", **line)
+    return got
+
+
+def cnn_full(cfg, flush):
+    """One of the paper's CNNs at its published widths, random weights from
+    seed 0, batch 64: the pipeline's training cut to 1 pretrain step,
+    CNN_ADMM_STEPS ADMM SGD steps at CNN_FULL_LR ending in one fresh
+    Z-update (#4 once per constrained matrix, reckoned), ``project_hard``
+    and 1 projected fine-tune step; then the Z-update timed, #4 bit for bit
+    at every conv and FC matrix's shape (sum rule, K padded);
+    ``compress_tree`` (one polarization per crossbar leaf, reckoned); the
+    compressed forward (#1 once per FC leaf, reckoned) against the
+    decompressed one; #1 held at every FC (shape, M) of the run and timed
+    at M = 64; ``apply_simulated`` on every FC leaf (#3 once each,
+    reckoned), #3 exact against its plain version and timed; the mean EIC;
+    the paper's ReRAM model numbers; the compressed model at batch 4 on the
+    card against the CPU (the plain versions)."""
+    import torch
+    from repro_torch.core import admm as A
+    from repro_torch.core import crossbar as X
+    from repro_torch.core import perfmodel as PM
+    from repro_torch.core.quantization import quantize_activations, slice_to_cells
+    from repro_torch.core.zeroskip import fragment_eic
+    from repro_torch.data.synthetic import ImageStreamConfig, image_batch
+    from repro_torch.forms import apply_simulated, compress_tree, decompress_tree
+    from repro_torch.launch import cnn_pipeline as CP
+    from repro_torch.models import cnn as C
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t, train_ms = synced_ms(CP.train_forms_cnn, cfg, fragment=8, pretrain_steps=1,
+                            admm_steps=CNN_ADMM_STEPS, finetune_steps=1,
+                            admm_every=CNN_ADMM_STEPS, lr=CNN_FULL_LR, device="cuda")
+    train_pol = launch_counts()["admm_polarize"]
+    spec, table, params = t["spec"], t["table"], t["params"]
+    n_params = sum(v.numel() for v in params.values())
+    fcs = [f"fc{i}" for i, s in enumerate(cfg.arch) if s[0] == "fc"]
+    if train_pol != len(table):
+        raise AssertionError(f"{cfg.name}: the fresh Z-update launched #4 {train_pol} times "
+                             f"for {len(table)} matrices")
+    zs = [synced_ms(A.admm_update, params, t["admm_state"], table, refresh_signs=True)[1]
+          for _ in range(3)]
+    # kernel #4 at each constrained matrix's shape, K padded as kernels.ops pads it
+    mats = {p: A._as_matrix(params[p], c).shape for p, c in table.items()}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(37)
+    pol = [dict(r, leaf=p) for p, r in zip(mats, polarize_rows(
+        gen, [(-(-K // 8) * 8, N) for K, N in mats.values()], flush, rule="sum"))]
+    reset_counts()
+    with torch.no_grad():
+        (tree, crep), compress_ms = synced_ms(compress_tree, t["projected"], spec)
+    compress_pol = launch_counts()["admm_polarize"]
+    if compress_pol != crep.num_compressed or crep.num_compressed != len(table):
+        raise AssertionError(f"{cfg.name}: compress_tree polarized {compress_pol} matrices, "
+                             f"{crep.num_compressed} leaves, {len(table)} constrained")
+    img, lab = image_batch(t["ds"], 9000, "cuda")
+    reset_counts()
+    with torch.no_grad():
+        logits, fwd_ms = synced_ms(lambda: C.forward(cfg, tree, img)[0])
+    fwd = launch_counts()["polarized_matmul"]
+    with torch.no_grad():
+        dense_logits, acts = C.forward(cfg, decompress_tree(tree), img, collect_activations=True)
+    acts = dict(acts)
+    vs_dense = float((logits - dense_logits).abs().max()) / float(dense_logits.abs().max())
+    agree = float((logits.argmax(-1) == dense_logits.argmax(-1)).float().mean())
+    reset_counts()
+    with torch.no_grad():
+        sims = {n: apply_simulated(tree[n], acts[n], spec) for n in fcs}
+    torch.cuda.synchronize()
+    sim_launches = launch_counts()["bitserial_crossbar"]
+    if fwd != len(fcs) or sim_launches != len(fcs):
+        raise AssertionError(f"{cfg.name}: #1 launched {fwd}, #3 {sim_launches} times for "
+                             f"{len(fcs)} FC leaves")
+    # the card against the CPU, compressed, at batch 4 (FC on #1 at M = 4)
+    small = ImageStreamConfig(cfg.image_size, cfg.in_channels, cfg.num_classes,
+                              CNN_CHECK_BATCH)
+    img4, _ = image_batch(small, 9001, "cuda")
+    with torch.no_grad():
+        card, small_acts = C.forward(cfg, tree, img4, collect_activations=True)
+        cpu, _ = C.forward(cfg, _tree_to_dev(tree, "cpu"), img4.cpu())
+    card_vs_cpu = float((card.cpu() - cpu).abs().max()) / float(cpu.abs().max())
+    held = [held_fc(n, tree[n], dict(small_acts)[n]) for n in fcs]
+    m64 = [held_fc(n, tree[n], acts[n], flush) for n in fcs]
+    bit = []
+    for n in fcs:
+        leaf = tree[n]
+        x2 = torch.nn.functional.pad(acts[n], (0, leaf.mags.shape[0] - leaf.k))
+        codes, _ = quantize_activations(x2, spec.input_bits)
+        cells = slice_to_cells(leaf.mags, spec.quant).to(torch.uint8)
+        rec = bitserial_check(f"{cfg.name} {n}", codes.to(torch.int32), cells, leaf.signs,
+                              None, mags=leaf.mags, time_it=True, flush=flush)
+        _, eic, _ = sims[n]
+        if not torch.equal(eic, fragment_eic(codes, leaf.m, spec.input_bits)):
+            raise AssertionError(f"{cfg.name} {n}: apply_simulated's EIC is not the kernel's")
+        bit.append(rec)
+    mean_eic = CP.mean_eic(cfg, t["projected"], img, spec)
+    shapes = C.crossbar_weight_shapes(cfg, t["projected"])
+    rep = X.reduction_report(shapes, shapes, X.CrossbarSpec(), spec.quant, baseline_bits=16)
+    fps = PM.fps_speedup(rep.prune_factor, rep.quant_factor, fragment=spec.m,
+                         mean_eic=mean_eic)
+    line = {"config": cfg.name, "params": n_params, "batch": CP.BATCH, "fragment": 8,
+            "train_ms": train_ms, "phase_ms": {k: v * 1e3 for k, v in t["phase_s"].items()},
+            "z_update_ms": zs, "matrices": len(table), "compress_ms": compress_ms,
+            "compression": crep.summary(), "forward_ms": fwd_ms,
+            "images_per_s_forward": CP.BATCH / fwd_ms * 1e3,
+            "compressed_vs_decompressed": vs_dense, "argmax_agreement": agree,
+            "card_vs_cpu": card_vs_cpu, "tol": CNN_TOL, "mean_eic": mean_eic,
+            "reram_model": {"note": "the paper's ReRAM accelerator model, not card times",
+                            "crossbar_reduction": rep.total, "quant_factor": rep.quant_factor,
+                            "polarization_factor": rep.polarization_factor, "fps": fps},
+            "launches": {"admm_polarize": train_pol + compress_pol,
+                         "polarized_matmul": fwd, "bitserial_crossbar": sim_launches},
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if not (vs_dense <= CNN_TOL and card_vs_cpu <= CNN_TOL):
+        raise AssertionError(f"{cfg.name}: the compressed forward disagrees: {line}")
+    emit("cnn", **line)
+    emit("cnn_kernels", config=cfg.name,
+         polarize=[{k: r[k] for k in ("leaf", "K", "N", "kernel_ms", "plain_ms", "bound_ms",
+                                      "bound_by")} for r in pol],
+         polarize_z_update={k: sum(r[k] for r in pol) for k in ("kernel_ms", "plain_ms",
+                                                                  "bound_ms")},
+         held=[[r["leaf"], r["M"], r["K"], r["Kp"], r["N"], r["route"]] for r in held + m64],
+         max_rel_err=max(r["max_rel_err"] for r in held + m64),
+         fc_m64=[{k: r[k] for k in ("leaf", "K", "Kp", "N", "kernel_ms", "plain_ms",
+                                     "library_ms", "bound_ms", "bound_by")} for r in m64],
+         bitserial=[{k: r[k] for k in ("case", "M", "K", "N", "grid", "mmas", "kernel_ms",
+                                        "plain_ms", "library_ms", "bound_ms", "bound_by")}
+                    for r in bit])
+    del t, params, tree
+    return {"launches": line["launches"], "pol": pol, "fc": m64, "bit": bit}
+
+
+def phase_cnn():
+    """The paper's CNN pipeline on the card: ``cnn_tiny_pipeline``, then
+    ``cnn_full`` at LeNet-5, VGG-16 and ResNet-18 (not cut: 0.06 M, 14.98 M
+    and 11.24 M params; ResNet-18's stride-2 res blocks pad (0, 1) as XLA's
+    SAME).  Returns the launches of the path and the kernel rows."""
+    import torch
+    from repro_torch.configs.paper_cnns import LENET5, RESNET18, VGG16
+
+    tiny = cnn_tiny_pipeline()
+    scrub = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    flush = lambda: scrub.zero_()  # noqa: E731
+    full = {cfg.name: cnn_full(cfg, flush) for cfg in (LENET5, VGG16, RESNET18)}
+    del scrub
+    torch.cuda.empty_cache()
+    launches = {k: tiny[k] + sum(f["launches"][k] for f in full.values()) for k in tiny}
+    return {"launches": launches, "full": full}
+
+
+def phase_vlm():
+    """Full-width phi-3-vision-4.2b (32 layers, d_model 3072, 32 heads of 96,
+    MHA, d_ff 8192, vocab 32064, untied head; ~15 GB f32 at init), random
+    weights from seed 0, compressed (FORMS m=8, 8 bits, energy rule: 225
+    polarizations reckoned) and served text-only on the paged cache with
+    the slice-1 engine settings, the slice's 4 prompts twice: the same
+    tokens, #1 launches reckoned (7 per layer on the route of their M, the
+    head at M = 1 per prefill and M = 4 per decode step), decode and
+    prefill ms.  Then the f32 model cut to VLM_CHECK_LAYERS layers at full
+    width: ``forward`` on a ``make_inputs`` batch (1,024 patch positions +
+    VLM_CHECK_TEXT tokens) card vs CPU, on the hidden states.  #1 held at
+    every (shape, M) of the run, timed at M = 4."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import paths
+    from repro_torch.forms import FormsLinearParams, FormsSpec, compress_tree
+    from repro_torch.kernels import polarized_matmul as pm
+    from repro_torch.models.registry import build
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg = get_config(VLM_ARCH)
+    model = build(cfg, device="cuda")
+    spec = FormsSpec(m=8, bits=8, rule="energy")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, init_ms = synced_ms(model.init, 0)
+    n_params = sum(v.numel() for v in paths.leaves(params))
+    reset_counts()
+    with torch.inference_mode():
+        (tree, rep), compress_ms = synced_ms(compress_tree, params, spec)
+    pol = launch_counts()["admm_polarize"]
+    del params
+    torch.cuda.empty_cache()
+    init_peak = torch.cuda.max_memory_allocated() / 1e9
+    want_pol = 7 * cfg.num_layers + 1
+    head = tree["head"]
+    if pol != want_pol or not isinstance(head, FormsLinearParams):
+        raise AssertionError(f"{cfg.name}: compress_tree polarized {pol} matrices, reckoned "
+                             f"{want_pol}; head {type(head)}")
+    prompts = slice_prompts(cfg)
+    engine = ServingEngine(model, tree, spec=spec, page_size=16, batch_slots=4,
+                           max_len=SERVE_MAX_LEN, decode_block=4, device="cuda")
+    buckets = [engine.runner.bucket_for(len(p)) for p in prompts]
+    route = lambda M: pm.uses_tensor_cores(torch.bfloat16, torch.uint8, "cuda", M)  # noqa: E731
+    runs = []
+    for _ in range(2):
+        run = served(engine, prompts)
+        want = route_split(7 * cfg.num_layers, buckets, run["decode_steps"], 4)
+        want[route(1)] += len(prompts)
+        want[route(DECODE_M)] += run["decode_steps"]
+        got = [run["counts"]["polarized_matmul"], run["counts"]["polarized_matmul_tc"]]
+        if got != want:
+            raise AssertionError(f"{cfg.name}: launched {got}, reckoned {want}")
+        run["launches"] = got
+        runs.append(run)
+    if runs[0]["tokens"] != runs[1]["tokens"]:
+        raise AssertionError(f"two greedy {cfg.name} runs gave other tokens")
+    serve_peak = torch.cuda.max_memory_allocated() / 1e9
+    del engine, tree
+    torch.cuda.empty_cache()
+    check = vlm_model_check(cfg)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(29)
+    scrub = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    flush = lambda: scrub.zero_()  # noqa: E731
+    d, f, v = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    shapes = {"attn": (d, cfg.num_heads * cfg.hd()), "mlp_in": (d, f), "mlp_out": (f, d)}
+    held = [held_matmul(gen, M, *shape) for M in sorted(set(buckets)) for shape in shapes.values()]
+    held.append(held_matmul(gen, 1, d, v))
+    m4 = {n: held_matmul(gen, DECODE_M, *shape, flush=flush) for n, shape in shapes.items()}
+    m4["head"] = held_matmul(gen, DECODE_M, d, v, flush=flush)
+    held += list(m4.values())
+    calls = {"attn": 4, "mlp_in": 2, "mlp_out": 1}
+    layer = {k: sum(m4[n][k] * c for n, c in calls.items())
+             for k in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")}
+    layer["bound_by"] = bound_by([m4[n] for n in calls])
+    del scrub
+    last = runs[-1]
+    emit("vlm", arch=cfg.name, layers=cfg.num_layers, d_model=d, heads=cfg.num_heads,
+         head_dim=cfg.hd(), d_ff=f, vocab=v, num_image_tokens=cfg.num_image_tokens,
+         params=n_params, init_ms=init_ms, compress_s=compress_ms / 1e3,
+         compression=rep.summary(), polarize_launches=pol, init_peak_gb=init_peak,
+         serve_peak_gb=serve_peak, prompt_lens=[len(p) for p in prompts], buckets=buckets,
+         note="served text-only, as the reference's engine",
+         decode_steps=last["decode_steps"],
+         decode_step_ms=[r["decode_step_ms"] for r in runs],
+         mean_prefill_ms=[r["mean_prefill_ms"] for r in runs],
+         launches=last["launches"], tokens=last["tokens"])
+    emit("vlm_check", **check)
+    emit("vlm_kernels", held=[[r["M"], r["K"], r["N"], r["route"]] for r in held],
+         max_abs_err=max(r["max_abs_err"] for r in held),
+         max_rel_err=max(r["max_rel_err"] for r in held),
+         m4={n: {k: r[k] for k in ("route", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+                                   "bound_by")} for n, r in m4.items()}, layer_m4=layer)
+    return {"launches": last["launches"], "polarize_launches": pol, "layer_m4": layer,
+            "head_m4": m4["head"]}
+
+
+def vlm_model_check(cfg):
+    """phi-3-vision at f32, full width cut to VLM_CHECK_LAYERS layers, random
+    weights from seed 0 drawn on the CPU: ``forward(return_hidden=True)``
+    on one ``make_inputs`` batch (the 1,024 patch positions, then
+    VLM_CHECK_TEXT tokens) on the card and on the CPU, held at VLM_TOL of
+    the largest |hidden|; the patches lead the sequence, so the text
+    positions differ from a text-only forward."""
+    import torch
+    from repro_torch.models.registry import build
+
+    cut = dataclasses.replace(cfg, num_layers=VLM_CHECK_LAYERS, dtype="float32")
+    cpu_model = build(cut, device="cpu")
+    params = cpu_model.init(0)
+    g = torch.Generator()
+    g.manual_seed(31)
+    batch = cpu_model.make_inputs(g, 1, cfg.num_image_tokens + VLM_CHECK_TEXT)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        want, _ = cpu_model.forward(params, batch, return_hidden=True)
+    cpu_s = time.perf_counter() - t0
+    card_model = build(cut, device="cuda")
+    card_params = _tree_to_dev(params, "cuda")
+    card_batch = {k: v.to("cuda") for k, v in batch.items()}
+    with torch.inference_mode():
+        got, card_ms = synced_ms(lambda: card_model.forward(card_params, card_batch,
+                                                            return_hidden=True)[0])
+        text, _ = card_model.forward(card_params, {"tokens": card_batch["tokens"]},
+                                     return_hidden=True)
+    got = got.cpu()
+    rel = float((got - want).abs().max()) / float(want.abs().max())
+    prefix_moves = float((got[:, -VLM_CHECK_TEXT:] - text.cpu()).abs().max())
+    check = {"layers": [cfg.num_layers, VLM_CHECK_LAYERS], "positions": got.shape[1],
+             "patch_positions": cfg.num_image_tokens, "text": VLM_CHECK_TEXT,
+             "card_vs_cpu": rel, "tol": VLM_TOL, "prefix_moves_text": prefix_moves,
+             "card_ms": card_ms, "cpu_s": cpu_s}
+    del card_params, params
+    torch.cuda.empty_cache()
+    if not (got.shape == (1, cfg.num_image_tokens + VLM_CHECK_TEXT, cfg.d_model)
+            and rel <= VLM_TOL and prefix_moves > 1e-3):
+        raise AssertionError(f"{cfg.name}'s model check: {check}")
+    return check
+
+
+def phase_train_recurrent():
+    """Reduced xlstm-350m and zamba2-2.7b (f32), two ``make_train_step`` steps
+    each on the card and on the CPU from the same params and batches: the
+    losses agree within 1e-4 (zamba's f32 gradients are ill-conditioned at
+    its fast decays, so the second loss carries that, ROADMAP §3)."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.core import paths
+    from repro_torch.data.synthetic import LMStreamConfig, lm_batch
+    from repro_torch.models.registry import build
+    from repro_torch.training import train_loop
+
+    tcfg = train_config(learning_rate=1e-3, admm_enabled=False)
+    rows = {}
+    for arch in RECURRENT_TRAIN:
+        cfg = dataclasses.replace(get_reduced(arch), dtype="float32")
+        params = build(cfg, device="cpu").init(0)
+        ds = LMStreamConfig(vocab_size=cfg.vocab_size, seq_len=32, global_batch=4)
+        out = {}
+        for dev in ("cpu", "cuda"):
+            model = build(cfg, device=dev)
+            # a copy per device: the optimizer updates the params in place
+            copy = paths.tree_map(lambda t: t.to(dev, copy=True), params)
+            state, _ = train_loop.init_train_state(model, tcfg, params=copy)
+            step = train_loop.make_train_step(model, tcfg)
+            losses, norms = [], []
+            for i in range(2):
+                state, metrics = step(state, lm_batch(ds, i, dev))
+                losses.append(float(metrics["loss"]))
+                norms.append(float(metrics["grad_norm"]))
+            out[dev] = {"losses": losses, "grad_norms": norms}
+        err = max(abs(a - b) / abs(b) for a, b in zip(out["cuda"]["losses"],
+                                                      out["cpu"]["losses"]))
+        rows[arch] = {"runs": out, "max_rel_loss_err": err}
+        if not (err <= 1e-4 and all(math.isfinite(v) for v in out["cuda"]["grad_norms"])):
+            raise AssertionError(f"{arch}: the recurrent train step on the card: {rows[arch]}")
+    emit("train_recurrent", **rows)
+
+
 def _tree_to_dev(tree, dev):
     """A params tree (FORMS leaves included) copied to ``dev``."""
     from repro_torch.forms import FormsLinearParams
@@ -4001,6 +4474,7 @@ def main() -> int:
     small_launches = phase_small()
     phase_train_small()
     phase_train_moe()
+    phase_train_recurrent()
     launches, slice_engine, slice_tokens = phase_slice()
     torch.cuda.empty_cache()
     spec_launches, verify_rows, uniform_draft = phase_speculate(
@@ -4028,6 +4502,10 @@ def main() -> int:
         xlstm = phase_xlstm()
         torch.cuda.empty_cache()
         zamba = phase_zamba()
+        torch.cuda.empty_cache()
+        cnn = phase_cnn()
+        torch.cuda.empty_cache()
+        vlm = phase_vlm()
         torch.cuda.empty_cache()
         tree, cfg, prompts, skip_launches = phase_zero_skip()
         bit_launches, fidelity_row, mean_eic = phase_fidelity(tree, cfg, prompts)
@@ -4058,6 +4536,8 @@ def main() -> int:
             and all(whisper["launches"]) and whisper["polarize_launches"]
             and all(xlstm["launches"]) and xlstm["polarize_launches"]
             and all(zamba["launches"]) and zamba["polarize_launches"]
+            and all(cnn["launches"].values()) and all(vlm["launches"])
+            and vlm["polarize_launches"]
             and all(all(v.values()) for v in dense_launches.values())):
         raise AssertionError("a kernel of a path was never launched on it")
 
@@ -4096,6 +4576,12 @@ def main() -> int:
         "xlstm": {"step_m4": xlstm["step_m4"], "gates_m4": xlstm["gates_m4"]},
         "zamba_launches": zamba["launches"][0],
         "zamba": {"step_m4": zamba["step_m4"]},
+        "cnn_launches": cnn["launches"]["polarized_matmul"],
+        "cnn": {name: [{k: r[k] for k in ("leaf", "K", "Kp", "N", "kernel_ms", "plain_ms",
+                                          "library_ms", "bound_ms", "bound_by")}
+                       for r in f["fc"]] for name, f in cnn["full"].items()},
+        "vlm_launches": vlm["launches"][0],
+        "vlm": {"layer_m4": vlm["layer_m4"], "head_m4": vlm["head_m4"]},
         "verify": [r for r in verify_rows if r["route"] == "f32"],
         "bits": [r for r in width_rows if r["route"] == "f32"],
         "heads": head_rows,
@@ -4123,6 +4609,13 @@ def main() -> int:
                "16 on f32 x) and gates_m4 its 1024x4 wi/wf at M=4 (N = 4, element-wise "
                "staging); zamba_launches: zamba2-2.7b's run (172 per decode step, the head "
                "per prefill); zamba: its 172 projections of one decode call at M=4, bf16 x; "
+               "cnn_launches: the cnn phase's compressed forwards (one per FC leaf, f32 x at "
+               "M=64: the tiny pipeline's and the three published CNNs'); cnn: each FC leaf "
+               "of LeNet-5, VGG-16 and ResNet-18 at M=64 on its collected f32 input, K "
+               "padded to whole fragments, library_ms the f32 torch.matmul of the dense "
+               "weight; vlm_launches: phi-3-vision-4.2b's served run (7 per layer per "
+               "decode step, the head at M=1 per prefill and M=4 per step); vlm: its 7 "
+               "projections of one layer and its head (3072x32064) at M=4, bf16 x; "
                "bits: the same 7 at 2-, 4- and 6-bit codes, bf16 x; heads: the "
                "untied heads' shapes at M=4, bf16 x",
     }, {
@@ -4154,11 +4647,17 @@ def main() -> int:
         "adc4_ms": total(bit_adc4_rows, "kernel_ms"),
         "adc4_plain_ms": total(bit_adc4_rows, "plain_ms"),
         "fidelity_m64": fidelity_row,
+        "cnn_launches": cnn["launches"]["bitserial_crossbar"],
+        "cnn": {name: [{k: r[k] for k in ("case", "M", "K", "N", "kernel_ms", "plain_ms",
+                                          "library_ms", "bound_ms", "bound_by")}
+                       for r in f["bit"]] for name, f in cnn["full"].items()},
         "library_note": "one float64 torch.matmul of the codes and the signed "
                         "weights: the exact integer product of the ideal ADC",
         "per": "M=4 at 1536x1536, 1536x8960 and 8960x1536, 16-bit inputs, ideal ADC "
                "(adc4_ms: the same with a 4-bit ADC; fidelity_m64: the five leaves of "
-               "the fidelity path at M=64, ideal ADC)",
+               "the fidelity path at M=64, ideal ADC; cnn_launches: apply_simulated on "
+               "every FC leaf of the cnn phase's compressed CNNs, and the tiny pipeline's "
+               "one; cnn: those FC leaves' operands at M=64, K padded)",
     }, {
         "name": "admm_polarize", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/admm_polarize.cu",
@@ -4175,6 +4674,11 @@ def main() -> int:
         "xlstm_tree": xlstm["pol_tree"],
         "zamba_launches": zamba["polarize_launches"],
         "zamba_tree": zamba["pol_tree"],
+        "cnn_launches": cnn["launches"]["admm_polarize"],
+        "cnn_z_update": {name: {k: sum(r[k] for r in f["pol"])
+                                for k in ("kernel_ms", "plain_ms", "bound_ms")}
+                         for name, f in cnn["full"].items()},
+        "vlm_launches": vlm["polarize_launches"],
         "per_matrix": pol_matrix_row,
         "max_abs_err": max(max(r["sum_max_abs_err"], r["energy_max_abs_err"]) for r in pol_rows),
         "ms": total(pol_rows, "kernel_ms"), "plain_ms": total(pol_rows, "plain_ms"),
@@ -4194,7 +4698,11 @@ def main() -> int:
                "compress_tree of whisper-small (193 matrices); xlstm_launches, xlstm_tree: "
                "compress_tree of xlstm-350m (163 matrices, 42 of them 1024x4) and their "
                "summed times; zamba_launches, zamba_tree: of zamba2-2.7b (116: in_proj and "
-               "out_proj of 54 layers, the shared block's 7, the head); "
+               "out_proj of 54 layers, the shared block's 7, the head); cnn_launches: the "
+               "cnn phase's fresh Z-updates and compress_tree calls (one per conv or FC "
+               "matrix, sum rule); cnn_z_update: one Z-update's matrices of each published "
+               "CNN, one call each, K padded; vlm_launches: compress_tree of "
+               "phi-3-vision-4.2b (225 matrices); "
                "moe_expert_triple: one (layer, expert)'s w_gate, w_up (2048x1024) "
                "and w_down (1024x2048), energy rule; per_matrix: those calls "
                "for the 7 matrices of one qwen2-1.5b layer, energy rule",
@@ -4220,6 +4728,7 @@ def main() -> int:
         "whisper_cross_kv": whisper["cross_kv"],
         "xlstm_launches": xlstm["launches"][1],
         "zamba_launches": zamba["launches"][1],
+        "vlm_launches": vlm["launches"][1],
         "dense_configs_skip_launches": dense_launches["block"]["polarized_matmul_tc_skip"],
         "verify": [r for r in verify_rows if r["route"] == "tc"],
         "bits": [r for r in width_rows if r["route"] == "tc"],
@@ -4257,6 +4766,7 @@ def main() -> int:
                "step's cross k/v (M = 4 slots x 256); whisper_cross_kv: that M=1024 call "
                "(768x768), timed; xlstm_launches, zamba_launches: the recurrent families' "
                "exact-length prefills (M = 16-64; xlstm's mLSTM wi/wf at N = 4); "
+               "vlm_launches: phi-3-vision-4.2b's prefills at their buckets; "
                "bits: the 7 at M=64 on 2-, 4- and 6-bit codes",
     }]}
     emit("total", seconds=time.perf_counter() - t_start)

@@ -4,7 +4,9 @@ The registry holds the archs of the families the port serves, copied from
 the JAX package field for field: the dense ones, the MoE family's
 olmoe-1b-7b and deepseek-v3-671b (MLA + MTP), whisper-small
 (encoder-decoder), and the recurrent families' xlstm-350m (sLSTM + mLSTM)
-and zamba2-2.7b (Mamba2 + shared attention).
+and zamba2-2.7b (Mamba2 + shared attention), and the VLM backbone
+phi-3-vision-4.2b (patch embeddings before the text tokens).  The paper's
+CNNs are in ``paper_cnns``.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ _ARCH_MODULES: Dict[str, str] = {
     "whisper-small": "repro_torch.configs.whisper_small",
     "xlstm-350m": "repro_torch.configs.xlstm_350m",
     "zamba2-2.7b": "repro_torch.configs.zamba2_2_7b",
+    "phi-3-vision-4.2b": "repro_torch.configs.phi_3_vision_4_2b",
 }
 
 ARCH_NAMES: List[str] = list(_ARCH_MODULES)

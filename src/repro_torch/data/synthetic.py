@@ -1,21 +1,24 @@
-"""Deterministic synthetic LM data.
+"""Deterministic synthetic data: the LM stream and the CNNs' image stream.
 
 Every batch is a pure function of (seed, step), so a resumed run sees the
-batches it would have seen.  The stream embeds learnable structure (a noisy
-Markov chain over the vocab with four successors per token) so training
-loss measurably decreases.
+batches it would have seen.  The LM stream embeds learnable structure (a
+noisy Markov chain over the vocab with four successors per token) so
+training loss measurably decreases; the image stream paints a
+class-dependent blob into noise, a task a small CNN learns in a few hundred
+steps.
 
 ``_transition_table`` is the reference's numpy code, so the table is the
-same.  The draws come from a ``torch.Generator`` seeded from (seed, step),
-not from ``jax.random``: the tokens differ from the reference's, and parity
-tests feed both packages one batch.  The reference's image stream belongs
-with the CNN family and is not ported yet.
+same, and the blob is the reference's formula, a pure function of the
+labels.  The draws (tokens, labels, noise) come from a ``torch.Generator``
+seeded from (seed, step), not from ``jax.random``: they differ from the
+reference's, and parity tests feed both packages one batch.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Dict, Iterator, Union
+import math
+from typing import Dict, Iterator, Tuple, Union
 
 import numpy as np
 import torch
@@ -76,3 +79,45 @@ def lm_stream(cfg: LMStreamConfig, start_step: int = 0,
     while True:
         yield lm_batch(cfg, step, device)
         step += 1
+
+
+@dataclasses.dataclass(frozen=True)
+class ImageStreamConfig:
+    image_size: int
+    channels: int
+    num_classes: int
+    batch: int
+    seed: int = 0
+
+
+def class_blob(labels: torch.Tensor, image_size: int, num_classes: int) -> torch.Tensor:
+    """The noise-free image of each label, (B, H, W) f32: a Gaussian blob
+    centred on a ring at the label's angle (the reference's formula)."""
+    size = image_size
+    coords = torch.arange(size, dtype=torch.float32, device=labels.device)
+    ang = 2 * math.pi * labels.float() / num_classes
+    cx = size / 2 + (size / 4) * torch.cos(ang)
+    cy = size / 2 + (size / 4) * torch.sin(ang)
+    xx = coords[None, :, None] - cx[:, None, None]
+    yy = coords[None, None, :] - cy[:, None, None]
+    return torch.exp(-(xx ** 2 + yy ** 2) / (2 * (size / 8) ** 2))
+
+
+def image_batch(cfg: ImageStreamConfig, step: int,
+                device: Union[str, torch.device, None] = DEFAULT_DEVICE
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Class-dependent blob images (B, H, W, C) f32 (NHWC, as the
+    reference's) and labels (B,) int32: each class paints its blob, every
+    channel the same, plus noise of standard deviation 0.3.
+
+    Labels and noise are drawn on the CPU from a generator seeded from
+    (seed + 1, step), as the reference folds ``step`` into ``seed + 1``, and
+    the batch is moved to ``device`` once."""
+    dev = resolve_device(device)
+    g = torch.Generator()
+    g.manual_seed(((cfg.seed + 1) * 1_000_003 + step) % (2 ** 63))
+    size = cfg.image_size
+    labels = torch.randint(0, cfg.num_classes, (cfg.batch,), generator=g)
+    noise = 0.3 * torch.randn((cfg.batch, size, size, cfg.channels), generator=g)
+    img = class_blob(labels, size, cfg.num_classes)[..., None] + noise
+    return img.to(dev), labels.to(torch.int32).to(dev)

@@ -6,8 +6,9 @@ prediction as in deepseek-v3), whisper's encoder-decoder, and the
 recurrent families xlstm (sLSTM + mLSTM) and zamba (Mamba2 + shared
 attention), whose O(1) decode state has no paged path: their
 ``init_paged_cache``/``prefill_paged``/``decode_paged`` are None, so the
-engine serves them on the dense slot cache.  The VLM patch prefix raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+engine serves them on the dense slot cache.  A VLM config
+(``num_image_tokens``, as phi-3-vision) takes precomputed patch embeddings
+before its tokens in ``forward``; serving is text-only, as the reference's.
 """
 from __future__ import annotations
 
@@ -48,6 +49,8 @@ class Model:
     dispatch would give pad tokens expert capacity, and for the recurrent
     families, whose state consumes every token).  The recurrent families
     have no paged functions (None): ``supports_paged`` is False.
+    ``make_inputs(generator, batch, seq)`` makes random inputs of every
+    field (a VLM's ``seq`` counts its patch positions).
     """
 
     config: ModelConfig
@@ -70,15 +73,32 @@ class Model:
         return (self.init_paged_cache is not None and self.prefill_paged is not None
                 and self.decode_paged is not None)
 
+    def make_inputs(self, generator: torch.Generator, batch: int, seq: int
+                    ) -> Dict[str, torch.Tensor]:
+        """Random inputs of every field on the model's device, drawn from
+        ``generator`` (on that device; the reference's shapes, torch's
+        draws): tokens (B, seq - num_image_tokens) int32 next to a VLM's
+        patch embeddings (B, num_image_tokens, d_model) f32, whisper's
+        frames (B, seq, d_model) f32."""
+        cfg, dev = self.config, self.device
+        n_img = cfg.num_image_tokens if "patch_embeds" in self.input_fields else 0
+        out: Dict[str, torch.Tensor] = {}
+        for f in self.input_fields:
+            if f == "tokens":
+                out["tokens"] = torch.randint(0, cfg.vocab_size, (batch, seq - n_img),
+                                              generator=generator, device=dev,
+                                              dtype=torch.int32)
+            elif f == "patch_embeds":
+                out["patch_embeds"] = torch.randn((batch, n_img, cfg.d_model),
+                                                  generator=generator, device=dev)
+            elif f == "frames":
+                out["frames"] = torch.randn((batch, seq, cfg.d_model), generator=generator,
+                                            device=dev)
+        return out
+
 
 _FAMILIES = {"dense": transformer, "moe": moe, "whisper": whisper, "xlstm": xlstm,
              "zamba": zamba}
-
-# what the port still refuses, with the ROADMAP item that ports it
-_NOT_PORTED = {
-    "num_image_tokens": "the VLM patch-embedding prefix is not ported yet (ROADMAP "
-                        "queue 1, item 10b)",
-}
 
 
 def build(cfg: ModelConfig, device: Union[str, torch.device, None] = DEFAULT_DEVICE) -> Model:
@@ -87,8 +107,6 @@ def build(cfg: ModelConfig, device: Union[str, torch.device, None] = DEFAULT_DEV
     if cfg.family not in _FAMILIES:
         raise NotImplementedError(f"family {cfg.family!r} is not a family of the JAX "
                                   f"package (known: {sorted(_FAMILIES)})")
-    if cfg.num_image_tokens:
-        raise NotImplementedError(_NOT_PORTED["num_image_tokens"])
     dev = resolve_device(device)
     mod = _FAMILIES[cfg.family]
 
@@ -125,7 +143,8 @@ def build(cfg: ModelConfig, device: Union[str, torch.device, None] = DEFAULT_DEV
             mod.decode_step(cfg, params, tokens, cache, pos),
         **paged_kw,
         serving_params=lambda params: mod.with_head_cast(cfg, params),
-        input_fields=("frames", "tokens") if cfg.family == "whisper" else ("tokens",),
+        input_fields=(("frames", "tokens") if cfg.family == "whisper" else
+                      ("tokens", "patch_embeds") if cfg.num_image_tokens else ("tokens",)),
         # exact-length prefill: padded tokens would route through moe's
         # capacity-based dispatch and take expert capacity from real tokens,
         # and the recurrent state consumes every token

@@ -121,18 +121,30 @@ def with_head_cast(cfg: ModelConfig, params: Params) -> Params:
     return {**params, "head_cast": head.to(L.DTYPES[cfg.dtype])}
 
 
+def _embed_inputs(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
+                  dtype: torch.dtype) -> torch.Tensor:
+    """The token embeddings, prefixed (VLM) by the batch's precomputed patch
+    embeddings ``(B, num_image_tokens, d_model)`` in the compute dtype."""
+    x = L.embed_lookup(params["embed"], batch["tokens"], dtype)
+    if cfg.num_image_tokens and "patch_embeds" in batch:
+        x = torch.cat([batch["patch_embeds"].to(dtype), x], dim=1)
+    return x
+
+
 def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor], *,
             remat: bool = False, q_chunk: int = L.DEFAULT_Q_CHUNK,
             return_hidden: bool = False
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full-sequence forward (train / prefill).  Returns (logits (B, S, V),
-    aux); ``return_hidden=True`` returns the final hidden states instead
-    (the chunked-CE training loss never materializes the full logits).
+    aux), S counting a VLM batch's patch prefix (``patch_embeds``) before
+    its tokens; ``return_hidden=True`` returns the final hidden states
+    instead (the chunked-CE training loss never materializes the full
+    logits).
     ``remat`` recomputes each block's activations in the backward pass
     (``torch.utils.checkpoint``), keeping only the residual stream between
     blocks, as the reference's ``jax.checkpoint`` over the layer scan does."""
     dtype = L.DTYPES[cfg.dtype]
-    x = L.embed_lookup(params["embed"], batch["tokens"], dtype)
+    x = _embed_inputs(cfg, params, batch, dtype)
     s = x.shape[1]
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
 

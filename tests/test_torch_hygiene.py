@@ -9,7 +9,7 @@ import pathlib
 import pytest
 import torch
 
-from repro_torch.configs import MLAConfig, get_reduced
+from repro_torch.configs import ARCH_NAMES, MLAConfig, get_reduced
 from repro_torch.core.device import resolve_device
 from repro_torch.models import registry
 from repro_torch.serving.engine import ServingEngine
@@ -82,15 +82,26 @@ def test_cuda_is_the_default_and_never_silently_the_cpu(monkeypatch):
 
 
 def test_other_families_name_their_roadmap_item():
-    """The MoE family (with MLA and MTP), whisper and the recurrent families
-    (xlstm, zamba) are ported; the VLM prefix is not, and names its item."""
+    """Every family of the JAX package is ported, so ``registry.build``
+    refuses none of its archs (there is no ROADMAP item left to name): the
+    recurrent families build without a paged path, and the VLM prefix
+    (phi-3-vision) builds with ``("tokens", "patch_embeds")``, whose
+    ``make_inputs(g, 2, 16)`` gives 8 text tokens after 8 patch positions."""
+    assert not hasattr(registry, "_NOT_PORTED")
+    for arch in ARCH_NAMES:
+        assert registry.build(get_reduced(arch), device="cpu").config.name.startswith(arch)
     for arch in ("xlstm-350m", "zamba2-2.7b"):
         model = registry.build(get_reduced(arch), device="cpu")
         assert not model.padded_prefill and not model.supports_paged
         assert model.init_paged_cache is None and model.decode_paged is None
-    vlm = dataclasses.replace(get_reduced("qwen2-1.5b"), num_image_tokens=16)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 10b"):
-        registry.build(vlm, device="cpu")
+    vlm = registry.build(get_reduced("phi-3-vision-4.2b"), device="cpu")
+    assert vlm.input_fields == ("tokens", "patch_embeds") and vlm.supports_paged
+    g = torch.Generator()
+    g.manual_seed(0)
+    batch = vlm.make_inputs(g, 2, 16)
+    assert batch["tokens"].shape == (2, 8) and batch["tokens"].dtype == torch.int32
+    assert batch["patch_embeds"].shape == (2, 8, 64)
+    assert batch["patch_embeds"].dtype == torch.float32
     mla = dataclasses.replace(get_reduced("olmoe-1b-7b"), mla=MLAConfig())
     assert registry.build(mla, device="cpu").padded_prefill is False
     assert registry.build(get_reduced("olmoe-1b-7b"), device="cpu").padded_prefill is False
@@ -104,7 +115,10 @@ def test_other_families_name_their_roadmap_item():
                                     "configs/deepseek_v3_671b.py",
                                     "configs/whisper_small.py", "models/ssm_common.py",
                                     "models/xlstm.py", "models/zamba.py",
-                                    "configs/xlstm_350m.py", "configs/zamba2_2_7b.py"])
+                                    "configs/xlstm_350m.py", "configs/zamba2_2_7b.py",
+                                    "models/cnn.py", "configs/paper_cnns.py",
+                                    "launch/cnn_pipeline.py",
+                                    "configs/phi_3_vision_4_2b.py"])
 def test_reliability_and_moe_are_the_ports_own(module):
     """The fault injector is host numpy in the reference too; the port keeps
     its own copy and draws from numpy, never from JAX."""

@@ -247,8 +247,10 @@ def test_only_a_layers_expert_slices_are_rebuilt_off_the_cpu():
 def test_mla_is_refused_naming_its_item():
     """MLA and the MTP module are ported now (``tests/test_torch_mla.py``):
     an olmoe config given them builds, with the latent cache; so do the
-    recurrent families (exact-length prefill, no paged path); what the
-    registry still refuses, the VLM prefix, names its ROADMAP item."""
+    recurrent families (exact-length prefill, no paged path); and the VLM
+    prefix, the last item the registry refused, is ported too: a config
+    given ``num_image_tokens`` builds and its forward puts the patch
+    embeddings before the tokens."""
     mla = dataclasses.replace(get_reduced(ARCH), mla=MLAConfig(), mtp=True, dtype="float32")
     model = torch_build(mla, device="cpu")
     assert set(model.init_cache(1, 8)) == {"c_kv", "k_rope"}
@@ -257,5 +259,19 @@ def test_mla_is_refused_naming_its_item():
         recurrent = torch_build(dataclasses.replace(get_reduced(ARCH), family=family),
                                 device="cpu")
         assert recurrent.padded_prefill is False and recurrent.supports_paged is False
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 10b"):
-        torch_build(dataclasses.replace(get_reduced(ARCH), num_image_tokens=4), device="cpu")
+    vlm_cfg = dataclasses.replace(get_reduced("qwen2-1.5b"), num_image_tokens=4,
+                                  dtype="float32")
+    vlm = torch_build(vlm_cfg, device="cpu")
+    assert vlm.input_fields == ("tokens", "patch_embeds")
+    params = vlm.init(0)
+    g = torch.Generator()
+    g.manual_seed(1)
+    batch = vlm.make_inputs(g, 1, 10)
+    with torch.no_grad():
+        logits, _ = vlm.forward(params, batch)
+        text, _ = vlm.forward(params, {"tokens": batch["tokens"]})
+        hidden, _ = vlm.forward(params, batch, return_hidden=True)
+    assert logits.shape == (1, 10, vlm_cfg.vocab_size) and text.shape == (1, 6, vlm_cfg.vocab_size)
+    # the patches come first: the last text position sees them, so it differs
+    assert float((logits[:, -1] - text[:, -1]).abs().max()) > 1e-4
+    assert hidden.shape == (1, 10, vlm_cfg.d_model)

@@ -223,9 +223,9 @@ MOE_ARCHS = ("olmoe-1b-7b", "deepseek-v3-671b")
 
 
 @functools.lru_cache(maxsize=None)
-def moe_models(arch):
-    """The reduced MoE arch (float32) in both packages, the reference's
-    init carried across, and the reference's jitted train step."""
+def reduced_models(arch):
+    """A reduced arch (float32) in both packages, the reference's init
+    carried across, and the reference's jitted train step."""
     cfg = dataclasses.replace(jax_reduced(arch), dtype="float32")
     jm = jax_build(cfg)
     jp = jm.init(jax.random.PRNGKey(0))
@@ -241,7 +241,7 @@ def test_moe_train_step_carries_the_aux_and_mtp_terms(arch):
     its shift-2 CE) as the reference's does, so the loss agrees within
     1e-5 and the routers and the MTP module get the reference's gradients
     (within 1e-5 of the largest gradient of the tree)."""
-    jm, jp, tm, tp, jstep = moe_models(arch)
+    jm, jp, tm, tp, jstep = reduced_models(arch)
     jb, tb = _batch(0, batch=2)
     with torch.no_grad():
         hidden, aux = tm.forward(tp, tb, return_hidden=True)
@@ -277,6 +277,92 @@ def test_moe_train_step_carries_the_aux_and_mtp_terms(arch):
     _, jmet = jstep(js, jb)
     np.testing.assert_allclose(float(tmet["loss"]), float(jmet["loss"]), rtol=1e-5)
     np.testing.assert_allclose(float(tmet["loss"]), full, rtol=1e-5)
+
+
+RECURRENT_ARCHS = ("xlstm-350m", "zamba2-2.7b")
+
+
+def _reference_grads_f64(arch, params, batch):
+    """The reference's loss gradients in float64 (its model at dtype
+    float64, under the ``jax.enable_x64`` context), leaf by leaf."""
+    with jax.enable_x64(True):
+        model = jax_build(dataclasses.replace(jax_reduced(arch), dtype="float64"))
+        p64 = jax.tree_util.tree_map(lambda a: jnp.asarray(np.asarray(a), jnp.float64), params)
+        b = {"tokens": jnp.asarray(np.asarray(batch["tokens"]), jnp.int32)}
+
+        def loss(p):
+            h, a = model.forward(p, b, remat=True, return_hidden=True)
+            return jtl.hidden_loss(model, p, b, h, a)
+
+        return {k: np.asarray(v) for k, v in jadmm.iter_weights(jax.grad(loss)(p64))}
+
+
+@pytest.mark.parametrize("arch", RECURRENT_ARCHS)
+def test_recurrent_train_step_matches_reference(arch):
+    """One ``make_train_step`` step of the reduced recurrent archs (xlstm's
+    list-shaped tree; zamba's stacked Mamba blocks and shared attention)
+    from the bridged init, AdamW at the default learning rate.
+
+    The loss within 1e-5 and the gradient norm within 1e-4, as the dense
+    step.  xlstm's gradients within 1e-5 of the largest gradient, as the
+    dense step's.  zamba's fast SSM decays make its f32 gradients
+    ill-conditioned (the decay ratios are differences of cumulative
+    log-decays, ROADMAP §3): the reference's own f32 gradients lie up to
+    ~6e-5 of the largest gradient from its float64 ones (its model run at
+    dtype float64), so each leaf of the port's f32 gradients is held at
+    least as close to those float64 gradients as the reference's f32 leaf
+    is, plus 1e-6 of the largest gradient.  The params after the
+    step within 1e-5 (absolute), except params whose gradient is below 1e-6
+    of the largest: Adam's first step m/(sqrt(v) + eps) follows such a
+    gradient's last bits, so those are counted, at most 1 in 10^4 (the
+    int8 rule of ``test_one_step_from_a_bridged_state_matches_reference``).
+    xlstm's moments within 1e-5 of each leaf's largest value; zamba's are
+    its gradients scaled, held through them."""
+    jm, jp, tm, tp, jstep = reduced_models(arch)
+    jb, tb = _batch(0, batch=2)
+
+    def jloss(p):
+        h, a = jm.forward(p, jb, remat=True, return_hidden=True)
+        return jtl.hidden_loss(jm, p, jb, h, a)
+
+    def tloss(p, b):
+        h, a = tm.forward(p, b, remat=True, return_hidden=True)
+        return ttl.hidden_loss(tm, p, b, h, a)
+
+    jg = dict(jadmm.iter_weights(jax.jit(jax.grad(jloss))(jp)))
+    tg = dict(tadmm.iter_weights(ttl._value_and_grad(tloss, tp, tb)[1]))
+    top = max(float(np.abs(g).max()) for g in jg.values())
+    g64 = _reference_grads_f64(arch, jp, jb) if arch == "zamba2-2.7b" else None
+    for path, g in tg.items():
+        if g64 is None:
+            np.testing.assert_allclose(g.numpy(), np.asarray(jg[path]), rtol=0,
+                                       atol=1e-5 * top, err_msg=f"grad {path}")
+            continue
+        port_err = np.abs(g.numpy() - g64[path]).max()
+        ref_err = np.abs(np.asarray(jg[path]) - g64[path]).max()
+        assert port_err <= ref_err + 1e-6 * top, (path, port_err, ref_err)
+
+    tcfg = TrainConfig(**BASE)
+    state, _ = ttl.init_train_state(tm, tcfg, params=tp)
+    ts, tmet = ttl.make_train_step(tm, tcfg)(state, tb)
+    js = jtl.TrainState(params=jp, opt=jopt.adamw_init(jp, "float32"),
+                        step=jnp.zeros((), jnp.int32), admm=None, grad_err=None,
+                        rng=jax.random.PRNGKey(0))
+    js, jmet = jstep(js, jb)
+    np.testing.assert_allclose(float(tmet["loss"]), float(jmet["loss"]), rtol=1e-5)
+    np.testing.assert_allclose(float(tmet["grad_norm"]), float(jmet["grad_norm"]), rtol=1e-4)
+    assert isinstance(ts.params["blocks"], list) == (arch == "xlstm-350m")
+    jflat = dict(jadmm.iter_weights(js.params))
+    n = outliers = 0
+    for path, leaf in tadmm.iter_weights(ts.params):
+        want, got = np.asarray(jflat[path]), leaf.numpy()
+        bad = np.abs(got - want) > 1e-5 + 1e-5 * np.abs(want)
+        assert (np.abs(np.asarray(jg[path])[bad]) < 1e-6 * top).all(), path
+        outliers += int(bad.sum())
+        n += got.size
+    assert outliers <= 1e-4 * n, (outliers, n)
+    if g64 is None:
+        _compare_states(ts, js, 1e-5, [], params_atol=1e-5, param_outliers=[])
 
 
 def test_lm_loss_with_aux_matches_reference():
