@@ -57,6 +57,16 @@ Phases, each printing JSON lines:
                the route check: the same requests with the route forced to
                the f32 kernel give the same greedy tokens (or differ only at
                a near-tie), with the largest prefill-logit difference;
+7b. mesh    — the slice served through ``ServingEngine(mesh=...)`` on a
+               world of one over NCCL (``launch/mesh.make_mesh``, data=1,
+               model=1; NCCL takes one rank per card): the slice's tokens
+               bit for bit and its launch counts, decode ms per step beside
+               the plain engine's; kernels #1 and #2 (block mask) held and
+               timed at every local shard shape that model = 2, 4 and 8
+               give the slice's seven projections and its vocab-sharded
+               head (N/tp columns, or Kp/tp rows for o/down), at M=4 and
+               M=64 on bf16 x; then ``serve --forms --mesh data=1,model=1``
+               in a subprocess and its ``mesh:`` line;
 8. speculate — the slice's target served self-speculatively (a 4-bit FORMS
                draft of its weights on its fragments, full depth, K=4,
                adaptive K): two greedy runs agree; the token rule: their
@@ -983,6 +993,150 @@ def phase_slice():
     profile_decode(engine, prompts)
     route_check(cfg, engine, prompts, tokens[0], n_new)
     return launches, engine, tokens[0]
+
+
+# the local shard shapes of the slice's projections on a model axis of tp:
+# (name, K, N, how the spec cuts it) -- q/k/v/gate/up and the tied head
+# (vocab 151936) by columns, o/down by whole-fragment rows
+SHARD_TP = (2, 4, 8)
+SHARD_PROJ = (("q", 1536, 1536, "n"), ("k/v", 1536, 256, "n"), ("o", 1536, 1536, "k"),
+              ("gate/up", 1536, 8960, "n"), ("down", 8960, 1536, "k"),
+              ("head", 1536, 151936, "n"))
+
+
+def held_skip(gen, M, K, N, flush):
+    """Kernel #2 at (M, K, N) on bf16 x with every other K slice dead: two
+    launches equal bit for bit, equal to the dense launch, held against the
+    plain version within REL_TOL, and timed beside it, the bf16
+    ``torch.matmul`` of the pre-folded weight and the bound."""
+    import torch
+    from repro_torch.kernels import polarized_matmul as pm
+    from repro_torch.kernels.ref import ref_polarized_matmul_skip
+
+    x, mags, signs, scale = kernel_inputs(gen, M, K, N, x_dtype=torch.bfloat16)
+    x = dead_slices(x, 0.5)
+    tc = pm.uses_tensor_cores(x.dtype, mags.dtype, "cuda", M)
+    bm = pm.tile_rows(M, tc)
+    mask = pm.tile_mask(x, mags.dtype)
+    got = pm.polarized_matmul_skip(x, mags, signs, scale, 8, mask=mask)
+    again = pm.polarized_matmul_skip(x, mags, signs, scale, 8, mask=mask)
+    dense = pm.polarized_matmul(x, mags, signs, scale, 8)
+    want = ref_polarized_matmul_skip(x, mags, signs, scale, mask, 8, bm, pm._KC)
+    torch.cuda.synchronize()
+    abs_err = float((got - want).abs().max())
+    rec = {"M": M, "K": K, "N": N, "route": "tc" if tc else "f32",
+           "max_abs_err": abs_err, "max_rel_err": abs_err / float(want.abs().max())}
+    if not (torch.equal(got, again) and torch.equal(got, dense)):
+        raise AssertionError(f"the skip launches differ (from each other or dense): {rec}")
+    if not rec["max_rel_err"] <= REL_TOL:
+        raise AssertionError(f"kernel #2 disagrees with its plain version: {rec}")
+    wb = (mags.float() * signs.float().repeat_interleave(8, dim=0)).to(torch.bfloat16)
+    rec["kernel_ms"] = timed_ms(lambda: pm.polarized_matmul_skip(x, mags, signs, scale, 8,
+                                                                 mask=mask), flush)
+    rec["plain_ms"] = timed_ms(lambda: ref_polarized_matmul_skip(x, mags, signs, scale, mask,
+                                                                 8, bm, pm._KC), flush)
+    rec["library_ms"] = timed_ms(lambda: torch.matmul(x, wb), flush)
+    if tc:
+        rec["bound_ms"], rec["bound_by"] = bound_tc(M, K, N, live_rows=live_rows(mask, K))
+    else:
+        rec["bound_ms"], rec["bound_by"] = skip_bound(mask, M, K, N, 1, x_bytes=2)
+    return rec
+
+
+def phase_mesh(plain_engine, plain_tokens):
+    """Serving on a device mesh: the slice's tree served by
+    ``ServingEngine(mesh=make_mesh(MeshConfig(data=1, model=1)))`` on a
+    world of one over NCCL gives the plain engine's tokens and launches;
+    kernels #1 and #2 held and timed at every local shard shape of
+    ``SHARD_TP``; the launcher's mesh line.  Returns the mesh run's launches
+    and the shard rows of #1 and #2."""
+    import os
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import MeshConfig
+    from repro_torch.forms import FormsSpec
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    cfg = plain_engine.cfg
+    prompts = slice_prompts(cfg)
+    n_new = 16
+    t0 = time.perf_counter()
+    mesh = make_mesh(MeshConfig(data=1, model=1), device="cuda")
+    init_s = time.perf_counter() - t0
+    # the slice's compressed tree, shared (the served head copy is made again)
+    params = {k: v for k, v in plain_engine.params.items() if k != "head_cast"}
+    engine = ServingEngine(plain_engine.model, params, spec=FormsSpec(m=8, bits=8, rule="energy"),
+                           page_size=16, batch_slots=4, max_len=256, decode_block=4,
+                           device="cuda", mesh=mesh)
+
+    def run(eng):
+        reqs = [Request(uid=i, prompt=p, max_new_tokens=n_new) for i, p in enumerate(prompts)]
+        rounds0 = eng.scheduler.rounds
+        reset_counts()
+        results = eng.run(reqs)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        steps = (eng.scheduler.rounds - rounds0) * eng.decode_block
+        return ({r.uid: r.tokens for r in results},
+                {k: counts[k] for k in ("polarized_matmul", "polarized_matmul_tc")},
+                sum(r.decode_ms for r in results) / steps)
+
+    order = [("plain", plain_engine), ("mesh", engine), ("mesh", engine), ("plain", plain_engine)]
+    got = [(name, *run(eng)) for name, eng in order]
+    for name, toks, launches, _ in got:
+        if toks != plain_tokens:
+            raise AssertionError(f"the {name} engine's tokens differ from the slice's: "
+                                 f"{toks} vs {plain_tokens}")
+    mesh_launches = got[1][2]
+    if any(g[2] != mesh_launches for g in got):
+        raise AssertionError(f"launches differ between the plain and the mesh engine: {got}")
+    per_call = 7 * cfg.num_layers
+    buckets = [engine.runner.bucket_for(len(p)) for p in prompts]
+    steps = engine.scheduler.rounds // 2 * engine.decode_block
+    step_ms = {name: [g[3] for g in got if g[0] == name] for name in ("plain", "mesh")}
+    del engine
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    scrub = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    flush = lambda: scrub.zero_()
+    rows = {"polarized_matmul": [], "polarized_matmul_skip": []}
+    for tp in SHARD_TP:
+        for name, K, N, cut in SHARD_PROJ:
+            k, n = (K // tp, N) if cut == "k" else (K, N // tp)
+            for M in (DECODE_M, PREFILL_M):
+                one = held_matmul(gen, M, k, n, flush=flush)
+                two = held_skip(gen, M, k, n, flush)
+                for key, rec in (("polarized_matmul", one), ("polarized_matmul_skip", two)):
+                    rec.update(tp=tp, proj=name)
+                    rows[key].append(rec)
+                    emit("mesh_kernel", kernel=key, **rec)
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "qwen2-1.5b", "--forms",
+         "--mesh", "data=1,model=1", "--requests", "4", "--max-new-tokens", "8"],
+        capture_output=True, text=True, timeout=600, env=env, cwd=str(ROOT))
+    line = next((ln for ln in proc.stdout.splitlines() if ln.startswith("mesh: ")), None)
+    want_line = "mesh: {'data': 1, 'model': 1} over 1 devices, 0 param leaves sharded"
+    if proc.returncode != 0 or line != want_line:
+        raise AssertionError(f"serve --mesh: rc {proc.returncode}, line {line!r}\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+    emit("mesh", arch=cfg.name, mesh={"data": 1, "model": 1}, backend="nccl",
+         world=1, init_s=init_s, decode_steps=steps, decode_step_ms=step_ms,
+         decode_step_ms_mean={k: float(np.mean(v)) for k, v in step_ms.items()},
+         launches=mesh_launches,
+         launches_expected=dict(zip(("polarized_matmul", "polarized_matmul_tc"),
+                                    route_split(per_call, buckets, steps, 4))),
+         tokens_equal=True, serve_line=line, serve_s=time.perf_counter() - t0,
+         nvidia_smi=nvidia_smi_line(),
+         shard_rows={k: len(v) for k, v in rows.items()})
+    return mesh_launches, rows
 
 
 def target_logits(engine, seq):
@@ -4477,6 +4631,8 @@ def main() -> int:
     phase_train_recurrent()
     launches, slice_engine, slice_tokens = phase_slice()
     torch.cuda.empty_cache()
+    mesh_launches, mesh_rows = phase_mesh(slice_engine, slice_tokens)
+    torch.cuda.empty_cache()
     spec_launches, verify_rows, uniform_draft = phase_speculate(
         slice_engine.model, slice_engine.cfg, slice_prompts(slice_engine.cfg), slice_engine,
         slice_tokens, trace=args.trace_speculate)
@@ -4538,7 +4694,8 @@ def main() -> int:
             and all(zamba["launches"]) and zamba["polarize_launches"]
             and all(cnn["launches"].values()) and all(vlm["launches"])
             and vlm["polarize_launches"]
-            and all(all(v.values()) for v in dense_launches.values())):
+            and all(all(v.values()) for v in dense_launches.values())
+            and all(mesh_launches.values())):
         raise AssertionError("a kernel of a path was never launched on it")
 
     def total(rows, key):
@@ -4582,6 +4739,8 @@ def main() -> int:
                        for r in f["fc"]] for name, f in cnn["full"].items()},
         "vlm_launches": vlm["launches"][0],
         "vlm": {"layer_m4": vlm["layer_m4"], "head_m4": vlm["head_m4"]},
+        "mesh_launches": mesh_launches["polarized_matmul"],
+        "mesh_shards": [r for r in mesh_rows["polarized_matmul"] if r["route"] == "f32"],
         "verify": [r for r in verify_rows if r["route"] == "f32"],
         "bits": [r for r in width_rows if r["route"] == "f32"],
         "heads": head_rows,
@@ -4617,7 +4776,10 @@ def main() -> int:
                "decode step, the head at M=1 per prefill and M=4 per step); vlm: its 7 "
                "projections of one layer and its head (3072x32064) at M=4, bf16 x; "
                "bits: the same 7 at 2-, 4- and 6-bit codes, bf16 x; heads: the "
-               "untied heads' shapes at M=4, bf16 x",
+               "untied heads' shapes at M=4, bf16 x; mesh_launches: the slice served on "
+               "a data=1,model=1 mesh; mesh_shards: every local shard shape of the "
+               "slice's projections and head at model = 2, 4, 8 (N/tp columns, Kp/tp "
+               "rows for o/down), M=4 on bf16 x (M=64: the tensor-core entry's)",
     }, {
         "name": "polarized_matmul_skip", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/polarized_matmul.cu",
@@ -4633,8 +4795,11 @@ def main() -> int:
         "bf16_x": {k: per_layer(skip_bf16_rows, DECODE_M, k) for k in
                    ("kernel_ms", "dense_ms", "plain_ms", "bound_ms", "library_ms")},
         "dense_configs_launches": dense_launches["block"]["polarized_matmul_skip"],
+        "mesh_shards": [r for r in mesh_rows["polarized_matmul_skip"] if r["route"] == "f32"],
         "per": "the 7 projections of one qwen2-1.5b layer at M=4, f32 x, every other "
-               "K slice of x zero (bf16_x: the same on bf16 x)",
+               "K slice of x zero (bf16_x: the same on bf16 x; mesh_shards: the local "
+               "shard shapes of the mesh phase, every other K slice dead, M=4 on bf16 "
+               "x; M=64: the tensor-core entry's)",
     }, {
         "name": "bitserial_crossbar", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/bitserial_crossbar.cu",
@@ -4724,6 +4889,9 @@ def main() -> int:
         "reliability_launches": rel_launches[1],
         "moe_launches": moe["launches"][1],
         "mla_launches": mla["launches"][1],
+        "mesh_launches": mesh_launches["polarized_matmul_tc"],
+        "mesh_shards": [dict(r, skip=key.endswith("skip")) for key, rs in mesh_rows.items()
+                        for r in rs if r["route"] == "tc"],
         "whisper_launches": whisper["launches"][1],
         "whisper_cross_kv": whisper["cross_kv"],
         "xlstm_launches": xlstm["launches"][1],
@@ -4767,7 +4935,9 @@ def main() -> int:
                "(768x768), timed; xlstm_launches, zamba_launches: the recurrent families' "
                "exact-length prefills (M = 16-64; xlstm's mLSTM wi/wf at N = 4); "
                "vlm_launches: phi-3-vision-4.2b's prefills at their buckets; "
-               "bits: the 7 at M=64 on 2-, 4- and 6-bit codes",
+               "bits: the 7 at M=64 on 2-, 4- and 6-bit codes; mesh_launches: the slice "
+               "served on a data=1,model=1 mesh; mesh_shards: the mesh phase's shard "
+               "shapes at M=64 (skip: the block-skip launch, every other K slice dead)",
     }]}
     emit("total", seconds=time.perf_counter() - t_start)
     print(json.dumps(kernels), flush=True)

@@ -224,15 +224,24 @@ def restore(path: str, template: Tree, step: Optional[int] = None,
     Each leaf lands on ``device`` when given, else on its template leaf's
     device; a generator leaf comes back as a fresh generator seeded from
     the stored key.  Shapes must match the template's; dtypes are the
-    stored ones.  The reference's ``shardings=`` comes with distribution
-    and is refused until then."""
-    if shardings is not None:
-        raise NotImplementedError("shardings= is not ported yet (ROADMAP queue 1, item 13)")
+    stored ones.  ``shardings`` (a tree of ``distributed.sharding.Sharding``
+    matching the template, e.g. ``params_shardings`` of it, whose FORMS
+    nodes hold one per plane; None entries mean whole) restores straight
+    into a mesh layout: each rank reads each leaf and keeps its local shard,
+    marked with its layout, so no rank holds a whole copy of a sharded
+    leaf past the read.  The bytes on disk are the same either way."""
     d, step = _step_dir(path, step)
     dev = None if device is None else torch.device(device)
     with open(os.path.join(d, _TREE_FILE), "rb") as f:
         meta = msgpack_lite.unpackb(f.read())
     leaves = tree_leaves(template)
+    sh_leaves = None
+    if shardings is not None:
+        sh_leaves = _sharding_leaves(shardings)
+        if len(sh_leaves) != len(leaves):
+            raise ValueError(
+                f"shardings tree has {len(sh_leaves)} leaves, template has "
+                f"{len(leaves)} — pass the params_shardings of the template")
     with np.load(os.path.join(d, _ARRAY_FILE)) as data:
         if len(leaves) != len(data.files):
             raise ValueError(f"checkpoint has {len(data.files)} leaves, template has "
@@ -243,8 +252,47 @@ def restore(path: str, template: Tree, step: Optional[int] = None,
             want = (2,) if isinstance(tmpl, torch.Generator) else tuple(np.shape(tmpl))
             if tuple(arr.shape) != want:
                 raise ValueError(f"leaf {i}: shape {tuple(arr.shape)} != {want}")
-            new.append(_decode(arr, meta["dtypes"][i], tmpl, dev))
-    return _rebuild(template, iter(new)), step
+            leaf = _decode(arr, meta["dtypes"][i], tmpl, dev)
+            if sh_leaves is not None and sh_leaves[i] is not None:
+                from repro_torch.distributed.sharding import local_shard
+                leaf = local_shard(leaf, sh_leaves[i].spec, sh_leaves[i].ctx)
+            new.append(leaf)
+    out = _rebuild(template, iter(new))
+    if shardings is not None:
+        out = _mark_forms(out, shardings)
+    return out, step
+
+
+def _sharding_leaves(tree: Tree) -> List[Any]:
+    """The leaves of a shardings tree in flatten order, None kept (a
+    ``Sharding`` is a leaf; a FORMS node gives its three planes')."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in _sharding_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in _sharding_leaves(v)]
+    if isinstance(tree, FormsLinearParams):
+        return [tree.mags, tree.signs, tree.scale]
+    return [tree]
+
+
+def _mark_forms(tree: Tree, shardings: Tree) -> Tree:
+    """Restored FORMS leaves with the layouts of their planes: the local
+    planes were cut by ``local_shard``; the leaf records the trio."""
+    from repro_torch.distributed.context import LeafShard, shard_of
+    if isinstance(tree, dict):
+        return {k: _mark_forms(v, shardings[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_mark_forms(v, s) for v, s in zip(tree, shardings))
+    if isinstance(tree, FormsLinearParams) and isinstance(shardings, FormsLinearParams):
+        trio = []
+        for t, sh in ((tree.mags, shardings.mags), (tree.signs, shardings.signs),
+                      (tree.scale, shardings.scale)):
+            mine = shard_of(t)
+            if mine is None:      # whole on every rank
+                mine = LeafShard((None,) * t.ndim, tuple(t.shape))
+            trio.append(mine)
+        return dataclasses.replace(tree, shard=tuple(trio))
+    return tree
 
 
 def read_meta(path: str, step: Optional[int] = None) -> dict:
@@ -320,9 +368,10 @@ class CheckpointManager:
         if err is not None:
             raise RuntimeError(f"the background checkpoint write failed: {err}") from err
 
-    def restore_latest(self, template: Tree) -> Tuple[Tree, int]:
+    def restore_latest(self, template: Tree,
+                       shardings: Optional[Tree] = None) -> Tuple[Tree, int]:
         self.wait()
-        return restore(self.path, template)
+        return restore(self.path, template, shardings=shardings)
 
     def latest_step(self) -> Optional[int]:
         return latest_step(self.path)

@@ -1,9 +1,9 @@
 """Config dataclasses: the model architecture and the training loop.
 
-Copies of the JAX package's ``ModelConfig`` and ``TrainConfig`` (same
-fields, same defaults), so the port and the reference describe one
-architecture and one training run with one record each.  The reference's
-mesh description has no counterpart on one card and is left out.
+Copies of the JAX package's ``ModelConfig``, ``MeshConfig`` and
+``TrainConfig`` (same fields, same defaults), so the port and the reference
+describe one architecture, one device mesh and one training run with one
+record each.
 """
 from __future__ import annotations
 
@@ -127,6 +127,20 @@ class ModelConfig:
         active_experts = L * 3 * d * self.moe_d_ff * self.experts_per_token
         return total - all_experts + active_experts
 
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    pods: int = 1
+    data: int = 16
+    model: int = 16
+
+    @property
+    def num_devices(self) -> int:
+        return self.pods * self.data * self.model
+
+    @property
+    def multi_pod(self) -> bool:
+        return self.pods > 1
 
 
 @dataclasses.dataclass(frozen=True)

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Iterator, Optional, Tuple
+from typing import Any, Iterator, Optional, Tuple
 
 import torch
 
@@ -49,6 +49,9 @@ class FormsLinearParams:
     out_dtype: str = "float32"
     encoding: str = "binary"
     bits: int = 8
+    # on a mesh (distributed/sharding.reshard_state): the (mags, signs,
+    # scale) layouts of this rank's local planes, with their global shapes
+    shard: Optional[Tuple[Any, Any, Any]] = None
 
     @property
     def n(self) -> int:
@@ -57,8 +60,17 @@ class FormsLinearParams:
     def layer(self, i: int) -> "FormsLinearParams":
         """Layer ``i`` of a scan-stacked leaf (the port's counterpart of the
         slice ``lax.scan`` hands each layer)."""
+        shard = None if self.shard is None else tuple(s.layer() for s in self.shard)
         return dataclasses.replace(self, mags=self.mags[i], signs=self.signs[i],
-                                   scale=self.scale[i])
+                                   scale=self.scale[i], shard=shard)
+
+    def matrix_split(self) -> Tuple[bool, bool]:
+        """Whether this rank holds a K slice and an N slice of the matrix
+        (the trailing two dims) rather than all of it."""
+        if self.shard is None:
+            return False, False
+        mags = self.shard[0]
+        return mags.spec[-2] is not None, mags.spec[-1] is not None
 
 
 # Ambient spec for call sites that cannot thread one explicitly (the model
@@ -155,7 +167,16 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 
 def to_dense(p: FormsLinearParams) -> torch.Tensor:
     """Reconstruct the dense weight tensor — exact inverse of compression
-    ((K, N), stacked (..., K, N), or the conv ``orig_shape`` view)."""
+    ((K, N), stacked (..., K, N), or the conv ``orig_shape`` view).  A leaf
+    that holds one rank's K or N slice of its matrix is refused: ``k`` and
+    the fragment grid describe the whole matrix, so a slice would come back
+    with the wrong rows.  (Slices along leading axes, a rank's experts,
+    hold whole matrices.)"""
+    if any(p.matrix_split()):
+        raise ValueError(
+            f"to_dense of a sharded FORMS leaf (mags spec {p.shard[0].spec}, global "
+            f"shape {p.shard[0].shape}, local {tuple(p.mags.shape)}): this rank holds "
+            "a slice of the matrix; gather it first")
     dense = _to_dense_2d(p.mags, p.signs, p.scale, p.k, p.m)
     if p.orig_shape is not None and len(p.orig_shape) == 4:
         dense = matrix_to_conv(dense, p.orig_shape, p.policy)

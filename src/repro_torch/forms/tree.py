@@ -177,9 +177,15 @@ def compress_tree(
     return out, report
 
 
-def decompress_tree(params: Any) -> Any:
+def decompress_tree(params: Any, validate: bool = True) -> Any:
     """Exact inverse of :func:`compress_tree`: every ``FormsLinearParams``
-    leaf becomes its dense reconstruction (original shape and dtype)."""
+    leaf becomes its dense reconstruction (original shape and dtype).
+    ``validate=True`` first checks the co-sharding invariants of any
+    mesh-placed leaves (:func:`validate_tree_sharding`): reconstructing
+    from a sign plane that shards differently from its magnitudes would
+    apply wrong signs."""
+    if validate:
+        validate_tree_sharding(params)
     return tree_map(lambda leaf: to_dense(leaf) if isinstance(leaf, FormsLinearParams)
                     else leaf, params)
 
@@ -194,3 +200,83 @@ def compressed_paths(params: Any, prefix: Tuple = ()) -> Dict[str, FormsLinearPa
     if isinstance(params, FormsLinearParams):
         return {path_str(prefix): params}
     return {}
+
+
+# ---------------------------------------------------------------------------
+# Mesh sharding of compressed trees
+# ---------------------------------------------------------------------------
+# distributed.sharding is imported lazily: it imports forms.linear, which
+# the package's __init__ imports before this module.
+
+def shard_tree(params: Any, ctx: Any, fsdp: bool = False) -> Any:
+    """This rank's pieces of a (possibly compressed) params tree on the mesh
+    of ``ctx``: compressed leaves get the co-sharded (mags, signs, scale)
+    trio, dense leaves the naming rules.  ``fsdp=False`` by default:
+    serving wants tensor-parallel weights replicated over the data axes,
+    not ZeRO-3 gathers in the decode loop."""
+    from repro_torch.distributed.sharding import params_shardings, reshard_state
+    return reshard_state(params, params_shardings(params, ctx, fsdp=fsdp))
+
+
+def tree_sharding_specs(params: Any) -> Dict[str, Any]:
+    """path -> ``mags`` spec of every mesh-placed compressed leaf."""
+    return {pstr: tuple(fp.shard[0].spec) for pstr, fp in compressed_paths(params).items()
+            if fp.shard is not None}
+
+
+def _axis_shards(sizes: Dict[str, int], entry: Any) -> int:
+    if entry is None:
+        return 1
+    names = entry if isinstance(entry, (tuple, list)) else (entry,)
+    n = 1
+    for a in names:
+        n *= sizes[a]
+    return n
+
+
+def validate_tree_sharding(params: Any, mesh_shape: Optional[Dict[str, int]] = None
+                           ) -> Dict[str, Any]:
+    """Validate the co-sharding invariants of every mesh-placed compressed
+    leaf: mags and signs shard their K/fragment axis identically and a K
+    shard holds whole fragments (a multiple of ``m``); mags, signs and
+    scale carry the same N entry; the scale's row axis is replicated.
+
+    Raises ``ValueError`` naming the offending path; returns path -> mags
+    spec of the leaves checked.  Leaves that are not mesh-placed are
+    skipped.  The K shard count comes from ``mesh_shape`` (axis -> size)
+    when given, else from the leaf's global and local shapes."""
+    checked = {}
+    for pstr, fp in compressed_paths(params).items():
+        if fp.shard is None:
+            continue
+        mspec, sspec, cspec = (s.spec for s in fp.shard)
+        if mspec[-1] != sspec[-1] or mspec[-1] != cspec[-1]:
+            raise ValueError(
+                f"{pstr}: N (output-column) axis must co-shard across "
+                f"mags/signs/scale, got {mspec[-1]!r}/{sspec[-1]!r}/"
+                f"{cspec[-1]!r} — per-column scales and fragment signs are "
+                f"state of the same columns as the magnitudes")
+        if mspec[-2] != sspec[-2]:
+            raise ValueError(
+                f"{pstr}: sign fragment axis must shard exactly like the "
+                f"mags K axis (got {sspec[-2]!r} vs {mspec[-2]!r}); a "
+                f"fragment's sign multiplies all {fp.m} of its rows")
+        if cspec[-2] is not None:
+            raise ValueError(
+                f"{pstr}: scale row axis must be replicated, got "
+                f"{cspec[-2]!r}")
+        kp = fp.shard[0].shape[-2]
+        if mspec[-2] is None:
+            kshards = 1
+        elif mesh_shape is not None:
+            kshards = _axis_shards(mesh_shape, mspec[-2])
+        else:
+            kshards = max(1, kp // max(1, fp.mags.shape[-2]))
+        if kshards > 1 and (kp % kshards != 0 or (kp // kshards) % fp.m != 0):
+            raise ValueError(
+                f"{pstr}: K={kp} sharded {kshards}-way gives "
+                f"{kp / kshards:g}-row shards, not a multiple of the "
+                f"fragment size m={fp.m} — sign blocks would straddle "
+                f"devices.  Re-shard with shards*m dividing K.")
+        checked[pstr] = tuple(mspec)
+    return checked

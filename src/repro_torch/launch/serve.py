@@ -74,6 +74,13 @@ xlstm-350m`` and ``--arch zamba2-2.7b`` serve the recurrent families at
 the exact prompt length on the dense slot cache: their O(1) state has no
 paged path, so ``--page-size`` falls back (the launcher says so) and the
 SLO flags are refused.
+``--mesh data=D,model=M`` serves SPMD on a device mesh (``launch/mesh.py``,
+one process per device; weights tensor-parallel over ``model``, slots or
+pages over ``data``) and prints the reference's ``mesh:`` line: on the card
+``--mesh data=1,model=1`` (a world of one over NCCL, or more ranks under
+``torchrun``), on the CPU ``--device cpu --mesh data=2,model=2
+--fake-devices 4`` (four gloo processes; rank 0 prints).  ``--no-donate``
+writes every dispatch into a fresh copy of the cache.
 ``--device`` defaults to ``cuda`` and the launcher fails without a card
 unless ``--device cpu`` is given.  Requests are made as the JAX launcher
 makes them (``np.random.RandomState(0)``).
@@ -81,7 +88,9 @@ makes them (``np.random.RandomState(0)``).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import io
 import time
 
 import numpy as np
@@ -127,7 +136,7 @@ def parse_loadgen(spec: str, args, vocab: int) -> LoadGenConfig:
         vocab=vocab, temperature=args.temperature)
 
 
-def main(argv=None) -> None:
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--arch", default="qwen2-1.5b", choices=ARCH_NAMES)
@@ -262,10 +271,59 @@ def main(argv=None) -> None:
                          "(with --fault-repair)")
     ap.add_argument("--drift-threshold", type=float, default=1e-3,
                     help="max-abs logit drift that triggers scan/repair")
+    ap.add_argument("--no-donate", action="store_true",
+                    help="write every dispatch into a fresh copy of the cache "
+                         "instead of updating it in place")
+    ap.add_argument("--mesh", default=None, metavar="AXES",
+                    help='device mesh as "data=D,model=M" (sharded serving, one '
+                         "process per device)")
+    ap.add_argument("--fake-devices", type=int, default=None, metavar="N",
+                    help="with --device cpu: run the mesh as N gloo processes on the CPU")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
-    args = ap.parse_args(argv)
+    return ap
 
+
+def main(argv=None) -> None:
+    args = _parser().parse_args(argv)
+    if args.fake_devices is not None:
+        if args.device != "cpu":
+            raise SystemExit("--fake-devices runs gloo processes on the CPU: add "
+                             "--device cpu (on cards, start one process per card "
+                             "with torchrun)")
+        if not args.mesh:
+            raise SystemExit("--fake-devices N serves a mesh: add --mesh data=D,model=M")
+        from repro_torch.launch.mesh import spawn_cpu_world
+        spawn_cpu_world(args.fake_devices, _serve_rank, args)
+        return
+    _serve(args)
+
+
+def _serve_rank(args) -> None:
+    """One rank of ``--fake-devices``: the launcher in the gloo world
+    already joined."""
+    _serve(args)
+
+
+def _serve(args) -> None:
+    """Serve with ``args``; on a mesh every rank serves and rank 0 prints."""
+    import torch.distributed as dist
+    mesh = None
+    ours = False
+    if args.mesh:
+        from repro_torch.launch.mesh import make_mesh, parse_mesh_arg
+        ours = not dist.is_initialized()
+        mesh = make_mesh(parse_mesh_arg(args.mesh), device=torch.device(args.device).type)
+    quiet = mesh is not None and dist.get_rank() != 0
+    try:
+        with contextlib.redirect_stdout(io.StringIO()) if quiet else contextlib.nullcontext():
+            _serve_on(args, mesh)
+    finally:
+        if ours:
+            dist.destroy_process_group()
+
+
+def _serve_on(args, mesh) -> None:
     fault_args = (args.fault_sigma, args.fault_stuck, args.fault_drift)
     wants_faults = any(v is not None for v in fault_args)
     if (wants_faults or args.fault_repair or args.encoding != "binary") and not args.forms:
@@ -346,6 +404,7 @@ def main(argv=None) -> None:
                            zero_skip=args.zero_skip,
                            zero_skip_keep=args.zero_skip_keep,
                            zero_skip_stats=args.zero_skip_stats, slo=slo,
+                           donate=not args.no_donate, mesh=mesh,
                            health=(HealthConfig(probe_every=args.probe_every,
                                                 drift_threshold=args.drift_threshold)
                                    if args.fault_repair else None),
@@ -364,7 +423,7 @@ def main(argv=None) -> None:
     if engine.paged:
         alloc = engine.page_allocator
         print(f"paged cache: {alloc.capacity} pages x {engine.page_size} rows "
-              f"(+1 scratch), {engine.cache_bytes() / 2**20:.1f} MiB, "
+              f"(+{alloc.partitions} scratch), {engine.cache_bytes() / 2**20:.1f} MiB, "
               f"prefix_cache={'on' if engine.prefix_cache else 'off'}")
     else:
         if args.page_size:
@@ -380,6 +439,11 @@ def main(argv=None) -> None:
               f"({detail})")
     elif args.speculate:
         print("speculate: unsupported on the dense cache — plain decode")
+    if mesh is not None:
+        import torch.distributed as dist
+        from repro_torch.distributed.sharding import sharded_leaf_count
+        print(f"mesh: {dict(engine.ctx.shape)} over {dist.get_world_size()} devices, "
+              f"{sharded_leaf_count(engine.param_shardings)} param leaves sharded")
     if lg_cfg is not None:
         reqs = generate(lg_cfg)
         print(f"loadgen: {lg_cfg.n_requests} requests at {lg_cfg.rate:.0f}/s "

@@ -19,7 +19,10 @@ and, with ADMM, the polarization violation of W; at the end, tokens/s.
 unless ``--device cpu`` is given.  ``--ckpt-dir`` saves every
 ``--ckpt-every`` steps in the background (``--resume`` continues from the
 latest save), and SIGTERM saves the last finished step and exits 0.  The
-reference's mesh flags are not ported yet (ROADMAP queue 1, item 13).
+reference's mesh flags ``--pods``, ``--mesh-data`` and ``--mesh-model`` are
+accepted; at 1 (the default) training runs as always on one device, and
+any other value is refused by name: sharded training (FSDP gathers and
+reduce-scatters, the bf16 cotangent boundary) is ROADMAP item 13c.
 """
 from __future__ import annotations
 
@@ -61,9 +64,21 @@ def main(argv=None) -> None:
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--pods", type=int, default=1)
+    ap.add_argument("--mesh-data", type=int, default=1)
+    ap.add_argument("--mesh-model", type=int, default=1)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; no fallback between them")
     args = ap.parse_args(argv)
+    mesh = {"--pods": args.pods, "--mesh-data": args.mesh_data,
+            "--mesh-model": args.mesh_model}
+    bad = {k: v for k, v in mesh.items() if v != 1}
+    if bad:
+        raise SystemExit(
+            f"{', '.join(f'{k} {v}' for k, v in bad.items())}: sharded training is not "
+            "ported yet (ROADMAP item 13c: the mesh flags, FSDP gathers and "
+            "reduce-scatters, grad_boundary's bf16 cotangent, the int8 all-to-all's "
+            "backward); train on one device with the mesh flags at 1")
 
     dev = resolve_device(args.device)
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)

@@ -11,8 +11,19 @@ same numbers:
 * the decode path keeps the KV cache in bf16 and attends with the query
   cast to the cache dtype, as the reference does.
 
-The reference's sharding annotations (``constrain``/``grad_boundary``) have
-no counterpart on one card and are dropped.
+On a mesh (an ambient ``distributed.context.parallel_context`` whose model
+axis has more than one member) every rank holds its local shards and the
+layers make the collectives the layouts imply (explicit SPMD):
+:func:`linear` runs an N-sharded weight on the rank's columns and gathers
+them unless the caller keeps them local, and a K-sharded weight on the
+rank's whole-fragment K slice of the input followed by a sum over
+``model``; attention runs on the rank's heads when q/k/v split at whole
+heads, else on all heads (gathered), and a dense slot cache whose sequence
+is sharded (context-parallel decode) merges the ranks' partial softmaxes
+by log-sum-exp; the vocab-sharded embedding is a masked lookup plus a sum,
+and the logits are gathered before sampling.  The reference's
+``constrain``/``grad_boundary`` annotate GSPMD layouts and have no
+counterpart here.
 """
 from __future__ import annotations
 
@@ -21,6 +32,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.context import model_ctx, set_shard, shard_of
 from repro_torch.forms.linear import DTYPES, FormsLinearParams  # noqa: F401
 from repro_torch.forms.linear import apply as forms_apply
 from repro_torch.forms.linear import to_dense as forms_to_dense
@@ -67,16 +79,84 @@ def wload(p: Params, name: str, dtype: torch.dtype) -> torch.Tensor:
     return v.to(dtype)
 
 
-def linear(p: Params, name: str, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+def linear(p: Params, name: str, x: torch.Tensor, dtype: torch.dtype, *,
+           x_local: bool = False, out_local: bool = False) -> torch.Tensor:
     """``x @ W`` where ``W = p[name]`` is dense, int-grid or FORMS-compressed;
     every compressed weight goes through the polarized matmul, which takes
     2-D weights only (a stacked or conv leaf raises).  Dense and int-grid
     weights are a ``torch.matmul`` (the reference's int path runs outside
-    any Pallas kernel too)."""
-    v = p[name]
+    any Pallas kernel too).  On a mesh ``x_local`` says ``x`` holds this
+    rank's columns (a split at the model axis) and ``out_local`` asks for
+    this rank's output columns back (:func:`apply_weight`)."""
+    return apply_weight(p[name], x, dtype, name, x_local=x_local, out_local=out_local,
+                        p=p)
+
+
+def _matrix_split(v) -> Tuple[bool, bool]:
+    if isinstance(v, dict):      # an int-grid leaf: its codes carry the layout
+        v = v["q"]
     if isinstance(v, FormsLinearParams):
-        return forms_apply(v, x, tag=name).to(dtype)
-    return matmul(x, wload(p, name, dtype))
+        return v.matrix_split()
+    sh = shard_of(v)
+    if sh is None:
+        return False, False
+    return sh.spec[-2] is not None, sh.spec[-1] is not None
+
+
+def _cols(t: torch.Tensor, ctx) -> torch.Tensor:
+    """This rank's equal share of ``t``'s last dim."""
+    tp, r = ctx.axis_size("model"), ctx.coord("model")
+    n = t.shape[-1] // tp
+    return t[..., r * n:(r + 1) * n]
+
+
+def apply_weight(v, x: torch.Tensor, dtype: torch.dtype, tag: str, *,
+                 x_local: bool = False, out_local: bool = False, p=None) -> torch.Tensor:
+    """``x @ v`` for one weight leaf in any layout (see :func:`linear`).
+
+    Off a mesh: the polarized matmul of a FORMS leaf, else a matmul.  On a
+    mesh with model size tp: a K-sharded leaf multiplies the rank's K slice
+    of x (padded to Kp; an ``x_local`` activation is that slice already when
+    its width is the leaf's local K) in f32 and sums over ``model`` before
+    the cast; any other leaf takes the whole x (gathered if ``x_local``).
+    An N-sharded result is gathered unless ``out_local``; a replicated one
+    is cut to the rank's columns when ``out_local``.
+    """
+    ctx = model_ctx()
+    forms = isinstance(v, FormsLinearParams)
+    if ctx is None:
+        if forms:
+            return forms_apply(v, x, tag=tag).to(dtype)
+        return matmul(x, wload(p, tag, dtype) if p is not None else v.to(dtype))
+    k_split, n_split = _matrix_split(v)
+    if k_split:
+        tp, r = ctx.axis_size("model"), ctx.coord("model")
+        kl = v.mags.shape[-2] if forms else v.shape[-2]
+        aligned = not forms or v.k == kl * tp
+        if x_local and x.shape[-1] == kl and aligned:
+            xs = x
+        else:
+            xf = ctx.all_gather(x, "model", -1) if x_local else x
+            if xf.shape[-1] < kl * tp:
+                xf = torch.nn.functional.pad(xf, (0, kl * tp - xf.shape[-1]))
+            xs = xf[..., r * kl:(r + 1) * kl]
+        if forms:
+            y = forms_apply(v, xs, tag=tag)
+        else:
+            w = wload(p, tag, dtype) if p is not None else v.to(dtype)
+            y = torch.matmul(xs.float(), w.float())
+        y = ctx.all_reduce(y, "model").to(dtype)
+    else:
+        xf = ctx.all_gather(x, "model", -1) if x_local else x
+        if forms:
+            y = forms_apply(v, xf, tag=tag).to(dtype)
+        else:
+            y = matmul(xf, wload(p, tag, dtype) if p is not None else v.to(dtype))
+    if n_split and not out_local:
+        return ctx.all_gather(y, "model", -1)
+    if out_local and not n_split:
+        return _cols(y, ctx)
+    return y
 
 
 def _f32_scalar(v: float, device) -> torch.Tensor:
@@ -230,6 +310,38 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     return out.reshape(b, t, h, hd).to(v_cache.dtype)
 
 
+def decode_attention_seq_shard(q: torch.Tensor, k_cache: torch.Tensor,
+                               v_cache: torch.Tensor, pos: torch.Tensor, offset: int,
+                               window: Optional[int] = None) -> torch.Tensor:
+    """:func:`decode_attention` on a cache whose sequence is sharded over
+    ``model`` (context-parallel decode): this rank holds cache positions
+    ``offset .. offset + S_local - 1``.  The ranks' partial softmaxes merge
+    by log-sum-exp over ``model`` (the flash-decoding merge): the global
+    max, the global sum of exponentials, then each rank's probabilities
+    (cast to the cache dtype, as the one-device path casts them) times its
+    values, summed."""
+    ctx = model_ctx()
+    b, t, h, hd = q.shape
+    s_loc, kv = k_cache.shape[1], k_cache.shape[2]
+    g = h // kv
+    scale = attn_scale(hd, q.device)
+    qr = q.reshape(b, t, kv, g, hd).to(k_cache.dtype)
+    pos2 = position_grid(pos, b, t)
+    scores = torch.einsum("btkgh,bskh->bkgts", qr.float(), k_cache.float()) * scale
+    kpos = offset + torch.arange(s_loc, dtype=torch.int32, device=q.device)
+    mask = kpos[None, None, :] <= pos2[:, :, None]
+    if window is not None:
+        mask = mask & (kpos[None, None, :] > pos2[:, :, None] - window)
+    scores = torch.where(mask[:, None, None], scores, MASK_VALUE)
+    top = ctx.all_reduce(scores.amax(dim=-1, keepdim=True), "model", "max")
+    e = torch.exp(scores - top)
+    probs = e / ctx.all_reduce(e.sum(dim=-1, keepdim=True), "model")
+    out = torch.einsum("bkgts,bskh->btkgh", probs.to(v_cache.dtype).float(),
+                       v_cache.float())
+    out = ctx.all_reduce(out, "model")
+    return out.reshape(b, t, h, hd).to(v_cache.dtype)
+
+
 def write_view(view: torch.Tensor, rows: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
     """Write ``rows`` (B, T, ...) into a (B, S, ...) cache view at the (B, T)
     position grid, in place; positions past S are dropped (JAX's scatter
@@ -249,6 +361,30 @@ def write_view(view: torch.Tensor, rows: torch.Tensor, grid: torch.Tensor) -> to
     return view
 
 
+def write_view_range(view: torch.Tensor, rows: torch.Tensor, grid: torch.Tensor,
+                     offset: int) -> torch.Tensor:
+    """:func:`write_view` into a rank's slice of a sequence-sharded cache
+    (positions ``offset .. offset + S_local - 1``): rows at positions this
+    rank does not hold are dropped, so each row lands on its owner only."""
+    b, s = view.shape[:2]
+    loc = grid - offset
+    live = (loc >= 0) & (loc < s)
+    bidx = torch.arange(b, device=view.device)[:, None].expand_as(grid)
+    view[bidx[live], loc[live].long()] = rows[live]
+    return view
+
+
+def _vec_like(b: torch.Tensor, width: int) -> torch.Tensor:
+    """A bias in the layout of a ``width``-wide activation: gathered, cut to
+    this rank's share, or as it is."""
+    if b.shape[-1] == width:
+        return b
+    ctx = model_ctx()
+    if b.shape[-1] < width:
+        return ctx.all_gather(b, "model", -1)
+    return _cols(b, ctx)
+
+
 def attention_block(p: Params, x: torch.Tensor, *, n_heads: int, n_kv: int,
                     hd: int, rope_theta: float, positions: torch.Tensor,
                     window: Optional[int] = None,
@@ -256,7 +392,8 @@ def attention_block(p: Params, x: torch.Tensor, *, n_heads: int, n_kv: int,
                     cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                     cache_pos: Optional[torch.Tensor] = None,
                     use_rope: bool = True, causal: bool = True,
-                    return_kv: bool = False, dtype=torch.bfloat16):
+                    return_kv: bool = False, dtype=torch.bfloat16,
+                    seq_offset: Optional[int] = None):
     """Full attention sub-layer.  Returns (out, new_kv_or_None).
 
     Prefill (``cache=None``): self-attention over x, causal unless
@@ -266,15 +403,25 @@ def attention_block(p: Params, x: torch.Tensor, *, n_heads: int, n_kv: int,
     Decode (``cache=(k, v)`` gathered views of shape (B, Smax, KV, hd)):
     writes the new K/V into the views — a transient copy, not the pool —
     attends, and returns the new-token K/V for the caller's commit.
+    On a mesh whose model size divides both head counts the block runs on
+    this rank's heads (its q/k/v columns, its cache heads, its rows of
+    ``wo``) and returns its heads' K/V; otherwise on all heads.
+    ``seq_offset`` marks a decode cache that holds this rank's sequence
+    slice from that position (context-parallel decode).
     """
     b, s, _ = x.shape
-    q = linear(p, "wq", x, dtype)
-    k = linear(p, "wk", x, dtype)
-    v = linear(p, "wv", x, dtype)
+    ctx = model_ctx()
+    tp = ctx.axis_size("model") if ctx is not None else 1
+    local = tp > 1 and n_heads % tp == 0 and n_kv % tp == 0
+    if local:
+        n_heads, n_kv = n_heads // tp, n_kv // tp
+    q = linear(p, "wq", x, dtype, out_local=local)
+    k = linear(p, "wk", x, dtype, out_local=local)
+    v = linear(p, "wv", x, dtype, out_local=local)
     if "bq" in p:
-        q = q + p["bq"].to(dtype)
-        k = k + p["bk"].to(dtype)
-        v = v + p["bv"].to(dtype)
+        q = q + _vec_like(p["bq"], q.shape[-1]).to(dtype)
+        k = k + _vec_like(p["bk"], k.shape[-1]).to(dtype)
+        v = v + _vec_like(p["bv"], v.shape[-1]).to(dtype)
     q = q.reshape(b, s, n_heads, hd)
     k = k.reshape(b, s, n_kv, hd)
     v = v.reshape(b, s, n_kv, hd)
@@ -290,12 +437,18 @@ def attention_block(p: Params, x: torch.Tensor, *, n_heads: int, n_kv: int,
         k_cache, v_cache = cache
         k_t, v_t = k.to(k_cache.dtype), v.to(v_cache.dtype)
         posgrid = position_grid(cache_pos, b, s)
-        write_view(k_cache, k_t, posgrid)
-        write_view(v_cache, v_t, posgrid)
-        out = decode_attention(q, k_cache, v_cache, posgrid, window=window)
+        if seq_offset is None:
+            write_view(k_cache, k_t, posgrid)
+            write_view(v_cache, v_t, posgrid)
+            out = decode_attention(q, k_cache, v_cache, posgrid, window=window)
+        else:
+            write_view_range(k_cache, k_t, posgrid, seq_offset)
+            write_view_range(v_cache, v_t, posgrid, seq_offset)
+            out = decode_attention_seq_shard(q, k_cache, v_cache, posgrid, seq_offset,
+                                             window=window)
         new_kv = (k_t, v_t)
     out = out.reshape(b, s, n_heads * hd)
-    return linear(p, "wo", out, dtype), new_kv
+    return linear(p, "wo", out, dtype, x_local=local), new_kv
 
 
 def cross_attention_block(p: Params, x: torch.Tensor, enc: torch.Tensor, *,
@@ -352,10 +505,27 @@ def swiglu(p: Params, x: torch.Tensor, dtype=torch.bfloat16, act: str = "silu",
     """Gated MLP; ``act`` picks the gate nonlinearity.  ``frag_drop > 0``
     sparsifies the hidden activations in whole fragments before ``down``,
     so the zero-skipping matmuls have dead fragments to skip."""
-    h = _MLP_ACTS[act](linear(p, "gate", x, dtype)) * linear(p, "up", x, dtype)
+    ctx = model_ctx()
+    # on a mesh the hidden columns stay on their rank unless the fragment
+    # ranking needs whole rows
+    local = (ctx is not None and frag_drop == 0.0
+             and _hidden_width(p) % ctx.axis_size("model") == 0)
+    h = (_MLP_ACTS[act](linear(p, "gate", x, dtype, out_local=local))
+         * linear(p, "up", x, dtype, out_local=local))
     if frag_drop > 0.0:
         h = sparsify_fragments(h, frag_m, frag_drop)
-    return linear(p, "down", h, dtype)
+    return linear(p, "down", h, dtype, x_local=local)
+
+
+def _hidden_width(p: Params) -> int:
+    """The global output width of ``p["gate"]``."""
+    v = p["gate"]
+    if isinstance(v, dict):
+        v = v["q"]
+    sh = v.shard[0] if isinstance(v, FormsLinearParams) and v.shard else shard_of(v)
+    if sh is not None:
+        return sh.shape[-1]
+    return v.mags.shape[-1] if isinstance(v, FormsLinearParams) else v.shape[-1]
 
 
 def gelu_mlp(p: Params, x: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
@@ -370,12 +540,29 @@ def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor,
     """Rows of the table, cast to ``dtype`` (gather first: same numbers as
     the reference's cast-then-gather, without casting the whole table).
     ``index_select``, whose gradient is an ``index_add_`` into the table,
-    keeps the backward pass free of host syncs."""
+    keeps the backward pass free of host syncs.  A vocab-sharded table (a
+    mesh) looks up the tokens in this rank's rows, zeroes the others and
+    sums over ``model``: exactly one rank holds each row."""
+    sh = shard_of(embed)
+    ctx = model_ctx()
+    if sh is not None and ctx is not None and sh.on_model(0):
+        v_loc = embed.shape[0]
+        idx = tokens.reshape(-1).long() - ctx.coord("model") * v_loc
+        live = (idx >= 0) & (idx < v_loc)
+        rows = embed.index_select(0, idx.clamp(0, v_loc - 1))
+        rows = ctx.all_reduce(torch.where(live[:, None], rows, 0.0), "model")
+        return rows.reshape(*tokens.shape, embed.shape[-1]).to(dtype)
     rows = embed.index_select(0, tokens.reshape(-1).long())
     return rows.reshape(*tokens.shape, embed.shape[-1]).to(dtype)
 
 
 def lm_logits(x: torch.Tensor, head, dtype=torch.bfloat16) -> torch.Tensor:
-    if isinstance(head, FormsLinearParams):
-        return forms_apply(head, x, tag="head").to(dtype)
-    return matmul(x, head.to(dtype))
+    """``x @ head``; on a mesh the vocab-sharded logits are gathered, so
+    sampling sees every column as on one device."""
+    return apply_weight(head, x, dtype, "head")
+
+
+def take_layer(t: torch.Tensor, i: int) -> torch.Tensor:
+    """Layer ``i`` of a stacked dense tensor, keeping its layout on a mesh."""
+    sh = shard_of(t)
+    return set_shard(t[i], sh.layer() if sh is not None else None)

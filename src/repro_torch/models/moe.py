@@ -7,9 +7,12 @@ FFN, as the JAX package's ``models/moe.py``: the router picks each token's
 top-k experts, a sort gives each (token, expert) pair its position in the
 expert's buffer, pairs past ``cap = max(4, int(capacity_factor * T * k /
 E))`` are dropped, the experts run batched on the ``(E, cap, d)`` buffer
-and the outputs are combined with the normalized gates.  This is the
-reference's single-device scatter path; its expert-parallel dispatch over
-a mesh is ROADMAP item 13.
+and the outputs are combined with the normalized gates (the reference's
+scatter path).  On a mesh whose model axis splits the experts, the tokens
+take the reference's expert-parallel path (``distributed/moe_dispatch``:
+``all_to_all`` over ``model``, capacity per (rank, expert)) when they split
+over it evenly; otherwise the scatter path runs this rank's experts on
+their rows of the buffer and the ranks' outputs are summed over ``model``.
 
 Ties break as the reference's: ``lax.top_k`` puts the lower expert index
 first among equal probabilities (a stable descending sort here), and the
@@ -46,6 +49,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import MLAConfig, ModelConfig
+from repro_torch.distributed import moe_dispatch
+from repro_torch.distributed.context import model_ctx
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import (_serving_head, layer_params,
                                             unstack_layers, with_head_cast)
@@ -115,8 +120,40 @@ def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig, dtype
     prob_mean = torch.mean(probs, dim=0)
     aux = e * torch.sum(density * prob_mean)
 
+    ctx = model_ctx()
+    if moe_dispatch.can_use(ctx, t, e):
+        # expert-parallel: this rank's token slice, all_to_all over model
+        tp, r = ctx.axis_size("model"), ctx.coord("model")
+        t_loc = t // tp
+        rows = slice(r * t_loc, (r + 1) * t_loc)
+        c2 = max(1, int(cfg.capacity_factor * t_loc * k / e))
+        quant = cfg.moe_dispatch_int8
+        bufe, slots = moe_dispatch.dispatch(xt[rows].to(dtype), idx[rows], e, c2, ctx,
+                                            quantized=quant)
+        out_buf = _expert_ffn(p, bufe, dtype)
+        y = moe_dispatch.combine(out_buf, idx[rows], slots, gates[rows], e, c2, ctx,
+                                 quantized=quant)
+        y = ctx.all_gather(y, "model", 0)
+    else:
+        y = _scatter_experts(p, xt, idx, gates, cfg, dtype)
+
+    if cfg.num_shared_experts:
+        xd = xt.to(dtype)
+        hs = F.silu(L.linear(p, "shared_gate", xd, dtype)) * L.linear(p, "shared_up", xd, dtype)
+        y = y + L.linear(p, "shared_down", hs, dtype)
+    return y.reshape(b, s, d), aux
+
+
+def _scatter_experts(p: Params, xt: torch.Tensor, idx: torch.Tensor, gates: torch.Tensor,
+                     cfg: ModelConfig, dtype) -> torch.Tensor:
+    """The reference's scatter path: capacity ``max(4, int(cf * T * K /
+    E))`` over all T tokens.  With the experts sharded over ``model`` this
+    rank runs its experts on their rows of the buffer and the ranks'
+    outputs are summed."""
+    t, d = xt.shape
+    e, k = cfg.num_experts, cfg.experts_per_token
     cap = max(4, int(cfg.capacity_factor * t * k / e))
-    dev = x.device
+    dev = xt.device
     e_flat = idx.reshape(t * k)
     order = torch.argsort(e_flat, stable=True)
     sorted_e = e_flat[order]
@@ -129,17 +166,26 @@ def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig, dtype
     x_rep = xt.repeat_interleave(k, dim=0).to(dtype)
     upd = torch.where(valid[:, None], x_rep, torch.zeros_like(x_rep))
     bufe = torch.zeros((e * cap, d), dtype=dtype, device=dev).index_add_(0, dest, upd)
-    out_buf = _expert_ffn(p, bufe.reshape(e, cap, d), dtype).reshape(e * cap, d)
-    y_tk = out_buf[dest]
-    y_tk = torch.where(valid[:, None], y_tk, torch.zeros_like(y_tk))
+    e_loc = _local_experts(p["w_gate"])
+    ctx = model_ctx()
+    lo = (ctx.coord("model") * e_loc) if e_loc < e else 0
+    out_loc = _expert_ffn(p, bufe.reshape(e, cap, d)[lo:lo + e_loc], dtype)
+    out_loc = out_loc.reshape(e_loc * cap, d)
+    mine = valid & (e_flat >= lo) & (e_flat < lo + e_loc)
+    y_tk = out_loc[torch.where(mine, dest - lo * cap, 0)]
+    y_tk = torch.where(mine[:, None], y_tk, torch.zeros_like(y_tk))
     y_tk = y_tk * gates.reshape(t * k, 1).to(dtype)
     y = y_tk.reshape(t, k, d).sum(dim=1)
+    if e_loc < e:
+        y = ctx.all_reduce(y.float(), "model").to(dtype)
+    return y
 
-    if cfg.num_shared_experts:
-        xd = xt.to(dtype)
-        hs = F.silu(L.linear(p, "shared_gate", xd, dtype)) * L.linear(p, "shared_up", xd, dtype)
-        y = y + L.linear(p, "shared_down", hs, dtype)
-    return y.reshape(b, s, d), aux
+
+def _local_experts(w) -> int:
+    """How many experts this rank holds of one layer's expert leaf."""
+    if isinstance(w, dict):
+        w = w["q"]
+    return (w.mags if hasattr(w, "mags") else w).shape[-3]
 
 
 # ---------------------------------------------------------------------------

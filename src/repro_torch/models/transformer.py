@@ -13,6 +13,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.context import model_ctx, set_shard, shard_of
 from repro_torch.forms.linear import FormsLinearParams
 from repro_torch.models import layers as L
 from repro_torch.serving import kv_cache as KV
@@ -60,7 +61,7 @@ def layer_params(blocks: Any, i: int) -> Any:
         return {k: layer_params(v, i) for k, v in blocks.items()}
     if isinstance(blocks, FormsLinearParams):
         return blocks.layer(i)
-    return blocks[i]
+    return L.take_layer(blocks, i)
 
 
 def unstack_layers(blocks: Any, n: int) -> list:
@@ -73,18 +74,22 @@ def unstack_layers(blocks: Any, n: int) -> list:
         return [{k: cols[k][i] for k in cols} for i in range(n)]
     if isinstance(blocks, FormsLinearParams):
         return [blocks.layer(i) for i in range(n)]
+    sh = shard_of(blocks)
+    if sh is not None:
+        return [set_shard(t, sh.layer()) for t in blocks.unbind(0)]
     return list(blocks.unbind(0))
 
 
 def _block_apply(cfg: ModelConfig, bp: Params, x: torch.Tensor,
                  positions: torch.Tensor, cache, cache_pos, dtype, q_chunk: int,
-                 collect_kv: bool = False):
+                 collect_kv: bool = False, seq_offset: Optional[int] = None):
     h, new_kv = L.attention_block(
         bp["attn"], L.rmsnorm(x, bp["norm1"], cfg.norm_eps),
         n_heads=cfg.num_heads, n_kv=cfg.num_kv_heads, hd=cfg.hd(),
         rope_theta=cfg.rope_theta, positions=positions,
         window=cfg.sliding_window, q_chunk=q_chunk,
-        cache=cache, cache_pos=cache_pos, return_kv=collect_kv, dtype=dtype)
+        cache=cache, cache_pos=cache_pos, return_kv=collect_kv, dtype=dtype,
+        seq_offset=seq_offset)
     x = x + h
     mlp_in = L.rmsnorm(x, bp["norm2"], cfg.norm_eps)
     if cfg.act_sparsity > 0.0:
@@ -100,7 +105,11 @@ def head_matrix(cfg: ModelConfig, params: Params):
     """The LM head: the untied ``head`` or the tied ``embed.T``.  Training
     reads this one, so a tied head's gradient reaches the embedding."""
     head = params.get("head")
-    return head if head is not None else params["embed"].T
+    if head is not None:
+        return head
+    embed = params["embed"]
+    sh = shard_of(embed)
+    return set_shard(embed.T, sh.transpose() if sh is not None else None)
 
 
 def _serving_head(cfg: ModelConfig, params: Params):
@@ -118,7 +127,8 @@ def with_head_cast(cfg: ModelConfig, params: Params) -> Params:
     head = head_matrix(cfg, params)
     if isinstance(head, FormsLinearParams):
         return params
-    return {**params, "head_cast": head.to(L.DTYPES[cfg.dtype])}
+    sh = shard_of(head)
+    return {**params, "head_cast": set_shard(head.to(L.DTYPES[cfg.dtype]), sh)}
 
 
 def _embed_inputs(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
@@ -213,10 +223,28 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     sit past the slot's length and are rewritten before a mask admits
     them."""
     logits, rows = _prefill_core(cfg, params, tokens, length)
+    off = seq_offset(cache["k"])
     for name, arr in rows.items():
         leaf = cache[name]
-        leaf[:, slot:slot + 1, :arr.shape[2]] = arr.to(leaf.dtype)
+        if off is None:
+            leaf[:, slot:slot + 1, :arr.shape[2]] = arr.to(leaf.dtype)
+        else:
+            # this rank holds positions off .. off + S_local - 1
+            hi = min(off + leaf.shape[2], arr.shape[2])
+            if hi > off:
+                leaf[:, slot:slot + 1, :hi - off] = arr[:, :, off:hi].to(leaf.dtype)
     return logits, cache
+
+
+def seq_offset(leaf: torch.Tensor) -> Optional[int]:
+    """The first cache position this rank holds of a dense ``(L, B, S, ...)``
+    cache leaf whose sequence is sharded over ``model`` (context-parallel
+    decode), else None."""
+    sh = shard_of(leaf)
+    ctx = model_ctx()
+    if sh is None or ctx is None or not sh.on_model(2):
+        return None
+    return ctx.coord("model") * leaf.shape[2]
 
 
 def prefill_paged(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
@@ -230,7 +258,8 @@ def prefill_paged(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
 
 
 def _decode_core(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
-                 k_cache: torch.Tensor, v_cache: torch.Tensor, pos: torch.Tensor):
+                 k_cache: torch.Tensor, v_cache: torch.Tensor, pos: torch.Tensor,
+                 seq_off: Optional[int] = None):
     """Decode compute against ``(L, B, S, kv, hd)`` cache views.  tokens:
     (B, T) with token t of row b at ``pos[b] + t``.  Returns (logits
     (B, T, V), new-token K and V of shape (L, B, T, kv, hd))."""
@@ -243,7 +272,7 @@ def _decode_core(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     for i in range(cfg.num_layers):
         x, (k, v) = _block_apply(cfg, layer_params(params["blocks"], i), x,
                                  positions, (k_cache[i], v_cache[i]), positions,
-                                 dtype, L.DEFAULT_Q_CHUNK)
+                                 dtype, L.DEFAULT_Q_CHUNK, seq_offset=seq_off)
         k_tok.append(k)
         v_tok.append(v)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
@@ -260,7 +289,8 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     the reference's token-column commit, done in place."""
     b = tokens.shape[0]
     pos = pos.to(torch.int32).expand(b)
-    logits, _, _ = _decode_core(cfg, params, tokens, cache["k"], cache["v"], pos)
+    logits, _, _ = _decode_core(cfg, params, tokens, cache["k"], cache["v"], pos,
+                                seq_off=seq_offset(cache["k"]))
     return logits, cache
 
 

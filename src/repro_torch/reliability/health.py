@@ -19,8 +19,14 @@ This module gives the serving engine the feedback loop:
   changes: the KV cache, the slots and the positions stay as they are, so
   requests in flight go on with the repaired weights.
 
-The JAX package's ``reliability/health.py``, held to it on the CPU; its
-per-shard scoreboard of a mesh has one shard here (ROADMAP item 13).
+The JAX package's ``reliability/health.py``, held to it on the CPU.  On a
+mesh (``ctx=``) every rank keeps the reference planes of its own shards and
+scores them; the ranks' scores are gathered, so every rank holds the whole
+scoreboard, whose ``replicas`` key each rank as ``"<device type>:<rank>"``
+(``"cpu:1"``, ``"cuda:0"``) where the reference keys a device's shard by
+``str(shard.device)``.  A probe's drift is the largest over the ranks, so
+all ranks take the same decision, and repair re-encodes only the shards
+that differ from their reference.
 """
 from __future__ import annotations
 
@@ -32,6 +38,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.distributed.context import parallel_context
 from repro_torch.forms.linear import default_spec
 from repro_torch.forms.tree import compressed_paths
 from repro_torch.reliability.faults import (FaultModel, FaultReport, inject_tree,
@@ -90,7 +97,7 @@ class HealthMonitor:
     """
 
     def __init__(self, model: Any, params: Any, config: HealthConfig, *,
-                 spec: Any = None):
+                 spec: Any = None, ctx: Any = None):
         if tuple(model.input_fields) != ("tokens",):
             raise ValueError(
                 f"health monitoring probes token prompts, but family "
@@ -100,6 +107,7 @@ class HealthMonitor:
         self.config = config
         self.model = model
         self.spec = spec
+        self.ctx = ctx
         self.probes = 0
         self.repairs = 0
         self.last_drift = 0.0
@@ -138,7 +146,7 @@ class HealthMonitor:
     @torch.inference_mode()
     def _run_probe(self, params: Any, toks: torch.Tensor) -> np.ndarray:
         """The last token's logits of one probe prompt, f32 on the host."""
-        with default_spec(self.spec):
+        with default_spec(self.spec), parallel_context(self.ctx):
             logits, _ = self.model.forward(params, {"tokens": toks})
         return logits[:, -1].float().cpu().numpy()
 
@@ -149,6 +157,8 @@ class HealthMonitor:
         for toks, golden in zip(self._prompts, self._golden):
             cur = self._run_probe(params, toks)
             drift = max(drift, float(np.max(np.abs(cur - golden))))
+        if self.ctx is not None:
+            drift = max(self.ctx.gather_objects(drift))
         self.last_drift = drift
         return drift
 
@@ -156,24 +166,41 @@ class HealthMonitor:
     # scan / scoreboard
     # ------------------------------------------------------------------
 
-    def scan(self, params: Any) -> Dict[str, Dict[str, Any]]:
-        """Compare every compressed leaf against the reference copy; returns
-        and records the scoreboard of corrupted leaves.  ``replicas`` maps
-        the device that holds a leaf to its mismatched codes (one device
-        here; the reference scores each shard of a mesh)."""
-        board: Dict[str, Dict[str, Any]] = {}
+    def _mismatch(self, params: Any) -> Dict[str, Tuple[int, int, int]]:
+        """path -> (bad codes, bad signs, cells) of this rank's planes."""
+        out = {}
         for path, leaf in compressed_paths(params).items():
             ref = self._reference[path]
             mags = leaf.mags.cpu().numpy()
             signs = leaf.signs.cpu().numpy()
-            bad_codes = int((mags != ref["mags"]).sum())
-            bad_signs = int((signs != ref["signs"]).sum())
+            out[path] = (int((mags != ref["mags"]).sum()), int((signs != ref["signs"]).sum()),
+                         int(mags.size))
+        return out
+
+    def _replica_key(self, leaf: Any) -> str:
+        if self.ctx is None:
+            return str(leaf.mags.device)
+        return f"{leaf.mags.device.type}:{self.ctx.rank}"
+
+    def scan(self, params: Any) -> Dict[str, Dict[str, Any]]:
+        """Compare every compressed leaf against the reference copy; returns
+        and records the scoreboard of corrupted leaves.  ``replicas`` maps
+        the device (on a mesh: the rank) that holds a corrupted shard to its
+        mismatched codes; counts and cells add up over the ranks."""
+        live = compressed_paths(params)
+        mine = {p: (*v, self._replica_key(live[p])) for p, v in self._mismatch(params).items()}
+        ranks = self.ctx.gather_objects(mine) if self.ctx is not None else [mine]
+        board: Dict[str, Dict[str, Any]] = {}
+        for path in live:
+            rows = [r[path] for r in ranks]
+            bad_codes = sum(r[0] for r in rows)
+            bad_signs = sum(r[1] for r in rows)
             if not bad_codes and not bad_signs:
                 continue
             board[path] = {
                 "bad_codes": bad_codes, "bad_signs": bad_signs,
-                "frac_codes": bad_codes / max(1, mags.size),
-                "replicas": {str(leaf.mags.device): bad_codes} if bad_codes else {}}
+                "frac_codes": bad_codes / max(1, sum(r[2] for r in rows)),
+                "replicas": {r[3]: r[0] for r in rows if r[0]}}
         self.flagged = board
         return board
 
@@ -185,15 +212,19 @@ class HealthMonitor:
         """Re-encode ``paths`` from the reference copy; returns the repaired
         tree (only the flagged leaves replaced, each with its shapes, dtypes
         and device, so rebinding it into a live runner changes nothing
-        else)."""
+        else).  On a mesh a rank replaces its shard of a flagged leaf only
+        where that shard differs from its reference."""
         wanted = set(paths)
         missing = wanted - set(self._reference)
         if missing:
             raise ValueError(f"no reference copy for {sorted(missing)} — "
                              f"known leaves: {sorted(self._reference)}")
         live = compressed_paths(params)
+        bad = self._mismatch(params) if self.ctx is not None else None
         new = {}
         for p in wanted:
+            if bad is not None and not any(bad[p][:2]):
+                continue
             leaf, ref = live[p], self._reference[p]
             new[p] = dataclasses.replace(
                 leaf, mags=torch.from_numpy(ref["mags"]).to(leaf.mags.device, copy=True),

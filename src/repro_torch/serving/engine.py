@@ -10,8 +10,11 @@ The reference's hot-path properties carry over:
   (``Model.padded_prefill`` False) are prefilled at the exact prompt
   length, since pad tokens would take expert capacity or advance the
   recurrent state.
-* **In-place caches** — the cache is updated in place; the reference gets
-  the same effect by donating the cache into its jitted steps.
+* **In-place caches** — the cache is updated in place (``donate=True``,
+  the default); the reference gets the same effect by donating the cache
+  into its jitted steps.  ``donate=False`` keeps the reference's meaning:
+  every dispatch writes into a fresh copy of the cache and rebinds it, so
+  a cache object the caller held before stays as it was.
 * **On-device sampling** — greedy and temperature sampling run on the
   device; the host never sees logits.
 * **Chunked decode** — ``decode_block`` steps run per host sync: sampled
@@ -59,12 +62,27 @@ params, and ``stats()["health"]`` is the scoreboard.  ``stats_every=N``
 prints the stat line (pages, prefix hits, acceptance, drift and repairs)
 every N decode rounds.
 
-Not ported yet, and refused rather than ignored: mesh sharding (ROADMAP
-item 13).
+With ``mesh=`` (a ``torch.distributed`` ``DeviceMesh`` from
+``launch/mesh.make_mesh``, one process per device) the engine serves as
+explicit SPMD: every rank holds the local shards that the reference's
+specs give it (``param_shardings``/``cache_shardings``: weights
+tensor-parallel over ``model`` and replicated over ``data``, slots or
+pages over ``data``, heads or the sequence over ``model``), runs its
+kernels on them with the collectives the layouts imply
+(``models/layers.py``), and decodes its data rank's slots.  The scheduler
+runs identically on every rank: the logits of each step are gathered over
+``data`` and every rank samples the whole batch with the same generator,
+so the tokens, and with them every scheduling decision, agree everywhere.
+A paged pool sharded over ``data`` keeps one free list per data rank
+(``PageAllocator(partitions=...)``), so page ids may differ from the
+one-device engine's; tokens do not.  The dense and MoE (GQA) families
+serve on a mesh; MLA, whisper and the recurrent families are refused by
+name.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import copy
 import dataclasses
 import time
@@ -74,6 +92,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.distributed.context import parallel_context, set_shard, shard_of
 from repro_torch.forms import (CompressReport, FormsSpec, compress_tree, default_spec,
                                sparsity_stats)
 from repro_torch.kernels.sparsity import SparsityMeter
@@ -140,6 +159,18 @@ def sample_on_device(logits: torch.Tensor, temps: torch.Tensor,
     return torch.where(temps > 0.0, sampled, greedy)
 
 
+def clone_cache(cache: Any) -> Any:
+    """A fresh copy of a serving cache (every leaf cloned, layouts kept)."""
+    def one(t):
+        if isinstance(t, tuple):
+            return tuple(one(u) for u in t)
+        return set_shard(t.clone(), shard_of(t))
+    if isinstance(cache, KV.PagedKVCache):
+        return dataclasses.replace(cache, pool={k: one(v) for k, v in cache.pool.items()},
+                                   dense={k: one(v) for k, v in cache.dense.items()})
+    return {k: one(v) for k, v in cache.items()}
+
+
 def cache_nbytes(cache: Any) -> int:
     """Device bytes of a paged cache or of the dense cache's leaves (an
     sLSTM layer's leaf is a tuple of three tensors)."""
@@ -161,7 +192,8 @@ class ModelRunner:
 
     def __init__(self, model: Model, params: Any, cache: Any, *,
                  max_len: int, spec: Optional[FormsSpec] = None,
-                 decode_block: int = 4, rng_seed: int = 0):
+                 decode_block: int = 4, rng_seed: int = 0, donate: bool = True,
+                 ctx: Optional[Any] = None, slots: int = 0):
         self.model = model
         self.device = model.device
         self.params = model.serving_params(params)
@@ -170,16 +202,71 @@ class ModelRunner:
         self.spec = spec
         self.decode_block = max(1, int(decode_block))
         self.max_len = int(max_len)
+        self.donate = bool(donate)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(rng_seed)
         # the engine's sparsity meter, installed around decode steps and
         # chunks (bulk prefill is not metered, as in the reference)
         self.meter: Optional[SparsityMeter] = None
         self.chunk_widths: List[int] = []   # the width of every prefill_chunk call
+        # on a mesh: this rank decodes its data rank's slots; a page pool
+        # sharded over data holds this rank's range of page ids
+        self.ctx = ctx
+        self.n_data = ctx.axis_size("batch") if ctx is not None else 1
+        self.data_rank = ctx.coord("batch") if ctx is not None else 0
+        self.slot_share = slots // self.n_data    # the slots of one data rank
+        self.page_offset = 0
+        if self.paged and ctx is not None:
+            pool = next(iter(cache.pool.values()))
+            sh = shard_of(pool)
+            if sh is not None and sh.spec[1] is not None:
+                self.page_offset = self.data_rank * pool.shape[1]
 
     @property
     def page_size(self) -> int:
         return self.cache.page_size
+
+    def _scope(self, meter: bool = True) -> contextlib.ExitStack:
+        """The ambient state of a model call: the spec, the sparsity meter
+        and the mesh context."""
+        stack = contextlib.ExitStack()
+        stack.enter_context(default_spec(self.spec))
+        if meter:
+            stack.enter_context(sparsity_stats(self.meter))
+        stack.enter_context(parallel_context(self.ctx))
+        return stack
+
+    def _own_caches(self) -> None:
+        """Before a dispatch: with ``donate=False`` the dispatch writes into
+        a fresh copy, so the cache the caller held keeps its values."""
+        if not self.donate:
+            self.cache = clone_cache(self.cache)
+
+    # -- this rank's share of the batch (identity off a mesh) -------------
+
+    def _slot_range(self, b: int) -> slice:
+        n = b // self.n_data
+        return slice(self.data_rank * n, (self.data_rank + 1) * n)
+
+    def _local(self, a):
+        """This data rank's rows of a (slots, ...) tensor or host array."""
+        return a if self.n_data == 1 else a[self._slot_range(len(a))]
+
+    def _gathered(self, t: torch.Tensor) -> torch.Tensor:
+        """The (slots, ...) tensor whose rows the data ranks hold in turn."""
+        return t if self.n_data == 1 else self.ctx.all_gather(t, "batch", 0)
+
+    def _local_pages(self, pages: np.ndarray) -> np.ndarray:
+        """Global page ids (block tables, prefill destinations) as this
+        rank's local ids; the scratch id maps to the rank's own scratch."""
+        if not self.page_offset:
+            return pages
+        pages = np.asarray(pages)
+        return np.where(pages == KV.SCRATCH_PAGE, KV.SCRATCH_PAGE, pages - self.page_offset
+                        ).astype(np.int32)
+
+    def _tables(self, block_tables: np.ndarray) -> torch.Tensor:
+        return self._to_device(self._local_pages(self._local(block_tables)))
 
     def bucket_for(self, n: int) -> int:
         """Padded-prefill bucket (power of two, at least 8, at most
@@ -207,15 +294,23 @@ class ModelRunner:
     def _prefill_call(self, model: Model, params: Any, cache: Any, toks: torch.Tensor,
                       slot: int, n: int, pages: Optional[np.ndarray]):
         """One bulk prefill of ``model`` into ``cache``: paged at ``pages``,
-        or the dense cache's ``slot``."""
-        with default_spec(self.spec):
+        or the dense cache's ``slot`` (global ids; mapped to this rank's)."""
+        with self._scope(meter=False):
             if self.paged:
                 if pages is None:
                     raise ValueError("paged prefill needs a destination-page "
                                      "vector (pages=...)")
-                return model.prefill_paged(params, toks, cache, self._to_device(pages),
+                return model.prefill_paged(params, toks, cache,
+                                           self._to_device(self._local_pages(pages)),
                                            slot, n)
-            return model.prefill(params, toks, cache, slot, n)
+            return model.prefill(params, toks, cache, self._local_slot(slot), n)
+
+    def _local_slot(self, slot: int) -> int:
+        return slot - self.data_rank * self.slot_share if self.n_data > 1 else slot
+
+    def _owner(self, slot: int) -> int:
+        """The data rank that holds ``slot``."""
+        return slot // self.slot_share if self.n_data > 1 else 0
 
     @torch.inference_mode()
     def prefill_slot(self, slot: int, prompt: np.ndarray, temperature: float = 0.0,
@@ -223,11 +318,21 @@ class ModelRunner:
         """Admit a prompt into ``slot`` with one bulk-prefill call; returns
         the first sampled token.  On the paged cache ``pages`` is the
         destination-page vector covering the bucket (scratch-0 entries skip
-        prefix-shared pages)."""
+        prefix-shared pages).  On a mesh the slot's data rank prefills and
+        its logits are broadcast over ``data``, so every rank samples the
+        same token from the same generator."""
         toks, n = self.padded_prompt(prompt)
-        logits, self.cache = self._prefill_call(self.model, self.params, self.cache,
-                                                self._to_device(toks), slot, n, pages)
-        lg = logits.reshape(1, -1).float()
+        self._own_caches()
+        lg = None
+        if self._owner(slot) == self.data_rank:
+            logits, self.cache = self._prefill_call(self.model, self.params, self.cache,
+                                                    self._to_device(toks), slot, n, pages)
+            lg = logits.reshape(1, -1).float()
+        if self.n_data > 1:
+            if lg is None:
+                lg = torch.empty((1, self.model.config.vocab_size), dtype=torch.float32,
+                                 device=self.device)
+            lg = self.ctx.broadcast(lg, "batch", self._owner(slot))
         temp = self._to_device(np.array([temperature]), torch.float32)
         return int(sample_on_device(lg, temp, self.generator)[0])
 
@@ -251,15 +356,17 @@ class ModelRunner:
         rewritten before any mask admits them."""
         if not self.paged:
             raise ValueError("chunked prefill needs the paged cache (page_size=...)")
-        b = tokens.shape[0]
-        tok = self._to_device(tokens)
-        tables = self._to_device(block_tables)
-        cols_d = self._to_device(cols).long()
-        with default_spec(self.spec), sparsity_stats(self.meter):
+        self._own_caches()
+        tok = self._to_device(self._local(tokens))
+        tables = self._tables(block_tables)
+        cols_d = self._to_device(self._local(cols)).long()
+        with self._scope():
             logits, self.cache = self.model.decode_paged(
-                self.params, tok, self.cache, self._to_device(positions), tables)
-            lg = logits[torch.arange(b, device=self.device), cols_d].float()
-            out = sample_on_device(lg, self._to_device(temps, torch.float32), self.generator)
+                self.params, tok, self.cache, self._to_device(self._local(positions)),
+                tables)
+            lg = logits[torch.arange(tok.shape[0], device=self.device), cols_d].float()
+            out = sample_on_device(self._gathered(lg), self._to_device(temps, torch.float32),
+                                   self.generator)
         self.chunk_widths.append(int(tokens.shape[1]))
         return out.cpu().numpy()
 
@@ -279,16 +386,19 @@ class ModelRunner:
         mutate them right after."""
         if self.paged and block_tables is None:
             raise ValueError("paged decode needs block_tables")
-        tok = self._to_device(tokens)
-        pos = self._to_device(positions)
-        tables = self._to_device(block_tables) if self.paged else None
+        self._own_caches()
+        tok = self._to_device(self._local(tokens))
+        pos = self._to_device(self._local(positions))
+        tables = self._tables(block_tables) if self.paged else None
         temps_d = self._to_device(temps, torch.float32)
         out = []
-        with default_spec(self.spec), sparsity_stats(self.meter):
+        with self._scope():
             for _ in range(self.decode_block):
                 logits, self.cache = self._decode_call(tok[:, None], pos, tables)
-                tok = sample_on_device(logits[:, 0].float(), temps_d, self.generator)
-                out.append(tok)
+                full = sample_on_device(self._gathered(logits[:, 0].float()), temps_d,
+                                        self.generator)
+                out.append(full)
+                tok = self._local(full)
                 pos = pos + 1
         return torch.stack(out).cpu().numpy()
 
@@ -342,11 +452,12 @@ class Scheduler:
         if self.paged:
             ps = runner.page_size
             self.n_tables = KV.pages_for(max_len, ps)
-            if allocator.capacity < self.n_tables:
+            if allocator.part_capacity < self.n_tables:
                 raise ValueError(
                     f"page pool too small: a max_len={max_len} request needs "
-                    f"{self.n_tables} pages, pool holds {allocator.capacity} "
-                    f"(+1 scratch)")
+                    f"{self.n_tables} pages, pool holds {allocator.part_capacity} "
+                    f"(+1 scratch)"
+                    + (f" per data rank" if allocator.partitions > 1 else ""))
             self.block_tables = np.zeros((slots, self.n_tables), np.int32)
             self.slot_pages: List[List[int]] = [[] for _ in range(slots)]
 
@@ -372,7 +483,15 @@ class Scheduler:
         shared = self.prefix.match(prompt) if self.prefix is not None else []
         if shared_cap is not None:
             shared = shared[:shared_cap]
-        own = self.allocator.alloc(need - len(shared))
+        part = self._partition(slot)
+        if self.allocator.partitions > 1:
+            # a slot's pages live on its data rank: share only a leading run
+            # of the prefix that is there
+            n_here = 0
+            while n_here < len(shared) and self.allocator.partition_of(shared[n_here]) == part:
+                n_here += 1
+            shared = shared[:n_here]
+        own = self.allocator.alloc(need - len(shared), part=part)
         if own is None:
             return None
         self.allocator.share(shared)
@@ -388,6 +507,10 @@ class Scheduler:
         return np.asarray(
             [KV.SCRATCH_PAGE if j < len(shared) else pages[j]
              for j in range(n_bucket_pages)], np.int32)
+
+    def _partition(self, slot: int) -> int:
+        """The page partition (data rank) of ``slot``'s pages."""
+        return slot // (self.slots // self.allocator.partitions)
 
     def _release_slot(self, slot: int) -> None:
         if not self.paged:
@@ -466,7 +589,8 @@ class Scheduler:
                 if active[s] is None:
                     head = queue[0]
                     admit(s)
-                    if queue and queue[0] is head and active[s] is None:
+                    if queue and queue[0] is head and active[s] is None \
+                            and (self.allocator is None or self.allocator.partitions == 1):
                         return
 
         # health pass before any prefill: faults injected while the engine
@@ -531,9 +655,24 @@ class Scheduler:
         print("[serve] " + ", ".join(parts), flush=True)
 
 
-def _refuse(name: str, value: Any, default: Any, item: str) -> None:
-    if value != default:
-        raise NotImplementedError(f"{name}= is not ported yet ({item})")
+def _check_mesh_family(model: Model) -> None:
+    """Refuse by name the families the mesh engine does not serve."""
+    cfg = model.config
+    if cfg.family not in ("dense", "moe") or cfg.mla is not None:
+        what = "MLA" if cfg.mla is not None else f"the {cfg.family} family"
+        raise NotImplementedError(
+            f"serving {what} on a mesh is not ported: the mesh engine runs the "
+            "dense and MoE (GQA) families (ROADMAP item 13a)")
+
+
+def _check_mesh(dev: torch.device, ctx: Any, batch_slots: int) -> None:
+    mesh_dev = ctx.mesh.device_type
+    if mesh_dev != dev.type:
+        raise ValueError(f"the mesh is on {mesh_dev!r} but the engine on {dev.type!r}")
+    d = ctx.axis_size("batch")
+    if batch_slots % d:
+        raise ValueError(f"batch_slots={batch_slots} does not split over the "
+                         f"{d}-way data axes: each data rank decodes its own slots")
 
 
 class ServingEngine:
@@ -561,7 +700,11 @@ class ServingEngine:
     (compressed trees only) arms the reliability loop on either scheduler;
     ``inject_faults`` corrupts the live params and ``stats()["health"]`` is
     the scoreboard.  ``stats_every=N`` prints the stat line every N decode
-    rounds.
+    rounds.  ``donate=False`` makes every dispatch write a fresh copy of the
+    cache (the one held before stays as it was).  ``mesh=`` serves SPMD on
+    a ``DeviceMesh`` (module docstring); ``param_shardings`` and
+    ``cache_shardings`` are then the specs the params and caches were
+    placed with (None without a mesh).
     """
 
     def __init__(self, model: Model, params: Any, *, max_len: int = 512,
@@ -574,6 +717,7 @@ class ServingEngine:
                  num_pages: Optional[int] = None,
                  prefix_cache: bool = False,
                  device: Union[str, torch.device, None] = DEFAULT_DEVICE,
+                 donate: bool = True,
                  mesh: Optional[Any] = None, speculate: bool = False,
                  draft_k: int = 4, draft_bits: int = 4, draft_mode: str = "forms",
                  draft_plan: Optional[Dict[str, FormsSpec]] = None,
@@ -587,7 +731,15 @@ class ServingEngine:
         if dev != model.device:
             raise ValueError(f"engine device {dev} differs from the model's "
                              f"{model.device} (build(cfg, device=...))")
-        _refuse("mesh", mesh, None, "ROADMAP queue 1, item 13")
+        self.ctx = None
+        if mesh is not None:
+            from repro_torch.distributed.sharding import ParallelContext
+            _check_mesh_family(model)
+            if not hasattr(mesh, "mesh_dim_names"):
+                raise TypeError(f"mesh= takes a torch.distributed DeviceMesh "
+                                f"(launch/mesh.make_mesh), got {type(mesh).__name__}")
+            self.ctx = ParallelContext.for_mesh(mesh)
+            _check_mesh(dev, self.ctx, batch_slots)
         if ((zero_skip not in (None, "off")) or zero_skip_stats) \
                 and not (forms or spec is not None):
             raise ValueError(
@@ -630,17 +782,25 @@ class ServingEngine:
         # the recurrent families) falls back to the plain runner, as in the
         # reference
         self.speculative = bool(speculate) and self.paged
+        self.donate = bool(donate)
+        n_data = self.ctx.axis_size("batch") if self.ctx is not None else 1
         allocator = prefix = None
         if self.paged:
             if num_pages is None:
-                # every slot can hold a full max_len request (+1 scratch page)
+                # every slot can hold a full max_len request (+1 scratch page);
+                # on a mesh rounded up to the data size, so the page dim
+                # shards instead of replicating
                 num_pages = batch_slots * KV.pages_for(max_len, self.page_size) + 1
-            allocator = KV.PageAllocator(num_pages)
+                num_pages = -(-num_pages // n_data) * n_data
+            # a pool sharded over data keeps each data rank's pages apart
+            allocator = KV.PageAllocator(num_pages,
+                                         partitions=n_data if num_pages % n_data == 0 else 1)
             prefix = KV.PrefixCache(self.page_size) if prefix_cache else None
             cache = model.init_paged_cache(num_pages, self.page_size, batch_slots, max_len)
         else:
             cache = model.init_cache(batch_slots, max_len)
         self.draft_report: Optional[CompressReport] = None
+        draft = None
         if self.speculative:
             from repro_torch.serving import speculate as SP
             spec_cfg = SP.SpeculateConfig(
@@ -656,15 +816,37 @@ class ServingEngine:
                     model, params, spec_cfg, plan=draft_plan)
             draft_cache = draft_model.init_paged_cache(num_pages, self.page_size,
                                                        batch_slots, max_len)
+            draft = [draft_model, draft_params, draft_cache]
+        self.param_shardings = self.cache_shardings = None
+        if self.ctx is not None:
+            # weights tensor-parallel over model and replicated over data
+            # (fsdp=False: no gathers on the decode path); caches: slots or
+            # pages over data, heads (or the sequence) over model.  Each
+            # rank keeps its pieces of the global trees.
+            from repro_torch.distributed import sharding as shd
+            with torch.inference_mode():
+                if shd.is_placed(params):
+                    # restored straight into the layout (checkpoint.restore(
+                    # shardings=...)): served as it is
+                    self.param_shardings = shd.placed_shardings(params, self.ctx)
+                else:
+                    self.param_shardings = shd.params_shardings(params, self.ctx, fsdp=False)
+                    params = shd.reshard_state(params, self.param_shardings)
+                self.cache_shardings = shd.cache_shardings(cache, self.ctx)
+                cache = shd.reshard_state(cache, self.cache_shardings)
+                if draft is not None:
+                    draft[1] = shd.reshard_state(
+                        draft[1], shd.params_shardings(draft[1], self.ctx, fsdp=False))
+                    draft[2] = shd.reshard_state(draft[2],
+                                                 shd.cache_shardings(draft[2], self.ctx))
+        run_kw = dict(max_len=max_len, spec=self.spec, decode_block=decode_block,
+                      rng_seed=rng_seed, donate=donate, ctx=self.ctx, slots=batch_slots)
+        if draft is not None:
             self.runner: ModelRunner = SP.SpeculativeRunner(
-                model, params, cache, draft_model=draft_model,
-                draft_params=draft_params, draft_cache=draft_cache, spec_cfg=spec_cfg,
-                max_len=max_len, spec=self.spec, decode_block=decode_block,
-                rng_seed=rng_seed)
+                model, params, cache, draft_model=draft[0], draft_params=draft[1],
+                draft_cache=draft[2], spec_cfg=spec_cfg, **run_kw)
         else:
-            self.runner = ModelRunner(model, params, cache, max_len=max_len,
-                                      spec=self.spec, decode_block=decode_block,
-                                      rng_seed=rng_seed)
+            self.runner = ModelRunner(model, params, cache, **run_kw)
         # off by default: metering adds a few device ops to every FORMS
         # matmul of every decode step
         self.sparsity_meter: Optional[SparsityMeter] = None
@@ -677,7 +859,8 @@ class ServingEngine:
         self.health = None
         if health is not None:
             from repro_torch.reliability.health import HealthMonitor
-            self.health = HealthMonitor(model, self.runner.params, health, spec=self.spec)
+            self.health = HealthMonitor(model, self.runner.params, health, spec=self.spec,
+                                        ctx=self.ctx)
         if slo is not None:
             from repro_torch.serving.sched import FleetScheduler, SLOConfig
             if isinstance(slo, dict):

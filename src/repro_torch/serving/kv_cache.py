@@ -181,17 +181,30 @@ class PageAllocator:
     Page 0 (:data:`SCRATCH_PAGE`) is reserved and pinned; usable capacity is
     ``num_pages - 1``.  Shared (prefix-cache) pages are refcounted — a page
     returns to the free list only when its last holder releases it.
+
+    ``partitions=D`` (a page pool sharded over D data ranks) cuts the pool
+    into D equal ranges, one per data rank, each with its own free list and
+    its own scratch page (the range's first page, which is the rank's local
+    page 0): a slot's pages must live on the rank that decodes it, so
+    :meth:`alloc` takes the partition.
     """
 
-    def __init__(self, num_pages: int):
-        if num_pages < 2:
-            raise ValueError(f"num_pages={num_pages} must be >= 2 "
-                             "(page 0 is the reserved scratch page)")
+    def __init__(self, num_pages: int, partitions: int = 1):
+        if partitions < 1 or num_pages % partitions:
+            raise ValueError(f"num_pages={num_pages} does not split into "
+                             f"{partitions} equal partitions")
+        self.partitions = partitions
+        self.per_part = num_pages // partitions
+        if self.per_part < 2:
+            raise ValueError(f"num_pages={num_pages} must be >= 2 per partition "
+                             "(page 0 of each is the reserved scratch page)")
         self.num_pages = num_pages
         self._refs = np.zeros(num_pages, np.int32)
-        self._refs[SCRATCH_PAGE] = 1
+        self._refs[::self.per_part] = 1
         # pop() hands out low page ids first (stable tests/debugging)
-        self._free: List[int] = list(range(num_pages - 1, SCRATCH_PAGE, -1))
+        self._free: List[List[int]] = [
+            list(range((q + 1) * self.per_part - 1, q * self.per_part, -1))
+            for q in range(partitions)]
         self.high_water = 0          # peak pages simultaneously in use
         # lifetime accounting (eviction/restore churn shows up here: a
         # preempted-then-resumed request allocates its pages twice)
@@ -201,38 +214,50 @@ class PageAllocator:
 
     @property
     def capacity(self) -> int:
-        return self.num_pages - 1
+        return self.num_pages - self.partitions
+
+    @property
+    def part_capacity(self) -> int:
+        """Usable pages of one partition (what one slot can ever hold)."""
+        return self.per_part - 1
 
     @property
     def free_pages(self) -> int:
-        return len(self._free)
+        return sum(len(f) for f in self._free)
 
     @property
     def used_pages(self) -> int:
-        return self.capacity - len(self._free)
+        return self.capacity - self.free_pages
+
+    def partition_of(self, page: int) -> int:
+        return page // self.per_part
 
     def stats(self) -> Dict[str, int]:
         """Pool occupancy snapshot: capacity, free/used pages, pages held by
         more than one request (prefix sharing), and the high-water mark of
         simultaneous use (surfaced through ``ServingEngine.stats()`` and the
         serve CLI's periodic log line)."""
+        live = np.ones(self.num_pages, bool)
+        live[::self.per_part] = False
         return {
             "capacity": self.capacity,
             "free": self.free_pages,
             "used": self.used_pages,
-            "shared": int((self._refs[SCRATCH_PAGE + 1:] > 1).sum()),
+            "shared": int((self._refs[live] > 1).sum()),
             "high_water": self.high_water,
             "total_allocated": self.total_allocated,
             "total_freed": self.total_freed,
             "failed_allocs": self.failed_allocs,
         }
 
-    def alloc(self, n: int) -> Optional[List[int]]:
-        """Allocate ``n`` pages (refcount 1 each), or None if short."""
-        if n > len(self._free):
+    def alloc(self, n: int, part: int = 0) -> Optional[List[int]]:
+        """Allocate ``n`` pages of partition ``part`` (refcount 1 each), or
+        None if short."""
+        free = self._free[part]
+        if n > len(free):
             self.failed_allocs += 1
             return None
-        pages = [self._free.pop() for _ in range(n)]
+        pages = [free.pop() for _ in range(n)]
         for p in pages:
             self._refs[p] = 1
         self.total_allocated += n
@@ -250,11 +275,11 @@ class PageAllocator:
         """Drop one reference per page; returns the pages actually freed."""
         freed = []
         for p in pages:
-            if p == SCRATCH_PAGE:
+            if p % self.per_part == SCRATCH_PAGE:
                 continue
             self._refs[p] -= 1
             if self._refs[p] == 0:
-                self._free.append(p)
+                self._free[self.partition_of(p)].append(p)
                 freed.append(p)
             elif self._refs[p] < 0:
                 raise ValueError(f"page {p} released more times than held")

@@ -42,10 +42,11 @@ import numpy as np
 import torch
 
 from repro_torch.forms import (CompressReport, FormsLinearParams, FormsSpec, compress_tree,
-                               decompress_tree, default_spec, sparsity_stats)
+                               decompress_tree)
 from repro_torch.models.registry import Model, build
 from repro_torch.serving import kv_cache as KV
-from repro_torch.serving.engine import ModelRunner, gumbel_argmax, sample_on_device
+from repro_torch.serving.engine import (ModelRunner, clone_cache, gumbel_argmax,
+                                       sample_on_device)
 from repro_torch.serving.quant_weights import quantize_tree
 
 
@@ -294,27 +295,33 @@ class SpeculativeRunner(ModelRunner):
                         tables: torch.Tensor, k_eligible: torch.Tensor,
                         temps: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """The device part of one round at width ``kk`` on device tensors:
-        returns the (B, kk+1) emitted grid and the (B,) counts, unread."""
-        with default_spec(self.spec), sparsity_stats(self.meter):
+        returns the (B, kk+1) emitted grid and the (B,) counts, unread.
+        ``tables`` holds this rank's rows in its local page ids; the other
+        arguments cover all slots."""
+        tok_l, pos_l, tables_l = self._local(tok), self._local(pos), tables
+        with self._scope():
             drafts, draft_lg = [], []
-            t, dpos = tok, pos
+            t, dpos = tok_l, pos_l
             # kk + 1 draft calls: the last one only writes the draft row of
-            # d_kk, so a fully accepted round leaves the pools in step
+            # d_kk, so a fully accepted round leaves the pools in step; on a
+            # mesh each step's logits are gathered over data and every rank
+            # samples all slots
             for i in range(kk + 1):
                 logits, self.draft_cache = self.draft_model.decode_paged(
-                    self.draft_params, t[:, None], self.draft_cache, dpos, tables)
+                    self.draft_params, t[:, None], self.draft_cache, dpos, tables_l)
                 if i == kk:
                     break
-                lg = logits[:, 0].float()
-                t = sample_on_device(lg, temps, self.generator)
-                drafts.append(t)
+                lg = self._gathered(logits[:, 0].float())
+                full = sample_on_device(lg, temps, self.generator)
+                drafts.append(full)
                 draft_lg.append(lg)
+                t = self._local(full)
                 dpos = dpos + 1
-            ver_in = torch.stack([tok] + drafts, dim=1)                 # (B, kk+1)
+            ver_in = torch.stack([tok_l] + [self._local(d) for d in drafts], dim=1)
             logits_t, self.cache = self.model.decode_paged(self.params, ver_in,
-                                                           self.cache, pos, tables)
-            return _accept(logits_t.float(), torch.stack(draft_lg), torch.stack(drafts),
-                           k_eligible, temps, self.generator)
+                                                           self.cache, pos_l, tables_l)
+            return _accept(self._gathered(logits_t.float()), torch.stack(draft_lg),
+                           torch.stack(drafts), k_eligible, temps, self.generator)
 
     def reset_slot(self, slot: int) -> None:
         """Fresh adaptive-K state for a newly admitted request."""
@@ -341,9 +348,10 @@ class SpeculativeRunner(ModelRunner):
         k_eligible = np.asarray([self._slot_state(s).k if act[s] else 1 for s in range(b)],
                                 np.int32)
         kk = max((int(k_eligible[s]) for s in range(b) if act[s]), default=self.k_max)
+        self._own_caches()
         out, n_emit = self.speculate_round(
             kk, self._to_device(tokens), self._to_device(positions),
-            self._to_device(block_tables), self._to_device(k_eligible),
+            self._tables(block_tables), self._to_device(k_eligible),
             self._to_device(temps, torch.float32))
         host = torch.cat([out, n_emit[:, None]], dim=1).cpu().numpy()
         out, counts = host[:, :-1], host[:, -1]
@@ -376,10 +384,11 @@ class SpeculativeRunner(ModelRunner):
         then the draft prefill writes the draft pool's rows of the same
         pages (scratch-0 entries protect prefix-shared pages in both)."""
         tok = super().prefill_slot(slot, prompt, temperature, pages=pages)
-        toks, n = self.padded_prompt(prompt)
-        _, self.draft_cache = self._prefill_call(self.draft_model, self.draft_params,
-                                                 self.draft_cache, self._to_device(toks),
-                                                 slot, n, pages)
+        if self._owner(slot) == self.data_rank:
+            toks, n = self.padded_prompt(prompt)
+            _, self.draft_cache = self._prefill_call(self.draft_model, self.draft_params,
+                                                     self.draft_cache, self._to_device(toks),
+                                                     slot, n, pages)
         return tok
 
     @torch.inference_mode()
@@ -392,11 +401,19 @@ class SpeculativeRunner(ModelRunner):
         chunked prefill enters the speculative rounds position-synced, as
         after bulk admission."""
         tok = super().prefill_chunk(tokens, positions, block_tables, cols, temps)
-        with default_spec(self.spec):
+        with self._scope(meter=False):
             _, self.draft_cache = self.draft_model.decode_paged(
-                self.draft_params, self._to_device(tokens), self.draft_cache,
-                self._to_device(positions), self._to_device(block_tables))
+                self.draft_params, self._to_device(self._local(tokens)),
+                self.draft_cache, self._to_device(self._local(positions)),
+                self._tables(block_tables))
         return tok
+
+    def _own_caches(self) -> None:
+        """Both pools are written by a round: with ``donate=False`` both go
+        to fresh copies."""
+        super()._own_caches()
+        if not self.donate:
+            self.draft_cache = clone_cache(self.draft_cache)
 
     def spec_stats(self) -> Dict[str, Any]:
         """Lifetime counters: ``acceptance`` is accepted over eligible

@@ -350,8 +350,13 @@ def test_shape_mismatch_and_shardings_refused(tmp_path):
         tckpt.restore(str(tmp_path), {"x": torch.zeros(4)})
     with pytest.raises(ValueError, match="leaves"):
         tckpt.restore(str(tmp_path), {"x": torch.zeros(3), "y": torch.zeros(1)})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tckpt.restore(str(tmp_path), {"x": torch.zeros(3)}, shardings={"x": None})
+    # shardings= is ported (restore straight into a mesh layout,
+    # tests/test_torch_mesh.py): a None entry restores the leaf whole, and a
+    # shardings tree of another leaf count is refused as in the reference
+    out, _ = tckpt.restore(str(tmp_path), {"x": torch.ones(3)}, shardings={"x": None})
+    assert torch.equal(out["x"], torch.zeros(3))
+    with pytest.raises(ValueError, match="shardings tree has 2 leaves, template has 1"):
+        tckpt.restore(str(tmp_path), {"x": torch.zeros(3)}, shardings={"x": None, "y": None})
 
 
 def test_atomic_publish_and_gc(tmp_path, monkeypatch):

@@ -129,3 +129,35 @@ def test_reliability_and_moe_are_the_ports_own(module):
                                                       "ml_dtypes")}
     if module.startswith("reliability/") and module != "reliability/health.py":
         assert "numpy" in mods
+
+
+@pytest.mark.parametrize("module", ["distributed/__init__.py", "distributed/context.py",
+                                    "distributed/sharding.py", "distributed/moe_dispatch.py",
+                                    "launch/mesh.py"])
+def test_the_mesh_modules_are_the_ports_own(module):
+    """The mesh modules import neither JAX nor the JAX package: the rule
+    table, the scanned prefixes, the FSDP threshold and ``MeshConfig`` are
+    the port's own copies."""
+    path = ROOT / "src" / "repro_torch" / module
+    assert path in PORT_FILES
+    mods = set(_imported_modules(path))
+    assert not {m for m in mods if m.split(".")[0] in ("jax", "jaxlib", "repro", "msgpack",
+                                                      "ml_dtypes")}
+
+
+def test_mesh_entry_points_default_to_cuda(monkeypatch):
+    """make_mesh and single_device_mesh default to a cuda mesh and refuse
+    without CUDA rather than falling back to gloo on the CPU; a CPU world
+    larger than allowed is refused, never shrunk; an engine on a mesh of
+    another device type is refused."""
+    from repro_torch.configs.base import MeshConfig
+    from repro_torch.launch import mesh as M
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA, which is not available"):
+        M.make_mesh(MeshConfig(data=1, model=1))
+    with pytest.raises(RuntimeError, match="CUDA, which is not available"):
+        M.single_device_mesh()
+    with pytest.raises(ValueError, match="more than the 2 processes"):
+        M.spawn_cpu_world(4, print, max_procs=2)
+    with pytest.raises(RuntimeError, match="needs 4 processes"):
+        M.make_mesh(MeshConfig(data=2, model=2), device="cpu")

@@ -20,7 +20,9 @@ from repro.serving import kv_cache as JKV
 from repro.serving.engine import Request as JRequest
 from repro.serving.engine import ServingEngine as JEngine
 from repro_torch import forms as tforms
+from repro_torch.configs import get_reduced as torch_reduced
 from repro_torch.launch import serve as tserve
+from repro_torch.models.registry import build as tbuild
 from repro_torch.serving import kv_cache as TKV
 from repro_torch.serving.engine import Request as TRequest
 from repro_torch.serving.engine import ServingEngine as TEngine
@@ -93,8 +95,13 @@ def test_temperature_sampling_is_deterministic_per_seed():
 def test_unported_options_are_refused():
     _, _, tm, tp = models()
     kw = dict(max_len=32, batch_slots=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 13"):
+    # mesh= is ported (tests/test_torch_mesh.py): it takes a DeviceMesh, and
+    # the families the mesh engine does not serve are refused by name
+    with pytest.raises(TypeError, match="DeviceMesh"):
         TEngine(tm, tp, **kw, page_size=8, mesh=object())
+    xm = tbuild(torch_reduced("xlstm-350m"), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP item 13a"):
+        TEngine(xm, xm.init(0), **kw, mesh=object())
     # health= is ported (reliability/health): it arms the monitor on a FORMS
     # tree (tests/test_torch_reliability.py)
     from repro_torch.reliability import HealthConfig
