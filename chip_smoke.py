@@ -250,6 +250,18 @@ Phases, each printing JSON lines:
                Z-update ms, the kernel's launches (14) and every Z leaf's
                violation (0); one traced step and one step with host syncs
                forbidden;
+15b. mesh_train — the train phase's first 4 steps through the same step
+               over a live mesh (``make_train_step(ctx=)``, the state placed
+               with ``fsdp=True`` specs) on a world of one over NCCL: losses and
+               gradient norms equal to the train phase's within 1e-6
+               relative, the kernel's launches equal, every Z leaf's
+               violation 0; kernel #4 at one local shard of each stacked
+               leaf under ``params_shardings(fsdp=True)`` at data x model =
+               2x2, 4x2 and 8x1, every shard's output, signs and quantized
+               Z (the column scale max-reduced over the shards that split
+               K) equal to the whole leaf's slice bit for bit, timed beside
+               the byte bound and the launch floor; then ``train --reduced
+               --mesh-data 1 --mesh-model 1`` and its ``mesh:`` line;
 16. checkpoint — checkpointed ADMM training of qwen2-1.5b at full width,
                depth cut to 2 layers, the train phase's settings: run A (4
                steps) twice, run B (2 steps, ``save_async`` after the step-2
@@ -2486,7 +2498,7 @@ def phase_train():
     tokens = TRAIN["seq_len"] * TRAIN["global_batch"]
 
     reset_counts()
-    step_ms, z_ms, losses, gnorms = [], {}, [], []
+    step_ms, z_ms, losses, gnorms, pol_after = [], {}, [], [], []
     for i in range(TRAIN["steps"]):
         t = time.perf_counter()
         state, metrics = step(state, batches[i])
@@ -2499,6 +2511,7 @@ def phase_train():
         torch.cuda.synchronize()
         if (i + 1) % tcfg.admm_update_every == 0:
             z_ms[i + 1] = (time.perf_counter() - t) * 1e3
+        pol_after.append(launch_counts()["admm_polarize"])
     launches = launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     losses = [float(x) for x in losses]
@@ -2525,7 +2538,204 @@ def phase_train():
                              f"{launches['admm_polarize']} times, expected 14")
     if any(v != 0.0 for v in viol.values()):
         raise AssertionError(f"a Z leaf is not polarized: {viol}")
-    return launches["admm_polarize"]
+    return launches["admm_polarize"], {"losses": losses,
+                                       "grad_norms": [float(g) for g in gnorms],
+                                       "polarize_after": pol_after, "step_ms": step_ms,
+                                       "z_update_ms": z_ms, "peak_mem_gb": peak_gb}
+
+
+# --------------------------------------------------------------------------
+# sharded training on a device mesh
+# --------------------------------------------------------------------------
+
+MESH_TRAIN_STEPS = 4
+# the (data, model) meshes whose local shards of the 7 stacked leaves kernel
+# #4 is held and timed at
+TRAIN_SHARD_MESHES = ((2, 2), (4, 2), (8, 1))
+
+
+def shard_coords(spec, ctx):
+    """Every coordinate dict of the axes a spec splits (one per shard)."""
+    import itertools
+    axes = [a for e in spec if e is not None for a in (e if isinstance(e, tuple) else (e,))]
+    for combo in itertools.product(*(range(ctx.shape[a]) for a in axes)):
+        yield dict(zip(axes, combo))
+
+
+def train_shard_rows(gen, flush, floor_ms):
+    """Kernel #4 (the fresh Z-update's sign election) at the local shards of
+    qwen2-1.5b's 7 stacked leaves under ``params_shardings(fsdp=True)`` at
+    each mesh of ``TRAIN_SHARD_MESHES``: on every shard the kernel's output
+    and signs equal the whole leaf's slice bit for bit, and the quantized Z
+    with the column scale max-reduced over the shards that split K equals
+    the whole leaf's Z slice bit for bit; one shard's launch timed."""
+    import torch
+    from repro_torch.core import quantization as Q
+    from repro_torch.distributed.context import local_slice, padded_spec
+    from repro_torch.distributed.sharding import ParallelContext, params_shardings
+    from repro_torch.kernels.admm_polarize import admm_polarize
+
+    spec = Q.QuantSpec(bits=8)
+    rows = []
+    for data, model in TRAIN_SHARD_MESHES:
+        ctx = ParallelContext.for_shape({"data": data, "model": model})
+        tree = {"blocks": {}}
+        for path, shape in ADMM_LEAVES.items():
+            _, sub, name = path.split("/")
+            tree["blocks"].setdefault(sub, {})[name] = torch.empty(shape, device="meta")
+        specs = params_shardings(tree, ctx, fsdp=True)
+        for path, shape in ADMM_LEAVES.items():
+            _, sub, name = path.split("/")
+            sp = padded_spec(specs["blocks"][sub][name].spec, len(shape))
+            v = torch.randn(shape, generator=gen, device="cuda")
+            out, signs = admm_polarize(v, m=8, rule="sum")
+            z = Q.project_quantize(out, spec, Q.scale_for(out, spec))
+            coords = list(shard_coords(sp, ctx))
+            pieces = [(c, local_slice(v, sp, ctx, c).contiguous()) for c in coords]
+            outs = [(c, *admm_polarize(piece, m=8, rule="sum")) for c, piece in pieces]
+            # the column max of every shard, reduced over those with the same
+            # N slice (the ranks that split K)
+            n_key = lambda c: tuple(c.get(a) for a in (sp[-1] if isinstance(  # noqa: E731
+                sp[-1], tuple) else (sp[-1],)) if a is not None)
+            amax = {}
+            for c, o, _ in outs:
+                m = o.abs().amax(dim=-2, keepdim=True)
+                k = n_key(c)
+                amax[k] = m if k not in amax else torch.maximum(amax[k], m)
+            equal = True
+            for c, o, sg in outs:
+                zl = Q.project_quantize(o, spec, Q.scale_for(
+                    o, spec, amax_reduce=lambda a, pc, k=n_key(c): amax[k]))
+                sp_signs = sp[:-2] + (sp[-2], sp[-1])
+                equal &= (torch.equal(o, local_slice(out, sp, ctx, c))
+                          and torch.equal(sg, local_slice(signs, sp_signs, ctx, c))
+                          and torch.equal(zl, local_slice(z, sp, ctx, c)))
+            torch.cuda.synchronize()
+            local = tuple(pieces[0][1].shape)
+            first = pieces[0][1]
+            rec = {"mesh": {"data": data, "model": model}, "leaf": path,
+                   "spec": [list(e) if isinstance(e, tuple) else e for e in sp],
+                   "local_shape": list(local), "shards": len(coords), "equal": bool(equal),
+                   "kernel_ms": timed_ms(lambda: admm_polarize(first, m=8, rule="sum"), flush,
+                                         reps=10),
+                   "launch_floor_ms": floor_ms}
+            rec["bound_ms"], rec["bound_by"] = polarize_bound(local)
+            rows.append(rec)
+            emit("mesh_train_kernel", **rec)
+            if not equal:
+                raise AssertionError(f"kernel #4 on a training shard differs from the whole "
+                                     f"leaf's slice: {rec}")
+            del v, out, signs, z, pieces, outs, amax
+            torch.cuda.empty_cache()
+    return rows
+
+
+def phase_mesh_train(plain, floor_ms):
+    """Sharded training on a device mesh: full-width qwen2-1.5b with the
+    train phase's settings through ``make_train_step(ctx=)`` with the state
+    placed by ``place_train_state`` (``fsdp=True`` specs) on
+    ``make_mesh(MeshConfig(data=1, model=1))``, a world of one over NCCL
+    (NCCL takes one rank per card: one card runs no collective).  The
+    train phase runs the same step body on a world of one without a mesh,
+    so this run holds the live mesh and the placement: its losses and
+    gradient norms against the train phase's (same seed and batches) at
+    1e-6 relative, kernel #4's launches (counted over this run) against the
+    plain run's first steps, a Z violation of 0; #4 at the training shard shapes
+    (:func:`train_shard_rows`); the launcher's ``mesh:`` line.  Returns the
+    run's #4 launches and the shard rows."""
+    import os
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import MeshConfig
+    from repro_torch.core import polarization as P
+    from repro_torch.data.synthetic import LMStreamConfig, lm_batch
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.registry import build
+    from repro_torch.training import train_loop
+
+    cfg = get_config("qwen2-1.5b")
+    model = build(cfg, device="cuda")
+    tcfg = train_config(total_steps=TRAIN["steps"])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mesh = make_mesh(MeshConfig(data=1, model=1), device="cuda")
+    ctx = shd.ParallelContext.for_mesh(mesh)
+    state, table = train_loop.init_train_state(model, tcfg)
+    state = shd.place_train_state(state, ctx, table)
+    step = train_loop.make_train_step(model, tcfg, table, ctx=ctx)
+    ds = LMStreamConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN["seq_len"],
+                        global_batch=TRAIN["global_batch"], seed=0)
+    batches = [lm_batch(ds, i, "cuda") for i in range(MESH_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    reset_counts()
+    losses, gnorms, step_ms, z_ms = [], [], [], {}
+    for i in range(MESH_TRAIN_STEPS):
+        t = time.perf_counter()
+        state, metrics = step(state, batches[i])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+        state = train_loop.maybe_admm_update(state, table, tcfg, i + 1, ctx)
+        torch.cuda.synchronize()
+        if (i + 1) % tcfg.admm_update_every == 0:
+            z_ms[i + 1] = (time.perf_counter() - t) * 1e3
+        losses.append(float(metrics["loss"]))
+        gnorms.append(float(metrics["grad_norm"]))
+    launches = launch_counts()["admm_polarize"]
+    viol = {p: float(P.polarization_violation(st.z, 8).max()) for p, st in state.admm.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del state, step
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    n = MESH_TRAIN_STEPS
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses + gnorms,
+                                               plain["losses"][:n] + plain["grad_norms"][:n])]
+    want_launches = plain["polarize_after"][n - 1]
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    scrub = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    rows = train_shard_rows(gen, lambda: scrub.zero_(), floor_ms)
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", "qwen2-1.5b", "--reduced",
+         "--steps", "4", "--admm", "--admm-every", "2", "--mesh-data", "1", "--mesh-model",
+         "1"], capture_output=True, text=True, timeout=600, env=env, cwd=str(ROOT))
+    lines = proc.stdout.splitlines()
+    line = next((ln for ln in lines if ln.startswith("mesh: ")), None)
+    want_line = "mesh: {'data': 1, 'model': 1} over 1 devices, 0 param leaves sharded"
+    emit("mesh_train", arch=cfg.name, mesh={"data": 1, "model": 1}, backend="nccl", world=1,
+         steps=n, seq_len=TRAIN["seq_len"], global_batch=TRAIN["global_batch"],
+         setup_s=setup_s, losses=losses, grad_norms=gnorms,
+         plain_losses=plain["losses"][:n], plain_grad_norms=plain["grad_norms"][:n],
+         max_rel_diff=max(rel), step_ms=step_ms, plain_step_ms=plain["step_ms"][:n],
+         mean_step_ms_after_first=sum(step_ms[1:]) / (n - 1),
+         plain_mean_step_ms_after_first=sum(plain["step_ms"][1:n]) / (n - 1),
+         z_update_ms=z_ms, plain_z_update_ms={k: v for k, v in plain["z_update_ms"].items()
+                                              if k <= n},
+         admm_polarize_launches=launches, admm_polarize_launches_plain=want_launches,
+         z_violation=viol, peak_mem_gb=peak_gb, plain_peak_mem_gb=plain["peak_mem_gb"],
+         launcher_line=line, launcher_last=lines[-2:] if lines else [],
+         launcher_s=time.perf_counter() - t, shard_rows=len(rows),
+         nvidia_smi=nvidia_smi_line())
+    if max(rel) > 1e-6:
+        raise AssertionError(f"the sharded step on a world of one differs from the plain "
+                             f"step: {max(rel)} (losses {losses} vs {plain['losses'][:n]}, "
+                             f"grad norms {gnorms} vs {plain['grad_norms'][:n]})")
+    if launches != want_launches or not launches:
+        raise AssertionError(f"the sharded run launched #4 {launches} times, the plain run "
+                             f"{want_launches}")
+    if any(v != 0.0 for v in viol.values()):
+        raise AssertionError(f"a sharded Z leaf is not polarized: {viol}")
+    if proc.returncode != 0 or line != want_line:
+        raise AssertionError(f"train --mesh-data 1 --mesh-model 1: rc {proc.returncode}, "
+                             f"line {line!r}\n{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+    return launches, rows
 
 
 def profile_train_step(step, state, batch):
@@ -4668,7 +4878,9 @@ def main() -> int:
         perfmodel_line(mean_eic)
         del tree          # the serving trees go before the training state comes
         torch.cuda.empty_cache()
-        pol_launches = phase_train()
+        pol_launches, train_run = phase_train()
+        torch.cuda.empty_cache()
+        mesh_train_launches, mesh_train_rows = phase_mesh_train(train_run, floor_ms)
         torch.cuda.empty_cache()
         ckpt_pol_launches = phase_checkpoint(ckpt_root)
     finally:
@@ -4695,7 +4907,7 @@ def main() -> int:
             and all(cnn["launches"].values()) and all(vlm["launches"])
             and vlm["polarize_launches"]
             and all(all(v.values()) for v in dense_launches.values())
-            and all(mesh_launches.values())):
+            and all(mesh_launches.values()) and mesh_train_launches):
         raise AssertionError("a kernel of a path was never launched on it")
 
     def total(rows, key):
@@ -4844,6 +5056,11 @@ def main() -> int:
                                 for k in ("kernel_ms", "plain_ms", "bound_ms")}
                          for name, f in cnn["full"].items()},
         "vlm_launches": vlm["polarize_launches"],
+        "mesh_train_launches": mesh_train_launches,
+        "mesh_train_shards": [{k: r[k] for k in ("mesh", "leaf", "local_shape", "shards",
+                                                 "kernel_ms", "bound_ms", "bound_by",
+                                                 "launch_floor_ms")}
+                              for r in mesh_train_rows],
         "per_matrix": pol_matrix_row,
         "max_abs_err": max(max(r["sum_max_abs_err"], r["energy_max_abs_err"]) for r in pol_rows),
         "ms": total(pol_rows, "kernel_ms"), "plain_ms": total(pol_rows, "plain_ms"),
@@ -4867,7 +5084,10 @@ def main() -> int:
                "cnn phase's fresh Z-updates and compress_tree calls (one per conv or FC "
                "matrix, sum rule); cnn_z_update: one Z-update's matrices of each published "
                "CNN, one call each, K padded; vlm_launches: compress_tree of "
-               "phi-3-vision-4.2b (225 matrices); "
+               "phi-3-vision-4.2b (225 matrices); mesh_train_launches: the sharded "
+               "train run's (4 steps on a data=1,model=1 mesh); mesh_train_shards: one local "
+               "shard of each stacked leaf at data x model = 2x2, 4x2 and 8x1 (fsdp=True "
+               "specs), sum rule, every shard held bit for bit; "
                "moe_expert_triple: one (layer, expert)'s w_gate, w_up (2048x1024) "
                "and w_down (1024x2048), energy rule; per_matrix: those calls "
                "for the 7 matrices of one qwen2-1.5b layer, energy rule",

@@ -189,11 +189,26 @@ def _write(path: str, arrays: List[np.ndarray], dtypes: List[str], treedef: str,
     return final
 
 
-def _snapshot(tree: Tree) -> Tuple[List[np.ndarray], List[str], str]:
+def _snapshot(tree: Tree, whole: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+              writer: bool = True) -> Optional[Tuple[List[np.ndarray], List[str], str]]:
+    """Host copies of the leaves, their dtype names and the tree's
+    description.  ``whole`` (a mesh) gives each tensor leaf whole on its
+    device first, one leaf at a time; a rank that does not write copies
+    nothing, re-seeds its generators as the writer's encoding does (so
+    every rank's stream stays equal) and gets None."""
     leaves = tree_leaves(tree)
-    encoded = [_encode(x) for x in leaves]
+    encoded = []
+    for x in leaves:
+        if whole is not None and isinstance(x, torch.Tensor):
+            x = whole(x)
+        if writer:
+            encoded.append(_encode(x))
+        elif isinstance(x, torch.Generator):
+            _reseed(x)
     if any(isinstance(x, torch.Tensor) and x.is_cuda for x in leaves):
         torch.cuda.synchronize()
+    if not writer:
+        return None
     return [a for a, _ in encoded], [n for _, n in encoded], describe(tree)
 
 
@@ -237,11 +252,14 @@ def restore(path: str, template: Tree, step: Optional[int] = None,
     leaves = tree_leaves(template)
     sh_leaves = None
     if shardings is not None:
-        sh_leaves = _sharding_leaves(shardings)
-        if len(sh_leaves) != len(leaves):
+        try:
+            sh_leaves = _paired_shardings(template, shardings)
+        except (KeyError, IndexError, AttributeError):
+            sh_leaves = None
+        if sh_leaves is None or len(sh_leaves) != len(leaves):
             raise ValueError(
-                f"shardings tree has {len(sh_leaves)} leaves, template has "
-                f"{len(leaves)} — pass the params_shardings of the template")
+                f"shardings tree has {len(_sharding_leaves(shardings))} leaves, template "
+                f"has {len(leaves)} — pass the params_shardings of the template")
     with np.load(os.path.join(d, _ARRAY_FILE)) as data:
         if len(leaves) != len(data.files):
             raise ValueError(f"checkpoint has {len(data.files)} leaves, template has "
@@ -253,7 +271,8 @@ def restore(path: str, template: Tree, step: Optional[int] = None,
             if tuple(arr.shape) != want:
                 raise ValueError(f"leaf {i}: shape {tuple(arr.shape)} != {want}")
             leaf = _decode(arr, meta["dtypes"][i], tmpl, dev)
-            if sh_leaves is not None and sh_leaves[i] is not None:
+            if (sh_leaves is not None and sh_leaves[i] is not None
+                    and isinstance(leaf, torch.Tensor)):
                 from repro_torch.distributed.sharding import local_shard
                 leaf = local_shard(leaf, sh_leaves[i].spec, sh_leaves[i].ctx)
             new.append(leaf)
@@ -261,6 +280,35 @@ def restore(path: str, template: Tree, step: Optional[int] = None,
     if shardings is not None:
         out = _mark_forms(out, shardings)
     return out, step
+
+
+def _paired_shardings(template: Tree, shardings: Tree) -> List[Any]:
+    """The sharding of every template leaf in flatten order (None: whole),
+    walking the shardings tree beside the template (a FORMS node of it
+    holds one per plane; a None subtree leaves everything below whole)."""
+    def sub(sh: Any, key: Any) -> Any:
+        if sh is None:
+            return None
+        return sh[key] if isinstance(sh, (dict, list, tuple)) else getattr(sh, key)
+
+    if template is None:
+        return []
+    if isinstance(template, dict):
+        if isinstance(shardings, dict) and set(shardings) != set(template):
+            raise KeyError(sorted(set(shardings) ^ set(template)))
+        return [x for k in sorted(template) for x in _paired_shardings(template[k],
+                                                                       sub(shardings, k))]
+    if isinstance(template, (list, tuple)):
+        return [x for i, v in enumerate(template)
+                for x in _paired_shardings(v, sub(shardings, i))]
+    if isinstance(template, FormsLinearParams):
+        if isinstance(shardings, FormsLinearParams):
+            return [shardings.mags, shardings.signs, shardings.scale]
+        return [None, None, None]
+    if _is_node(template):
+        return [x for f in _fields(template)
+                for x in _paired_shardings(getattr(template, f), sub(shardings, f))]
+    return [shardings]
 
 
 def _sharding_leaves(tree: Tree) -> List[Any]:
@@ -272,6 +320,8 @@ def _sharding_leaves(tree: Tree) -> List[Any]:
         return [leaf for v in tree for leaf in _sharding_leaves(v)]
     if isinstance(tree, FormsLinearParams):
         return [tree.mags, tree.signs, tree.scale]
+    if _is_node(tree):
+        return [leaf for f in _fields(tree) for leaf in _sharding_leaves(getattr(tree, f))]
     return [tree]
 
 
@@ -328,18 +378,45 @@ def gc_old(path: str, keep: int) -> List[str]:
 class CheckpointManager:
     """Async keep-k checkpointing with preemption support.  A failed
     background write raises from the next :meth:`wait` (and so from the
-    next save)."""
+    next save).
 
-    def __init__(self, path: str, keep: int = 3):
+    On a mesh of more than one device (``ctx``: a ``ParallelContext`` over
+    a live mesh) the state's leaves are each rank's shards: a save gathers
+    each leaf whole on the device, one at a time (all ranks call it, in
+    step), and rank 0 alone copies it to host memory and writes, so the
+    file is the one-device format; a restore waits for the writer and reads
+    on every rank (``restore_latest(shardings=)`` keeps each rank's
+    pieces).  A world of one saves its leaves as they are."""
+
+    def __init__(self, path: str, keep: int = 3, ctx: Any = None):
         self.path = path
         self.keep = keep
+        self.ctx = ctx
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
         self._lock = threading.Lock()
 
+    @property
+    def writer(self) -> bool:
+        return self.ctx is None or self.ctx.rank == 0
+
+    def _snapshot(self, tree: Tree) -> Optional[Tuple[List[np.ndarray], List[str], str]]:
+        ctx = self.ctx
+        if ctx is None or ctx.entry_size(tuple(ctx.shape)) == 1:
+            return _snapshot(tree)
+        from repro_torch.distributed.sharding import whole_leaf
+        return _snapshot(tree, lambda t: whole_leaf(t, ctx), self.writer)
+
+    def _barrier(self) -> None:
+        if self.ctx is not None and self.ctx.mesh is not None:
+            torch.distributed.barrier()
+
     def save_async(self, tree: Tree, step: int) -> None:
         """Copy every leaf to host memory now, then write on a thread."""
-        arrays, dtypes, treedef = _snapshot(tree)
+        snap = self._snapshot(tree)
+        if snap is None:
+            return
+        arrays, dtypes, treedef = snap
         self.wait()
 
         def _write_bg():
@@ -354,9 +431,13 @@ class CheckpointManager:
             self._thread.start()
 
     def save_sync(self, tree: Tree, step: int) -> str:
-        self.wait()
-        out = save(self.path, tree, step)
-        gc_old(self.path, self.keep)
+        snap = self._snapshot(tree)
+        out = os.path.join(self.path, f"step_{step:08d}")
+        if snap is not None:
+            self.wait()
+            out = _write(self.path, *snap, step, None)
+            gc_old(self.path, self.keep)
+        self._barrier()
         return out
 
     def wait(self) -> None:
@@ -371,6 +452,7 @@ class CheckpointManager:
     def restore_latest(self, template: Tree,
                        shardings: Optional[Tree] = None) -> Tuple[Tree, int]:
         self.wait()
+        self._barrier()
         return restore(self.path, template, shardings=shardings)
 
     def latest_step(self) -> Optional[int]:
@@ -381,10 +463,15 @@ class PreemptionHandler:
     """What :func:`install_preemption_handler` installs.  Inside
     :meth:`critical` a SIGTERM is held and acted upon when the block ends:
     the port's train step updates its state in place, so a save in the
-    middle of one would mix two steps."""
+    middle of one would mix two steps.  With ``agree`` (a mesh) a SIGTERM
+    is always held, and at each block's end ``agree(pending)`` tells every
+    rank whether any rank holds one, so all of them save (a collective) at
+    the same step."""
 
-    def __init__(self, save_fn: Callable[[], None]):
+    def __init__(self, save_fn: Callable[[], None],
+                 agree: Optional[Callable[[bool], bool]] = None):
         self.save_fn = save_fn
+        self.agree = agree
         self._busy = False
         self._pending = False
 
@@ -393,7 +480,7 @@ class PreemptionHandler:
         os._exit(0)
 
     def __call__(self, signum, frame) -> None:
-        if self._busy:
+        if self._busy or self.agree is not None:
             self._pending = True
         else:
             self._fire()
@@ -405,13 +492,17 @@ class PreemptionHandler:
             yield
         finally:
             self._busy = False
-        if self._pending:
+        pending = self._pending if self.agree is None else self.agree(self._pending)
+        if pending:
             self._fire()
 
 
-def install_preemption_handler(save_fn: Callable[[], None]) -> PreemptionHandler:
+def install_preemption_handler(save_fn: Callable[[], None],
+                               agree: Optional[Callable[[bool], bool]] = None
+                               ) -> PreemptionHandler:
     """SIGTERM -> checkpoint -> exit(0).  Returns the handler, whose
-    ``critical()`` block defers the save to the block's end."""
-    handler = PreemptionHandler(save_fn)
+    ``critical()`` block defers the save to the block's end (on a mesh,
+    ``agree``: to the end of the block where the ranks learn of it)."""
+    handler = PreemptionHandler(save_fn, agree)
     signal.signal(signal.SIGTERM, handler)
     return handler

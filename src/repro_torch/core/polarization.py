@@ -60,6 +60,17 @@ def polarization_violation(mat: torch.Tensor, m: int,
     return bad.sum(dim=(-2, -1)) / torch.clamp(tot, min=1e-12)
 
 
+def violation_sums(mat: torch.Tensor, m: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The two sums of :func:`polarization_violation` (freshly elected
+    signs): the magnitude that disagrees with its fragment's sign and the
+    whole magnitude, per layer of a stack; a shard's, to be summed over
+    the ranks that split the matrix."""
+    signs = fragment_signs(mat, m)
+    sign_grid = frag.expand_fragment_values(signs, m, mat.shape[-2])
+    bad = torch.where(mat * sign_grid < 0, mat.abs(), torch.zeros_like(mat))
+    return bad.sum(dim=(-2, -1)), mat.abs().sum(dim=(-2, -1))
+
+
 def is_polarized(mat: torch.Tensor, m: int) -> torch.Tensor:
     """Boolean: every fragment's nonzeros share one sign."""
     frs = frag.to_fragments(mat, m)

@@ -8,7 +8,7 @@ as ``jnp.round`` does, so codes agree bit for bit with the JAX package.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -52,12 +52,16 @@ class QuantSpec:
         return self.bits // self.cell_bits
 
 
-def scale_for(mat: torch.Tensor, spec: QuantSpec) -> torch.Tensor:
+def scale_for(mat: torch.Tensor, spec: QuantSpec,
+              amax_reduce: Optional[Callable[[torch.Tensor, bool], torch.Tensor]] = None
+              ) -> torch.Tensor:
     """Max-abs calibration scale: largest code maps to the largest magnitude.
 
     Per output column ``(1, N)`` or per tensor (a scalar); a stack of
     matrices ``(L, K, N)`` gets one scale per layer, ``(L, 1, N)`` or
-    ``(L, 1, 1)``.
+    ``(L, 1, 1)``.  ``amax_reduce(amax, per_channel)`` completes the max
+    of a matrix held in shards (a mesh: over the ranks that split K, and N
+    too for a per-tensor scale) before the scale is formed.
     """
     if spec.per_channel:
         amax = mat.abs().amax(dim=-2, keepdim=True)  # (1, N)
@@ -65,6 +69,8 @@ def scale_for(mat: torch.Tensor, spec: QuantSpec) -> torch.Tensor:
         amax = mat.abs().amax(dim=(-2, -1), keepdim=True)
     else:
         amax = mat.abs().amax()
+    if amax_reduce is not None:
+        amax = amax_reduce(amax, spec.per_channel)
     return torch.clamp(amax, min=1e-12) / spec.levels
 
 

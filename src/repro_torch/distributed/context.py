@@ -21,8 +21,15 @@ kernels on them and makes the collectives that the layouts imply, itself.
   sharded dense tensor one under the ``shard`` attribute
   (:func:`shard_of`, :func:`set_shard`).
 
-Nothing here catches a collective's failure, and a world of one skips every
-collective (an axis of size 1 has nothing to exchange).
+Every collective is differentiable (a ``torch.autograd.Function`` pair), so
+the same layers train on a mesh: activations are replicated over
+``model``, and each collective's backward is its conjugate for that layout
+(a gather's is the member's slice, a sum's the identity, ``copy_to``'s a
+sum, ``split``'s a gather, an all-to-all's the reverse exchange, an FSDP
+gather's a reduce-scatter).  ``torch.distributed.nn``'s all-reduce would
+sum a replicated cotangent again (``tp`` times the gradient).  Nothing here
+catches a collective's failure, and a world of one skips every collective
+(an axis of size 1 has nothing to exchange).
 """
 from __future__ import annotations
 
@@ -56,7 +63,7 @@ class ParallelContext:
         self._groups: Dict[str, Tuple[Any, List[int]]] = {}
         if mesh is not None:
             self._coords = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
-            for logical in ("batch", "model"):
+            for logical in ("batch", "model", "tokens"):
                 self._groups[logical] = self._make_group(self._axes(logical))
 
     @classmethod
@@ -149,25 +156,52 @@ class ParallelContext:
         return self._groups[logical][0]
 
     # -- collectives -------------------------------------------------------
+    #
+    # Each one is differentiable, with the conjugate its layout implies: the
+    # port's activations are replicated over ``model`` (every member of the
+    # group holds the same tensor and the same cotangent), so a gather's
+    # backward is this member's slice, a sum's is the identity, and an
+    # identity whose consumers are partial (a replicated activation entering
+    # a weight this rank holds only some columns of) sums its cotangent.
 
     def all_gather(self, t: torch.Tensor, logical: str, dim: int) -> torch.Tensor:
-        """Concatenate the group's tensors along ``dim``, in coordinate order."""
-        n = self.axis_size(logical)
-        if n == 1:
-            return t
-        parts = [torch.empty_like(t) for _ in range(n)]
-        torch.distributed.all_gather(parts, t.contiguous(), group=self._group(logical))
-        return torch.cat(parts, dim=dim)
-
-    def all_reduce(self, t: torch.Tensor, logical: str, op: str = "sum") -> torch.Tensor:
-        """The group's sum (or max) of ``t``, as a new tensor."""
+        """Concatenate the group's tensors along ``dim``, in coordinate order.
+        Backward: this member's slice of the cotangent."""
         if self.axis_size(logical) == 1:
             return t
-        out = t.contiguous().clone()
-        red = {"sum": torch.distributed.ReduceOp.SUM,
-               "max": torch.distributed.ReduceOp.MAX}[op]
-        torch.distributed.all_reduce(out, op=red, group=self._group(logical))
-        return out
+        return _Gather.apply(t, self, logical, dim)
+
+    def all_reduce(self, t: torch.Tensor, logical: str, op: str = "sum") -> torch.Tensor:
+        """The group's sum (or max) of ``t``, as a new tensor.  Backward of
+        the sum: the identity (the result is used alike on every member);
+        the max carries no gradient."""
+        if self.axis_size(logical) == 1:
+            return t
+        if op == "max":
+            with torch.no_grad():
+                return _reduce(t, self._group(logical), op)
+        return _Sum.apply(t, self, logical)
+
+    def copy_to(self, t: torch.Tensor, logical: str) -> torch.Tensor:
+        """The identity, whose backward sums the cotangent over the group
+        (Megatron's *f*), in the cotangent's own dtype."""
+        if self.axis_size(logical) == 1:
+            return t
+        return _Copy.apply(t, self, logical)
+
+    def split(self, t: torch.Tensor, logical: str, dim: int) -> torch.Tensor:
+        """This member's equal share of ``t`` along ``dim`` (``t`` alike on
+        every member).  Backward: the members' cotangents gathered."""
+        if self.axis_size(logical) == 1:
+            return t
+        return _Split.apply(t, self, logical, dim)
+
+    def gather_shards(self, t: torch.Tensor, logical: str, dim: int) -> torch.Tensor:
+        """FSDP's gather of a parameter shard along ``dim``; backward:
+        the cotangent reduce-scattered (summed) over the group."""
+        if self.axis_size(logical) == 1:
+            return t
+        return _GatherShards.apply(t, self, logical, dim)
 
     def broadcast(self, t: torch.Tensor, logical: str, src_coord: int) -> torch.Tensor:
         """``t`` of the group member at coordinate ``src_coord``, on every
@@ -180,12 +214,29 @@ class ParallelContext:
 
     def all_to_all(self, t: torch.Tensor, logical: str) -> torch.Tensor:
         """Split dim 0 into one chunk per member, send chunk i to member i,
-        and concatenate what arrives in coordinate order."""
+        and concatenate what arrives in coordinate order.  Backward: the
+        reverse exchange (the same one) of the cotangent."""
         if self.axis_size(logical) == 1:
             return t
-        out = torch.empty_like(t)
-        torch.distributed.all_to_all_single(out, t.contiguous(), group=self._group(logical))
-        return out
+        return _AllToAll.apply(t, self, logical)
+
+    def logical_of(self, axes: Sequence[str]) -> str:
+        """The logical name of a set of mesh axes (a leaf's shard axes):
+        ``model``, ``batch`` or ``tokens`` (all of them)."""
+        got = set(axes)
+        for logical in ("model", "batch", "tokens"):
+            if got == set(self._axes(logical)):
+                return logical
+        raise ValueError(f"axes {sorted(got)} are not a group of this mesh "
+                         f"({tuple(self.shape)}): model, all batch axes, or all axes")
+
+    def reduce_over(self, t: torch.Tensor, axes: Sequence[str], op: str = "sum"
+                    ) -> torch.Tensor:
+        """:meth:`all_reduce` over a set of mesh axes (none: ``t`` itself)."""
+        axes = tuple(axes)
+        if self.entry_size(axes) == 1:
+            return t
+        return self.all_reduce(t, self.logical_of(axes), op)
 
     def gather_objects(self, obj: Any) -> List[Any]:
         """Every rank's ``obj``, in rank order (host objects, any group size)."""
@@ -194,6 +245,115 @@ class ParallelContext:
         out: List[Any] = [None] * torch.distributed.get_world_size()
         torch.distributed.all_gather_object(out, obj)
         return out
+
+
+# ---------------------------------------------------------------------------
+# the collectives' autograd pairs
+# ---------------------------------------------------------------------------
+
+_OPS = {"sum": "SUM", "max": "MAX"}
+
+
+def _reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+    out = t.contiguous().clone()
+    torch.distributed.all_reduce(out, op=getattr(torch.distributed.ReduceOp, _OPS[op]),
+                                 group=group)
+    return out
+
+
+def _gather(t: torch.Tensor, pc: ParallelContext, logical: str, dim: int) -> torch.Tensor:
+    parts = [torch.empty_like(t, memory_format=torch.contiguous_format)
+             for _ in range(pc.axis_size(logical))]
+    torch.distributed.all_gather(parts, t.contiguous(), group=pc._group(logical))
+    return torch.cat(parts, dim=dim)
+
+
+def _mine(t: torch.Tensor, pc: ParallelContext, logical: str, dim: int) -> torch.Tensor:
+    n = pc.axis_size(logical)
+    step = t.shape[dim] // n
+    return t.narrow(dim, pc.coord(logical) * step, step)
+
+
+def _reduce_scatter(t: torch.Tensor, pc: ParallelContext, logical: str,
+                    dim: int) -> torch.Tensor:
+    src = t.movedim(dim, 0).contiguous()
+    n = pc.axis_size(logical)
+    out = torch.empty((src.shape[0] // n,) + tuple(src.shape[1:]), dtype=src.dtype,
+                      device=src.device)
+    torch.distributed.reduce_scatter_tensor(out, src, group=pc._group(logical))
+    return out.movedim(0, dim).contiguous()
+
+
+def _a2a(t: torch.Tensor, pc: ParallelContext, logical: str) -> torch.Tensor:
+    out = torch.empty_like(t, memory_format=torch.contiguous_format)
+    torch.distributed.all_to_all_single(out, t.contiguous(), group=pc._group(logical))
+    return out
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, pc, logical, dim):
+        ctx.args = (pc, logical, dim)
+        return _gather(t, pc, logical, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _mine(g, *ctx.args).contiguous(), None, None, None
+
+
+class _Sum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, pc, logical):
+        return _reduce(t, pc._group(logical))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _Copy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, pc, logical):
+        ctx.args = (pc, logical)
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        pc, logical = ctx.args
+        return _reduce(g, pc._group(logical)), None, None
+
+
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, pc, logical, dim):
+        ctx.args = (pc, logical, dim)
+        return _mine(t, pc, logical, dim).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, *ctx.args), None, None, None
+
+
+class _GatherShards(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, pc, logical, dim):
+        ctx.args = (pc, logical, dim)
+        return _gather(t, pc, logical, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(g, *ctx.args), None, None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, pc, logical):
+        ctx.args = (pc, logical)
+        return _a2a(t, pc, logical)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _a2a(g, *ctx.args), None, None
 
 
 _STATE = threading.local()
@@ -247,6 +407,14 @@ class LeafShard:
         """Whether ``dim`` is split over the model axis."""
         return MODEL_AXIS in _names(self.spec[dim])
 
+    def axes(self) -> Tuple[str, ...]:
+        """Every mesh axis the leaf is split over (none: replicated)."""
+        return tuple(a for e in self.spec for a in _names(e))
+
+    def dim_axes(self, dim: int) -> Tuple[str, ...]:
+        """The mesh axes that split ``dim``."""
+        return _names(self.spec[dim])
+
     def only_model(self) -> None:
         """Serving runs tensor-parallel weights only: a data-axis entry
         (FSDP) is refused by name."""
@@ -297,3 +465,31 @@ def local_slice(t: torch.Tensor, spec: Sequence[Entry], ctx: ParallelContext,
         step = t.shape[dim] // n
         out = out.narrow(dim, idx * step, step)
     return out
+
+
+def gather_fsdp(t: Any) -> Any:
+    """A parameter leaf with its FSDP dims (split over the batch axes)
+    gathered, under the ambient context: each such dim through
+    :meth:`ParallelContext.gather_shards`, whose backward reduce-scatters
+    the gradient.  The result keeps its model-axis layout; any other leaf
+    comes back as it is."""
+    sh = shard_of(t)
+    ctx = current_context()
+    if sh is None or ctx is None or not isinstance(t, torch.Tensor):
+        return t
+    batch = set(ctx.batch_axes)
+    out, spec = t, list(sh.spec)
+    for dim, entry in enumerate(sh.spec):
+        names = set(_names(entry))
+        if not names & batch:
+            continue
+        if names != batch:
+            raise ValueError(f"dim {dim} of a leaf of spec {sh.spec} splits over "
+                             f"{sorted(names)}: an FSDP dim takes all batch axes "
+                             f"{sorted(batch)} and nothing else")
+        out = ctx.gather_shards(out, "batch", dim)
+        spec[dim] = None
+    if out is t:
+        return t
+    return set_shard(out, LeafShard(tuple(spec), sh.shape)
+                     if any(e is not None for e in spec) else None)

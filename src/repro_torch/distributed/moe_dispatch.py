@@ -18,8 +18,11 @@ reference's ``t // n_dev``.
 
 ``quantized=True`` sends an int8 payload (:func:`int8_all_to_all`):
 per-row symmetric int8 with scale ``amax / 127``, the scales sent beside
-it.  Its backward (straight-through, full precision) belongs with sharded
-training (ROADMAP item 13c).
+it.  Its backward is the reference's straight-through estimator: the
+cotangent takes the reverse ``all_to_all`` at full precision (the
+quantization noise is not differentiated).  Every exchange here is
+differentiable (``ParallelContext.all_to_all``: its backward is the reverse
+exchange), so the expert-parallel path trains on a mesh.
 """
 from __future__ import annotations
 
@@ -33,13 +36,27 @@ from repro_torch.distributed.context import ParallelContext
 def int8_all_to_all(x: torch.Tensor, ctx: ParallelContext) -> torch.Tensor:
     """``all_to_all`` over ``model`` with an int8-quantized payload: per-row
     symmetric int8 (scale over the last dim), then (q, scale) transported
-    and dequantized.  x: (tp, ..., d), split over dim 0."""
-    amax = x.float().abs().amax(dim=-1, keepdim=True)
-    scale = torch.clamp(amax, min=1e-20) / 127.0
-    q = torch.clamp(torch.round(x.float() / scale), -127, 127).to(torch.int8)
-    q2 = ctx.all_to_all(q, "model")
-    s2 = ctx.all_to_all(scale, "model")
-    return (q2.float() * s2).to(x.dtype)
+    and dequantized.  x: (tp, ..., d), split over dim 0.  Backward: the
+    reverse ``all_to_all`` of the cotangent at full precision."""
+    if ctx.axis_size("model") == 1:
+        return x
+    return _Int8AllToAll.apply(x, ctx)
+
+
+class _Int8AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, pc):
+        fctx.pc = pc
+        amax = x.float().abs().amax(dim=-1, keepdim=True)
+        scale = torch.clamp(amax, min=1e-20) / 127.0
+        q = torch.clamp(torch.round(x.float() / scale), -127, 127).to(torch.int8)
+        q2 = pc.all_to_all(q, "model")
+        s2 = pc.all_to_all(scale, "model")
+        return (q2.float() * s2).to(x.dtype)
+
+    @staticmethod
+    def backward(fctx, g):
+        return fctx.pc.all_to_all(g, "model"), None
 
 
 def _a2a(x: torch.Tensor, ctx: ParallelContext, quantized: bool) -> torch.Tensor:

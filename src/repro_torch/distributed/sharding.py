@@ -16,12 +16,20 @@ name or a tuple of names; trailing Nones dropped), the counterpart of a
   the data axes, heads over the model axis, or the sequence when the KV
   heads do not divide it (context-parallel decode).
 
+* Train-state specs (:func:`train_state_shardings`): the AdamW moments,
+  error-feedback buffer and ADMM Z/U follow their param's spec, the int8
+  moments' row scales and the ADMM signs, masks and scales their param's
+  along the dims they share (``core.admm.state_specs``); the step and the
+  generator are replicated.
+
 The port runs the mesh as explicit SPMD (``distributed/context.py``):
 :func:`reshard_state` cuts every rank's local piece by its coordinates and
-marks it with its layout.  The reference's ``constrain`` and
-``grad_boundary`` annotate GSPMD layouts of activations and cotangents;
-explicit SPMD has no counterpart to them, since the layout of an activation
-is decided where its collective is made (``models/layers.py``).
+marks it with its layout, and :func:`whole_leaf` puts a leaf's pieces back
+together (the checkpoint writer's view; :func:`gather_global` a tree's).
+The reference's ``constrain`` annotates GSPMD layouts of activations;
+explicit SPMD decides the layout of an activation where its collective is
+made (``models/layers.py``), and ``grad_boundary``'s bf16 cotangent is
+``layers.model_entry``.
 """
 from __future__ import annotations
 
@@ -33,8 +41,8 @@ import torch
 
 from repro_torch.core.paths import path_str
 from repro_torch.distributed.context import (LeafShard, ParallelContext,  # noqa: F401
-                                             current_context, local_slice, parallel_context,
-                                             set_shard)
+                                             current_context, local_slice, padded_spec,
+                                             parallel_context, set_shard)
 from repro_torch.forms.linear import FormsLinearParams
 
 PyTree = Any
@@ -163,10 +171,11 @@ def _batch_entry(ctx: ParallelContext) -> Any:
 
 
 def _fsdp_extend(entries: list, shape: Sequence[int], ctx: ParallelContext,
-                 threshold: int = FSDP_THRESHOLD) -> list:
+                 threshold: Optional[int] = None) -> list:
     """Additionally shard one unsharded dim over the data axes (ZeRO-3/FSDP):
-    leaves above ``threshold`` elements, on their largest unsharded dim
-    that divides."""
+    leaves above ``threshold`` elements (default: ``FSDP_THRESHOLD`` as it
+    is at the call), on their largest unsharded dim that divides."""
+    threshold = FSDP_THRESHOLD if threshold is None else threshold
     n_elems = 1
     for d in shape:
         n_elems *= int(d)
@@ -208,7 +217,7 @@ def _dense_entries(pstr: str, shape: Tuple[int, ...], ctx: ParallelContext,
 
 def forms_param_spec(pstr: str, leaf: FormsLinearParams, ctx: ParallelContext,
                      scanned: bool = False, fsdp: bool = True,
-                     threshold: int = FSDP_THRESHOLD) -> Tuple[Spec, Spec, Spec]:
+                     threshold: Optional[int] = None) -> Tuple[Spec, Spec, Spec]:
     """(mags, signs, scale) specs of one compressed leaf, co-sharded:
 
     * the N (output-column) entry is the same on all three planes;
@@ -241,6 +250,7 @@ def forms_param_spec(pstr: str, leaf: FormsLinearParams, ctx: ParallelContext,
         size = ctx.axis_size(n_name)
         if size > 1 and n % size == 0:
             n_entry = ctx.resolve(n_name)
+    threshold = FSDP_THRESHOLD if threshold is None else threshold
     if fsdp and leaf.mags.numel() >= threshold:
         fsize = ctx.axis_size("batch")
         if fsize > 1:
@@ -288,9 +298,10 @@ def params_shardings(params: PyTree, ctx: ParallelContext,
                      scanned_prefixes: Tuple[str, ...] = SCANNED_PREFIXES,
                      fsdp: bool = True) -> PyTree:
     """:class:`Sharding` tree of a parameter tree (divisibility-checked):
-    model-axis specs from the naming rules, large leaves also over the data
-    axes with ``fsdp=True`` (:func:`_fsdp_extend`), and the co-sharded trio
-    of :func:`forms_param_spec` for every compressed leaf."""
+    model-axis specs from the naming rules, leaves of ``FSDP_THRESHOLD``
+    elements or more also over the data axes with ``fsdp=True``
+    (:func:`_fsdp_extend`), and the co-sharded trio of
+    :func:`forms_param_spec` for every compressed leaf."""
     def one(pstr: str, leaf: Any) -> Any:
         scanned = _scanned(pstr, scanned_prefixes)
         if _is_forms_leaf(leaf):
@@ -300,6 +311,58 @@ def params_shardings(params: PyTree, ctx: ParallelContext,
         entries = _dense_entries(pstr, tuple(leaf.shape), ctx, scanned, fsdp)
         return Sharding(ctx, _trim(entries))
     return _walk(params, one)
+
+
+def train_state_shardings(state: Any, ctx: ParallelContext, table: Any = None,
+                          fsdp: bool = True) -> Any:
+    """The :class:`Sharding` tree of a ``training.train_loop.TrainState``
+    (whole leaves, e.g. a fresh ``init_train_state``), in its own types:
+    the params' from :func:`params_shardings`; the moments and the
+    error-feedback buffer as their params; the int8 moments' row scales
+    ``(.., 1)`` as their params but the last dim; the ADMM variables from
+    ``core.admm.state_specs`` (``table``: the constraint table); the step
+    and the generator replicated (None)."""
+    from repro_torch.core import admm as admm_mod
+    from repro_torch.core.paths import iter_leaves, map_with_path
+    psh = params_shardings(state.params, ctx, fsdp=fsdp)
+    spec_of = {path: sh.spec for path, sh in iter_leaves(psh)}
+    shape_of = {path: tuple(p.shape) for path, p in iter_leaves(state.params)}
+
+    def like(tree, last_whole=False):
+        def one(path, leaf):
+            if leaf is None:
+                return None
+            spec = padded_spec(spec_of[path], len(shape_of[path]))
+            if last_whole and spec:
+                spec = spec[:-1] + (None,)
+            return Sharding(ctx, _trim(spec))
+        return None if tree is None else map_with_path(one, tree)
+
+    o = state.opt
+    opt = dataclasses.replace(o, step=None, mu=like(o.mu), nu=like(o.nu),
+                              mu_scale=like(o.mu_scale, True), nu_scale=like(o.nu_scale, True))
+    admm = None
+    if state.admm is not None:
+        if table is None:
+            raise ValueError("the ADMM state's shardings need its constraint table")
+        admm = {}
+        for path, st in state.admm.items():
+            shape = shape_of[path]
+            sh = LeafShard(padded_spec(spec_of[path], len(shape)), shape)
+            specs = admm_mod.state_specs(sh, table[path], ctx)
+            admm[path] = dataclasses.replace(st, **{
+                f: (None if getattr(st, f) is None or specs[f] is None
+                    else Sharding(ctx, _trim(specs[f]))) for f in specs})
+    return dataclasses.replace(state, params=psh, opt=opt, step=None, admm=admm,
+                               grad_err=like(state.grad_err), rng=None)
+
+
+def place_train_state(state: Any, ctx: ParallelContext, table: Any = None,
+                      fsdp: bool = True) -> Any:
+    """Each rank's pieces of a whole train state (the same on every rank,
+    e.g. ``init_train_state`` from one seed) under
+    :func:`train_state_shardings`."""
+    return reshard_state(state, train_state_shardings(state, ctx, table, fsdp=fsdp))
 
 
 # ---------------------------------------------------------------------------
@@ -433,12 +496,26 @@ def _place(leaf: Any, sh: Any) -> Any:
 
 def _zip(tree: Any, shardings: Any) -> Any:
     if isinstance(tree, dict):
-        return {k: _zip(v, shardings[k]) for k, v in tree.items()}
+        return {k: _zip(v, None if shardings is None else shardings[k])
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_zip(v, s) for v, s in zip(tree, shardings))
+        sh = [None] * len(tree) if shardings is None else shardings
+        return type(tree)(_zip(v, s) for v, s in zip(tree, sh))
     if tree is None:
         return None
+    if _is_state_node(tree):
+        return dataclasses.replace(tree, **{
+            f.name: _zip(getattr(tree, f.name),
+                         None if shardings is None else getattr(shardings, f.name))
+            for f in dataclasses.fields(tree)})
     return _place(tree, shardings)
+
+
+def _is_state_node(tree: Any) -> bool:
+    """A dataclass of a train state (TrainState, AdamWState, an ADMM
+    layer's state), walked field by field; a FORMS leaf is placed whole."""
+    return (dataclasses.is_dataclass(tree) and not isinstance(tree, type)
+            and not isinstance(tree, FormsLinearParams))
 
 
 def reshard_state(state: PyTree, shardings: PyTree) -> PyTree:
@@ -501,3 +578,41 @@ def placed_shardings(params: PyTree, ctx: ParallelContext) -> PyTree:
             return leaf
         return Sharding(ctx, _trim(sh.spec) if sh is not None else ())
     return _walk(params, one)
+
+
+def whole_leaf(t: torch.Tensor, ctx: ParallelContext) -> torch.Tensor:
+    """The global tensor of a leaf that carries a layout, on its device
+    (every split dim gathered; every rank takes part and gets it whole);
+    a leaf without one (or without a context) as it is."""
+    from repro_torch.core.admm import _whole
+    sh = getattr(t, "shard", None)
+    if sh is None or ctx is None:
+        return t
+    with torch.no_grad():
+        return _whole(t, sh.spec, ctx)
+
+
+def gather_global(tree: PyTree, device: Any = "cpu",
+                  ctx: Optional[ParallelContext] = None) -> PyTree:
+    """The whole tree of a placed state, copied to ``device`` (host memory
+    by default): every tensor leaf through :func:`whole_leaf`, any other
+    leaf (a generator) as it is."""
+    ctx = ctx if ctx is not None else current_context()
+
+    def one(t: Any) -> Any:
+        if not isinstance(t, torch.Tensor):
+            return t
+        return whole_leaf(t, ctx).detach().to(device, copy=True)
+
+    def walk(t: Any) -> Any:
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(walk(v) for v in t)
+        if t is None:
+            return None
+        if _is_state_node(t):
+            return dataclasses.replace(t, **{f.name: walk(getattr(t, f.name))
+                                             for f in dataclasses.fields(t)})
+        return one(t)
+    return walk(tree)

@@ -1,12 +1,15 @@
 """Training launcher of the port: deterministic synthetic data, AdamW, the
-ADMM polarization schedule, optional gradient compression, and async
-checkpointing with resume and SIGTERM preemption.
+ADMM polarization schedule, optional gradient compression, async
+checkpointing with resume and SIGTERM preemption, on a device mesh.
 
   python -m repro_torch.launch.train --arch qwen2-1.5b --steps 50 --admm
   python -m repro_torch.launch.train --reduced --steps 4 --admm --admm-every 2 \
       --device cpu
   python -m repro_torch.launch.train --reduced --steps 8 --admm --admm-every 2 \
       --device cpu --ckpt-dir /path/to/ckpt --ckpt-every 4 [--resume]
+  python -m repro_torch.launch.train --reduced --steps 4 --admm --admm-every 2 \
+      --device cpu --mesh-data 2 --mesh-model 2 --fake-devices 4
+  torchrun --nproc-per-node 8 -m repro_torch.launch.train --mesh-data 4 --mesh-model 2
 
 Weights are random, made from ``--seed`` on the device.  With ``--admm``
 the loss carries the ADMM penalty and every ``--admm-every`` steps the Z/U
@@ -18,16 +21,24 @@ and, with ADMM, the polarization violation of W; at the end, tokens/s.
 ``--device`` defaults to ``cuda`` and the launcher fails without a card
 unless ``--device cpu`` is given.  ``--ckpt-dir`` saves every
 ``--ckpt-every`` steps in the background (``--resume`` continues from the
-latest save), and SIGTERM saves the last finished step and exits 0.  The
-reference's mesh flags ``--pods``, ``--mesh-data`` and ``--mesh-model`` are
-accepted; at 1 (the default) training runs as always on one device, and
-any other value is refused by name: sharded training (FSDP gathers and
-reduce-scatters, the bf16 cotangent boundary) is ROADMAP item 13c.
+latest save), and SIGTERM saves the last finished step and exits 0.
+
+As the reference always does, the launcher trains on a mesh of
+``--pods`` x ``--mesh-data`` x ``--mesh-model`` devices (``launch/mesh``):
+explicit SPMD, one process per device, each holding its shards of the
+state (FSDP over the batch axes for leaves of 4M elements or more, tensor
+parallel over ``model``) and its rows of every global batch; at 1/1/1 a
+world of one.  It prints a ``mesh:`` line, and rank 0 prints every line.
+On the card start one process per card with ``torchrun``; on the CPU
+``--fake-devices N`` runs the N ranks as gloo processes.  The dense and
+MoE (GQA) families train on a mesh of more than one device; the others are
+refused by name (ROADMAP item 13d).
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import io
 import time
 
 import torch
@@ -67,20 +78,48 @@ def main(argv=None) -> None:
     ap.add_argument("--pods", type=int, default=1)
     ap.add_argument("--mesh-data", type=int, default=1)
     ap.add_argument("--mesh-model", type=int, default=1)
+    ap.add_argument("--fake-devices", type=int, default=None, metavar="N",
+                    help="with --device cpu: run the mesh as N gloo processes on the CPU")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; no fallback between them")
     args = ap.parse_args(argv)
-    mesh = {"--pods": args.pods, "--mesh-data": args.mesh_data,
-            "--mesh-model": args.mesh_model}
-    bad = {k: v for k, v in mesh.items() if v != 1}
-    if bad:
-        raise SystemExit(
-            f"{', '.join(f'{k} {v}' for k, v in bad.items())}: sharded training is not "
-            "ported yet (ROADMAP item 13c: the mesh flags, FSDP gathers and "
-            "reduce-scatters, grad_boundary's bf16 cotangent, the int8 all-to-all's "
-            "backward); train on one device with the mesh flags at 1")
+    if args.fake_devices is not None:
+        if args.device != "cpu":
+            raise SystemExit("--fake-devices runs gloo processes on the CPU: add --device "
+                             "cpu (on cards, start one process per card with torchrun)")
+        from repro_torch.launch.mesh import spawn_cpu_world
+        spawn_cpu_world(args.fake_devices, _train, args)
+        return
+    _train(args)
 
+
+def _train(args) -> None:
+    """Train with ``args`` on its mesh; every rank trains, rank 0 prints."""
+    import torch.distributed as dist
+    from repro_torch.configs.base import MeshConfig
+    from repro_torch.launch.mesh import make_mesh
     dev = resolve_device(args.device)
+    mesh_cfg = MeshConfig(pods=args.pods, data=args.mesh_data, model=args.mesh_model)
+    ours = not dist.is_initialized()
+    try:
+        mesh = make_mesh(mesh_cfg, device=dev.type)
+    except RuntimeError as e:
+        if ours and dist.is_initialized():
+            dist.destroy_process_group()
+        raise SystemExit(f"{e} (on the CPU: --fake-devices {mesh_cfg.num_devices})") from e
+    quiet = dist.get_rank() != 0
+    try:
+        with contextlib.redirect_stdout(io.StringIO()) if quiet else contextlib.nullcontext():
+            _train_on(args, dev, mesh)
+    finally:
+        if ours:
+            dist.destroy_process_group()
+
+
+def _train_on(args, dev: torch.device, mesh) -> None:
+    import torch.distributed as dist
+    from repro_torch.distributed import sharding as shd
+    ctx = shd.ParallelContext.for_mesh(mesh)
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     model = build(cfg, device=dev)
     tcfg = TrainConfig(
@@ -91,30 +130,50 @@ def main(argv=None) -> None:
         grad_compression=args.grad_compression,
         moment_dtype=args.moment_dtype, remat=not args.reduced, seed=args.seed,
         checkpoint_every=args.ckpt_every)
+    train_loop.check_train_mesh(model, ctx)
+    # the whole state from the seed on every rank, then each rank's pieces
     state, table = train_loop.init_train_state(model, tcfg)
-    step = train_loop.make_train_step(model, tcfg, table)
+    shardings = shd.train_state_shardings(state, ctx, table)
+    print(f"mesh: {dict(ctx.shape)} over {dist.get_world_size()} devices, "
+          f"{shd.sharded_leaf_count(shardings.params)} param leaves sharded", flush=True)
+    step = train_loop.make_train_step(model, tcfg, table, ctx=ctx)
     ds = LMStreamConfig(vocab_size=cfg.vocab_size, seq_len=args.seq_len,
                         global_batch=args.global_batch, seed=tcfg.seed)
 
     start = 0
     mgr = None
     guard = contextlib.nullcontext
+    latest = None
     if args.ckpt_dir:
-        mgr = CheckpointManager(args.ckpt_dir, keep=tcfg.keep_checkpoints)
+        mgr = CheckpointManager(args.ckpt_dir, keep=tcfg.keep_checkpoints, ctx=ctx)
         latest = mgr.latest_step()
-        if args.resume and latest is not None:
-            template = train_loop.restore_template(state, table, tcfg, latest)
-            del state
-            state, start = mgr.restore_latest(template)
-            del template
-            print(f"resumed from step {start}")
-
+    if args.resume and latest is not None:
+        template = train_loop.restore_template(state, table, tcfg, latest)
+        del state
+        state, start = mgr.restore_latest(
+            template, shardings=shd.train_state_shardings(template, ctx, table))
+        del template
+        print(f"resumed from step {start}")
+    else:
+        state = shd.reshard_state(state, shardings)
+    del shardings
+    if mgr:
         def on_preempt():
             mgr.wait()
             mgr.save_sync(state, int(state.step))
             print("preemption checkpoint written", flush=True)
 
-        guard = install_preemption_handler(on_preempt).critical
+        agree = None
+        if dist.get_world_size() > 1:
+            # the vote runs on a host (gloo) group: it never waits for the card
+            votes = dist.new_group(backend="gloo")
+
+            def agree(pending: bool) -> bool:
+                flag = torch.tensor([int(pending)])
+                dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=votes)
+                return bool(flag)
+
+        guard = install_preemption_handler(on_preempt, agree).critical
 
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     sync()
@@ -124,7 +183,7 @@ def main(argv=None) -> None:
         ts = time.perf_counter()
         with guard():
             state, metrics = step(state, lm_batch(ds, i, dev))
-            state = train_loop.maybe_admm_update(state, table, tcfg, i + 1)
+            state = train_loop.maybe_admm_update(state, table, tcfg, i + 1, ctx)
         dt = time.perf_counter() - ts
         if i > start + 2 and dt > 5 * (time.perf_counter() - t0) / max(i - start, 1):
             print(f"[watchdog] slow step {i}: {dt:.2f}s", flush=True)
@@ -134,7 +193,8 @@ def main(argv=None) -> None:
             now = time.perf_counter()
             extra = ""
             if state.admm is not None:
-                cm = admm_mod.constraint_metrics(state.params, state.admm, table)
+                with shd.parallel_context(ctx):
+                    cm = admm_mod.constraint_metrics(state.params, state.admm, table)
                 extra = f"  viol {float(cm['polarization_violation']):.4f}"
             print(f"step {i + 1:5d}  loss {float(metrics['loss']):.4f}  "
                   f"gnorm {float(metrics['grad_norm']):.2f}  "

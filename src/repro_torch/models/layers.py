@@ -21,9 +21,14 @@ rank's whole-fragment K slice of the input followed by a sum over
 heads, else on all heads (gathered), and a dense slot cache whose sequence
 is sharded (context-parallel decode) merges the ranks' partial softmaxes
 by log-sum-exp; the vocab-sharded embedding is a masked lookup plus a sum,
-and the logits are gathered before sampling.  The reference's
-``constrain``/``grad_boundary`` annotate GSPMD layouts and have no
-counterpart here.
+and the logits are gathered before sampling.  The collectives are
+differentiable, with the conjugates of ``distributed/context``, so the same
+code trains on a mesh: a dense leaf split over the batch axes (FSDP) is
+gathered where it is used (:func:`gathered`, inside each block so a remat
+recompute gathers it again), and :func:`model_entry` at the entry of
+attention and the MLP sums the input's partial cotangent over ``model``
+once, in the primal dtype: the reference's ``grad_boundary``.  The
+reference's ``constrain`` annotates GSPMD layouts and has no counterpart.
 """
 from __future__ import annotations
 
@@ -32,7 +37,8 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.context import model_ctx, set_shard, shard_of
+from repro_torch.distributed.context import gather_fsdp, model_ctx, set_shard, shard_of
+from repro_torch.distributed.sharding import SCANNED_PREFIXES
 from repro_torch.forms.linear import DTYPES, FormsLinearParams  # noqa: F401
 from repro_torch.forms.linear import apply as forms_apply
 from repro_torch.forms.linear import to_dense as forms_to_dense
@@ -52,7 +58,12 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def wload(p: Params, name: str, dtype: torch.dtype) -> torch.Tensor:
-    """Weight read with decompression.
+    """Weight read with decompression (:func:`load_leaf` of ``p[name]``)."""
+    return load_leaf(p[name], name, dtype)
+
+
+def load_leaf(v, name: str, dtype: torch.dtype) -> torch.Tensor:
+    """One weight leaf read with decompression.
 
     An int-grid leaf ``{"q": int8, "s": f32}`` (``serving/quant_weights``)
     is dequantized, on any device, as in the reference.  A FORMS leaf is
@@ -65,7 +76,6 @@ def wload(p: Params, name: str, dtype: torch.dtype) -> torch.Tensor:
     multiplies with ``torch.einsum``, and a layer's MLA ``kv_up``, which
     the absorbed decode folds into the query and the output.
     """
-    v = p[name]
     if isinstance(v, dict) and "q" in v:
         return dequantize_leaf(v, dtype)
     if isinstance(v, FormsLinearParams):
@@ -80,19 +90,22 @@ def wload(p: Params, name: str, dtype: torch.dtype) -> torch.Tensor:
 
 
 def linear(p: Params, name: str, x: torch.Tensor, dtype: torch.dtype, *,
-           x_local: bool = False, out_local: bool = False) -> torch.Tensor:
+           x_local: bool = False, out_local: bool = False,
+           x_entry: bool = False) -> torch.Tensor:
     """``x @ W`` where ``W = p[name]`` is dense, int-grid or FORMS-compressed;
     every compressed weight goes through the polarized matmul, which takes
     2-D weights only (a stacked or conv leaf raises).  Dense and int-grid
     weights are a ``torch.matmul`` (the reference's int path runs outside
     any Pallas kernel too).  On a mesh ``x_local`` says ``x`` holds this
-    rank's columns (a split at the model axis) and ``out_local`` asks for
-    this rank's output columns back (:func:`apply_weight`)."""
+    rank's columns (a split at the model axis), ``out_local`` asks for
+    this rank's output columns back and ``x_entry`` says ``x`` came
+    through :func:`model_entry` (:func:`apply_weight`)."""
     return apply_weight(p[name], x, dtype, name, x_local=x_local, out_local=out_local,
-                        p=p)
+                        x_entry=x_entry)
 
 
 def _matrix_split(v) -> Tuple[bool, bool]:
+    """Whether a leaf's K and N are split over the model axis."""
     if isinstance(v, dict):      # an int-grid leaf: its codes carry the layout
         v = v["q"]
     if isinstance(v, FormsLinearParams):
@@ -100,18 +113,35 @@ def _matrix_split(v) -> Tuple[bool, bool]:
     sh = shard_of(v)
     if sh is None:
         return False, False
-    return sh.spec[-2] is not None, sh.spec[-1] is not None
+    return sh.on_model(-2), sh.on_model(-1)
 
 
 def _cols(t: torch.Tensor, ctx) -> torch.Tensor:
-    """This rank's equal share of ``t``'s last dim."""
-    tp, r = ctx.axis_size("model"), ctx.coord("model")
-    n = t.shape[-1] // tp
-    return t[..., r * n:(r + 1) * n]
+    """This rank's equal share of ``t``'s last dim (``t`` alike on every
+    rank of the model axis; the backward gathers the shares)."""
+    return ctx.split(t, "model", -1)
+
+
+def model_entry(x: torch.Tensor) -> torch.Tensor:
+    """The sublayer entry on a mesh (the reference's ``grad_boundary``):
+    the identity, whose backward sums the cotangent of ``x`` over ``model``
+    once, in ``x``'s dtype (bf16 in a bf16 model), for every consumer
+    behind it that holds only some of its weight's columns or rows.  The
+    consumers take ``x_entry=True``; off a mesh it is ``x`` itself."""
+    ctx = model_ctx()
+    return x if ctx is None else ctx.copy_to(x, "model")
+
+
+def all_split(p: Params, names) -> bool:
+    """Whether every one of ``p``'s named weights is split over ``model``
+    (each then makes a partial cotangent, and one :func:`model_entry` in
+    front of them all sums it)."""
+    return model_ctx() is not None and all(any(_matrix_split(p[n])) for n in names)
 
 
 def apply_weight(v, x: torch.Tensor, dtype: torch.dtype, tag: str, *,
-                 x_local: bool = False, out_local: bool = False, p=None) -> torch.Tensor:
+                 x_local: bool = False, out_local: bool = False,
+                 x_entry: bool = False) -> torch.Tensor:
     """``x @ v`` for one weight leaf in any layout (see :func:`linear`).
 
     Off a mesh: the polarized matmul of a FORMS leaf, else a matmul.  On a
@@ -121,42 +151,62 @@ def apply_weight(v, x: torch.Tensor, dtype: torch.dtype, tag: str, *,
     the cast; any other leaf takes the whole x (gathered if ``x_local``).
     An N-sharded result is gathered unless ``out_local``; a replicated one
     is cut to the rank's columns when ``out_local``.
+
+    The backward keeps every cotangent of a replicated activation whole and
+    alike on every model rank: a whole x entering an N-sharded leaf goes
+    through ``copy_to`` (its cotangent summed over ``model``) and its K
+    slice through ``split``, except behind :func:`model_entry`
+    (``x_entry``), which sums the partial cotangents of all its consumers at
+    once; there the leaf must be split.  An FSDP leaf comes gathered
+    (:func:`gathered`).
     """
     ctx = model_ctx()
     forms = isinstance(v, FormsLinearParams)
     if ctx is None:
         if forms:
             return forms_apply(v, x, tag=tag).to(dtype)
-        return matmul(x, wload(p, tag, dtype) if p is not None else v.to(dtype))
+        return matmul(x, load_leaf(v, tag, dtype))
     k_split, n_split = _matrix_split(v)
+    if x_entry and not (k_split or n_split):
+        raise ValueError(f"{tag}: a replicated weight behind model_entry would count its "
+                         "whole cotangent once per model rank")
+    whole = x_entry and not x_local     # x is whole, its cotangent summed at the entry
+    if x_local and not (k_split and x.shape[-1] == _local_k(v)
+                        and (not forms or v.k == _local_k(v) * ctx.axis_size("model"))):
+        x = ctx.all_gather(x, "model", -1)
+        x_local = False
     if k_split:
-        tp, r = ctx.axis_size("model"), ctx.coord("model")
-        kl = v.mags.shape[-2] if forms else v.shape[-2]
-        aligned = not forms or v.k == kl * tp
-        if x_local and x.shape[-1] == kl and aligned:
+        tp, kl = ctx.axis_size("model"), _local_k(v)
+        if x_local:
             xs = x
         else:
-            xf = ctx.all_gather(x, "model", -1) if x_local else x
-            if xf.shape[-1] < kl * tp:
-                xf = torch.nn.functional.pad(xf, (0, kl * tp - xf.shape[-1]))
-            xs = xf[..., r * kl:(r + 1) * kl]
+            if x.shape[-1] < kl * tp:
+                x = torch.nn.functional.pad(x, (0, kl * tp - x.shape[-1]))
+            r = ctx.coord("model")
+            xs = x[..., r * kl:(r + 1) * kl] if whole else ctx.split(x, "model", -1)
         if forms:
             y = forms_apply(v, xs, tag=tag)
         else:
-            w = wload(p, tag, dtype) if p is not None else v.to(dtype)
-            y = torch.matmul(xs.float(), w.float())
+            y = torch.matmul(xs.float(), load_leaf(v, tag, dtype).float())
         y = ctx.all_reduce(y, "model").to(dtype)
     else:
-        xf = ctx.all_gather(x, "model", -1) if x_local else x
+        if n_split and not whole:
+            x = ctx.copy_to(x, "model")
         if forms:
-            y = forms_apply(v, xf, tag=tag).to(dtype)
+            y = forms_apply(v, x, tag=tag).to(dtype)
         else:
-            y = matmul(xf, wload(p, tag, dtype) if p is not None else v.to(dtype))
+            y = matmul(x, load_leaf(v, tag, dtype))
     if n_split and not out_local:
         return ctx.all_gather(y, "model", -1)
     if out_local and not n_split:
         return _cols(y, ctx)
     return y
+
+
+def _local_k(v) -> int:
+    if isinstance(v, dict):
+        v = v["q"]
+    return v.mags.shape[-2] if isinstance(v, FormsLinearParams) else v.shape[-2]
 
 
 def _f32_scalar(v: float, device) -> torch.Tensor:
@@ -415,9 +465,12 @@ def attention_block(p: Params, x: torch.Tensor, *, n_heads: int, n_kv: int,
     local = tp > 1 and n_heads % tp == 0 and n_kv % tp == 0
     if local:
         n_heads, n_kv = n_heads // tp, n_kv // tp
-    q = linear(p, "wq", x, dtype, out_local=local)
-    k = linear(p, "wk", x, dtype, out_local=local)
-    v = linear(p, "wv", x, dtype, out_local=local)
+    entry = all_split(p, ("wq", "wk", "wv"))
+    if entry:
+        x = model_entry(x)
+    q = linear(p, "wq", x, dtype, out_local=local, x_entry=entry)
+    k = linear(p, "wk", x, dtype, out_local=local, x_entry=entry)
+    v = linear(p, "wv", x, dtype, out_local=local, x_entry=entry)
     if "bq" in p:
         q = q + _vec_like(p["bq"], q.shape[-1]).to(dtype)
         k = k + _vec_like(p["bk"], k.shape[-1]).to(dtype)
@@ -510,8 +563,11 @@ def swiglu(p: Params, x: torch.Tensor, dtype=torch.bfloat16, act: str = "silu",
     # ranking needs whole rows
     local = (ctx is not None and frag_drop == 0.0
              and _hidden_width(p) % ctx.axis_size("model") == 0)
-    h = (_MLP_ACTS[act](linear(p, "gate", x, dtype, out_local=local))
-         * linear(p, "up", x, dtype, out_local=local))
+    entry = all_split(p, ("gate", "up"))
+    if entry:
+        x = model_entry(x)
+    h = (_MLP_ACTS[act](linear(p, "gate", x, dtype, out_local=local, x_entry=entry))
+         * linear(p, "up", x, dtype, out_local=local, x_entry=entry))
     if frag_drop > 0.0:
         h = sparsify_fragments(h, frag_m, frag_drop)
     return linear(p, "down", h, dtype, x_local=local)
@@ -566,3 +622,22 @@ def take_layer(t: torch.Tensor, i: int) -> torch.Tensor:
     """Layer ``i`` of a stacked dense tensor, keeping its layout on a mesh."""
     sh = shard_of(t)
     return set_shard(t[i], sh.layer() if sh is not None else None)
+
+
+def gathered(tree):
+    """A params subtree with every FSDP leaf gathered (:func:`gather_fsdp`),
+    e.g. one layer's slice inside its block, where a recompute (remat)
+    gathers it again."""
+    if isinstance(tree, dict):
+        return {k: gathered(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [gathered(v) for v in tree]
+    return gather_fsdp(tree)
+
+
+def gathered_top(params):
+    """The params with every FSDP leaf outside the stacked layer trees
+    gathered once (the embedding, the tied or untied head, the final norm),
+    so the forward and the loss share one gather of each; the stacked
+    leaves are gathered per layer slice inside the blocks."""
+    return {k: (v if k in SCANNED_PREFIXES else gathered(v)) for k, v in params.items()}

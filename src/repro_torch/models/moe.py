@@ -50,7 +50,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import MLAConfig, ModelConfig
 from repro_torch.distributed import moe_dispatch
-from repro_torch.distributed.context import model_ctx
+from repro_torch.distributed.context import current_context, model_ctx
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import (_serving_head, layer_params,
                                             unstack_layers, with_head_cast)
@@ -103,9 +103,13 @@ def top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
-def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig, dtype
+def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig, dtype, batch_aux: bool = False
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, d) -> (out, aux_loss), the reference's scatter path."""
+    """x: (B, S, d) -> (out, aux_loss), the reference's scatter path.
+    ``batch_aux`` (the training forward, which every rank runs alike) takes
+    the aux loss's means over the whole batch on a mesh whose batch axes
+    split it; serving's data ranks run their own slots, so theirs stay
+    local."""
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.experts_per_token
     t = b * s
@@ -115,9 +119,11 @@ def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig, dtype
     gates, idx = top_k(probs, k)                                    # (T, K)
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
 
-    # aux load-balance loss (switch-style)
-    density = torch.mean(F.one_hot(idx[:, 0], e).float(), dim=0)
-    prob_mean = torch.mean(probs, dim=0)
+    # aux load-balance loss (switch-style); on a training mesh both means
+    # run over the global batch before their product
+    mean = _batch_mean if batch_aux else (lambda t: torch.mean(t, dim=0))
+    density = mean(F.one_hot(idx[:, 0], e).float())
+    prob_mean = mean(probs)
     aux = e * torch.sum(density * prob_mean)
 
     ctx = model_ctx()
@@ -128,20 +134,35 @@ def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig, dtype
         rows = slice(r * t_loc, (r + 1) * t_loc)
         c2 = max(1, int(cfg.capacity_factor * t_loc * k / e))
         quant = cfg.moe_dispatch_int8
-        bufe, slots = moe_dispatch.dispatch(xt[rows].to(dtype), idx[rows], e, c2, ctx,
-                                            quantized=quant)
+        bufe, slots = moe_dispatch.dispatch(ctx.split(xt, "model", 0).to(dtype), idx[rows],
+                                            e, c2, ctx, quantized=quant)
         out_buf = _expert_ffn(p, bufe, dtype)
-        y = moe_dispatch.combine(out_buf, idx[rows], slots, gates[rows], e, c2, ctx,
-                                 quantized=quant)
+        y = moe_dispatch.combine(out_buf, idx[rows], slots, ctx.split(gates, "model", 0),
+                                 e, c2, ctx, quantized=quant)
         y = ctx.all_gather(y, "model", 0)
     else:
         y = _scatter_experts(p, xt, idx, gates, cfg, dtype)
 
     if cfg.num_shared_experts:
         xd = xt.to(dtype)
-        hs = F.silu(L.linear(p, "shared_gate", xd, dtype)) * L.linear(p, "shared_up", xd, dtype)
+        entry = L.all_split(p, ("shared_gate", "shared_up"))
+        if entry:
+            xd = L.model_entry(xd)
+        hs = (F.silu(L.linear(p, "shared_gate", xd, dtype, x_entry=entry))
+              * L.linear(p, "shared_up", xd, dtype, x_entry=entry))
         y = y + L.linear(p, "shared_down", hs, dtype)
     return y.reshape(b, s, d), aux
+
+
+def _batch_mean(x: torch.Tensor) -> torch.Tensor:
+    """The mean over dim 0 of the tokens of the whole batch: on a mesh
+    whose batch axes split the tokens, each rank's sum is summed over them
+    (backward: the identity, each rank's own tokens)."""
+    ctx = current_context()
+    nb = ctx.axis_size("batch") if ctx is not None else 1
+    if nb == 1:
+        return torch.mean(x, dim=0)
+    return ctx.all_reduce(x.sum(dim=0), "batch") / (x.shape[0] * nb)
 
 
 def _scatter_experts(p: Params, xt: torch.Tensor, idx: torch.Tensor, gates: torch.Tensor,
@@ -152,6 +173,11 @@ def _scatter_experts(p: Params, xt: torch.Tensor, idx: torch.Tensor, gates: torc
     outputs are summed."""
     t, d = xt.shape
     e, k = cfg.num_experts, cfg.experts_per_token
+    if _local_experts(p["w_gate"]) < e:
+        # this rank's experts see every token: the cotangents of the tokens
+        # and the gates are partial until summed over model
+        ctx = model_ctx()
+        xt, gates = ctx.copy_to(xt, "model"), ctx.copy_to(gates, "model")
     cap = max(4, int(cfg.capacity_factor * t * k / e))
     dev = xt.device
     e_flat = idx.reshape(t * k)
@@ -335,7 +361,7 @@ def init(cfg: ModelConfig, generator: torch.Generator) -> Params:
 
 def _block_apply(cfg: ModelConfig, bp: Params, x: torch.Tensor, positions: torch.Tensor,
                  cache: Optional[Dict[str, torch.Tensor]], cache_pos, dtype, q_chunk: int,
-                 collect_kv: bool = False):
+                 collect_kv: bool = False, batch_aux: bool = False):
     """One block.  ``cache``: this layer's cache views by leaf name (MLA
     latents or GQA K/V), or None for full-sequence attention.  Returns (x,
     the load-balance loss, the new rows by leaf name or None)."""
@@ -356,7 +382,8 @@ def _block_apply(cfg: ModelConfig, bp: Params, x: torch.Tensor, positions: torch
         if new_kv is not None:
             new = {"k": new_kv[0], "v": new_kv[1]}
     x = x + h
-    y, aux = moe_ffn(bp["moe"], L.rmsnorm(x, bp["norm2"], cfg.norm_eps), cfg, dtype)
+    y, aux = moe_ffn(bp["moe"], L.rmsnorm(x, bp["norm2"], cfg.norm_eps), cfg, dtype,
+                     batch_aux=batch_aux)
     return x + y, aux, new
 
 
@@ -375,11 +402,13 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor], *,
     its load-balance loss adds ``/ num_layers``, and ``aux`` gains
     ``mtp_logits`` (or ``mtp_hidden`` with ``return_hidden``)."""
     dtype = L.DTYPES[cfg.dtype]
+    params = L.gathered_top(params)
     x = L.embed_lookup(params["embed"], batch["tokens"], dtype)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
 
     def body(x, bp):
-        out, aux, _ = _block_apply(cfg, bp, x, positions, None, None, dtype, q_chunk)
+        out, aux, _ = _block_apply(cfg, L.gathered(bp), x, positions, None, None, dtype,
+                                   q_chunk, batch_aux=True)
         return out, aux
 
     auxs = []

@@ -68,16 +68,26 @@ def unstack_layers(blocks: Any, n: int) -> list:
     """The stacked block tree as ``n`` per-layer trees.  Each stacked tensor
     is unbound once, so a backward pass returns the ``n`` layer gradients as
     one stack; taking layer i out by indexing would cost a zero-filled
-    full-size gradient and its addition for every layer."""
+    full-size gradient and its addition for every layer.  A sharded leaf
+    keeps its layout per slice (an FSDP slice is gathered in its block)."""
     if isinstance(blocks, dict):
         cols = {k: unstack_layers(v, n) for k, v in blocks.items()}
         return [{k: cols[k][i] for k in cols} for i in range(n)]
     if isinstance(blocks, FormsLinearParams):
         return [blocks.layer(i) for i in range(n)]
+    _check_layer_axis(blocks)
     sh = shard_of(blocks)
     if sh is not None:
         return [set_shard(t, sh.layer()) for t in blocks.unbind(0)]
     return list(blocks.unbind(0))
+
+
+def _check_layer_axis(t: Any) -> None:
+    sh = shard_of(t)
+    if sh is not None and sh.spec[0] is not None:
+        raise NotImplementedError(
+            f"a stacked leaf split along its layer axis (spec {sh.spec}) has no local "
+            "layer slice; shard it along K or N")
 
 
 def _block_apply(cfg: ModelConfig, bp: Params, x: torch.Tensor,
@@ -152,14 +162,17 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor], *,
     logits).
     ``remat`` recomputes each block's activations in the backward pass
     (``torch.utils.checkpoint``), keeping only the residual stream between
-    blocks, as the reference's ``jax.checkpoint`` over the layer scan does."""
+    blocks, as the reference's ``jax.checkpoint`` over the layer scan does.
+    On a training mesh each FSDP leaf is gathered inside its block (a
+    recompute gathers it again), the others once up front."""
     dtype = L.DTYPES[cfg.dtype]
+    params = L.gathered_top(params)
     x = _embed_inputs(cfg, params, batch, dtype)
     s = x.shape[1]
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
 
     def body(x, bp):
-        return _block_apply(cfg, bp, x, positions, None, None, dtype, q_chunk)[0]
+        return _block_apply(cfg, L.gathered(bp), x, positions, None, None, dtype, q_chunk)[0]
 
     for bp in unstack_layers(params["blocks"], cfg.num_layers):
         if remat and torch.is_grad_enabled():

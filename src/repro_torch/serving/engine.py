@@ -662,7 +662,7 @@ def _check_mesh_family(model: Model) -> None:
         what = "MLA" if cfg.mla is not None else f"the {cfg.family} family"
         raise NotImplementedError(
             f"serving {what} on a mesh is not ported: the mesh engine runs the "
-            "dense and MoE (GQA) families (ROADMAP item 13a)")
+            "dense and MoE (GQA) families (ROADMAP item 13d)")
 
 
 def _check_mesh(dev: torch.device, ctx: Any, batch_slots: int) -> None:

@@ -11,17 +11,23 @@ Unlike the reference's pure functions, :func:`adamw_update` and
 :func:`sgd_update` write the new params and moments into the given tensors
 (and return them): at full width that saves a second copy of the params and
 both moments.
+
+On a training mesh the tensors are each rank's shards (their layouts on
+the params' ``shard``): the update is elementwise, the int8 moments' row
+scale is max-reduced over the axes that split the row, and the global norm
+sums each leaf's squares over its own shard axes.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import TrainConfig
 from repro_torch.core.paths import leaves, tree_map
+from repro_torch.distributed.context import current_context, shard_of
 
 Params = Any
 
@@ -41,12 +47,29 @@ def cosine_schedule(cfg: TrainConfig) -> Callable[[torch.Tensor], torch.Tensor]:
     return lr
 
 
-def global_norm(tree: Any) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in leaves(tree)))
+def global_norm(tree: Any, like: Any = None) -> torch.Tensor:
+    """The L2 norm of every leaf of ``tree`` together.  On a mesh ``like``
+    (the params) gives each leaf's layout: the sums of squares of the
+    leaves split over one set of axes are added and summed over exactly
+    those axes (never over an axis a leaf is replicated on), so the norm
+    is the whole tree's on every rank."""
+    squares = [torch.sum(torch.square(x.float())) for x in leaves(tree)]
+    ctx = current_context()
+    if like is None or ctx is None:
+        return torch.sqrt(sum(squares))
+    groups: Dict[Tuple[str, ...], list] = {}
+    for sq, p in zip(squares, leaves(like)):
+        sh = shard_of(p)
+        groups.setdefault(sh.axes() if sh is not None else (), []).append(sq)
+    total = 0
+    for axes, sqs in groups.items():
+        total = total + ctx.reduce_over(sum(sqs), axes)
+    return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads: Any, max_norm: float) -> Tuple[Any, torch.Tensor]:
-    norm = global_norm(grads)
+def clip_by_global_norm(grads: Any, max_norm: float,
+                        like: Any = None) -> Tuple[Any, torch.Tensor]:
+    norm = global_norm(grads, like)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return tree_map(lambda g: g * scale, grads), norm
 
@@ -63,9 +86,12 @@ class AdamWState:
     nu_scale: Optional[Params]
 
 
-def _q8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Symmetric per-row int8 quantization (scale over the last axis)."""
+def _q8(x: torch.Tensor, row_axes: Tuple[str, ...] = ()) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-row int8 quantization (scale over the last axis); on a
+    mesh the row's max is taken over the ``row_axes`` that split it."""
     amax = x.abs().amax(dim=-1, keepdim=True)
+    if row_axes:
+        amax = current_context().reduce_over(amax, row_axes, "max")
     scale = torch.clamp(amax, min=1e-20) / 127.0
     q = (x / scale).round_().clamp_(-127, 127).to(torch.int8)
     return q, scale.float()
@@ -118,8 +144,10 @@ def adamw_update(params: Params, grads: Params, state: AdamWState, cfg: TrainCon
         delta = (m32 / bc1) / (torch.sqrt(v32 / bc2) + 1e-8) + cfg.weight_decay * p.float()
         p.copy_(p.float() - lr * delta)
         if int8:
+            sh = shard_of(p)
+            rows = sh.dim_axes(-1) if sh is not None and p.ndim else ()
             for q, s, x in ((m, ms, m32), (v, vs, v32)):
-                xq, xs = _q8(x)
+                xq, xs = _q8(x, rows)
                 q.copy_(xq)
                 s.copy_(xs)
         else:

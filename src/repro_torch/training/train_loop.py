@@ -12,9 +12,25 @@ A step launches work and returns: the loss, the gradient norm and the
 learning rate in ``metrics`` are device scalars, and nothing in the step
 reads a value back to the host.  The params and moments are updated in
 place (see ``training/optimizer.py``).
+
+The step runs on a device mesh (``make_train_step(..., ctx=)``: explicit
+SPMD, one process per device, the state placed with
+``distributed.sharding.place_train_state``; without ``ctx`` a world of
+one, where every collective is a no-op): every rank takes its rows of the
+global batch and holds its shards.  The forward gathers each FSDP leaf
+in its block and makes the model-axis collectives (``models/layers``);
+the loss is the global mean (``chunked_ce`` reduces the vocab-split
+log-sum-exp over ``model`` and the token sums over the batch axes); the
+gradients of replicated leaves are summed over the batch axes (each rank's
+loss carries its share of the global mean) and the FSDP leaves' come
+reduce-scattered from their gathers; the ADMM penalty is summed once per
+leaf and its gradient ``rho * (W - Z + U)`` added to each rank's shard;
+then compression, clipping and AdamW run on the shards.  The metrics are
+equal on every rank.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -24,6 +40,9 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import TrainConfig
 from repro_torch.core import admm as admm_mod
 from repro_torch.core import paths
+from repro_torch.distributed.context import (ParallelContext, current_context,
+                                             parallel_context, set_shard, shard_of)
+from repro_torch.models import layers as L
 from repro_torch.models.registry import Model
 from repro_torch.training import grad_compress, optimizer as opt
 
@@ -72,12 +91,34 @@ def _chunk_nll(hx: torch.Tensor, tx: torch.Tensor, mx: torch.Tensor,
     return torch.sum((lse - ll) * mx)
 
 
+def _chunk_nll_vocab(hx: torch.Tensor, tx: torch.Tensor, mx: torch.Tensor,
+                     head: torch.Tensor) -> torch.Tensor:
+    """:func:`_chunk_nll` with the head's vocab columns split over
+    ``model``: the log-sum-exp of the rank's logits completed over the
+    model axis (the max, then the sum of exponentials), and the target
+    logit taken from the rank that holds it."""
+    ctx = current_context()
+    hx = ctx.copy_to(hx, "model")
+    lg = (hx @ head).float()
+    v_loc = lg.shape[-1]
+    top = ctx.all_reduce(lg.detach().amax(dim=-1), "model", "max")
+    lse = top + torch.log(ctx.all_reduce(torch.exp(lg - top[:, None]).sum(dim=-1), "model"))
+    t = tx - ctx.coord("model") * v_loc
+    mine = (t >= 0) & (t < v_loc)
+    ll = torch.gather(lg, -1, t.clamp(0, v_loc - 1)[:, None])[:, 0]
+    ll = ctx.all_reduce(torch.where(mine, ll, torch.zeros_like(ll)), "model")
+    return torch.sum((lse - ll) * mx)
+
+
 def chunked_ce(hidden: torch.Tensor, head: torch.Tensor, tokens: torch.Tensor,
                shift: int = 1, chunk: int = CE_CHUNK) -> torch.Tensor:
     """Memory-efficient next-token CE: logits are computed per token chunk
     and recomputed in the backward pass, so the peak is chunk x vocab.
     ``shift``: targets are tokens[t + shift].  Chunk sums are added in
-    order, as the reference's scan adds them."""
+    order, as the reference's scan adds them.  On a mesh ``hidden`` and
+    ``tokens`` are this rank's rows: a head split over ``model`` along the
+    vocab takes :func:`_chunk_nll_vocab`, and the sum and the count are
+    summed over the batch axes, so the loss is the global mean."""
     s = tokens.shape[1]
     d = hidden.shape[-1]
     h = hidden[:, -s:, :][:, :-shift, :].reshape(-1, d)
@@ -90,16 +131,24 @@ def chunked_ce(hidden: torch.Tensor, head: torch.Tensor, tokens: torch.Tensor,
         h = torch.nn.functional.pad(h, (0, 0, 0, pad))
         t = torch.nn.functional.pad(t, (0, pad))
         mask[n:] = 0.0
+    ctx = current_context()
+    sh = shard_of(head)
+    split = (ctx is not None and ctx.axis_size("model") > 1 and sh is not None
+             and sh.on_model(-1))
+    fn = _chunk_nll_vocab if split else _chunk_nll
     head = head.to(hidden.dtype)
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(0, n + pad, c):
         args = (h[i:i + c], t[i:i + c], mask[i:i + c], head)
         if torch.is_grad_enabled():
-            total = total + checkpoint(_chunk_nll, *args, use_reentrant=False,
+            total = total + checkpoint(fn, *args, use_reentrant=False,
                                        preserve_rng_state=False)
         else:
-            total = total + _chunk_nll(*args)
-    return total / max(n, 1)
+            total = total + fn(*args)
+    nb = ctx.axis_size("batch") if ctx is not None else 1
+    if nb > 1:
+        total = ctx.all_reduce(total, "batch")
+    return total / max(n * nb, 1)
 
 
 def hidden_loss(model: Model, params: Params, batch: Dict[str, torch.Tensor],
@@ -119,63 +168,152 @@ def hidden_loss(model: Model, params: Params, batch: Dict[str, torch.Tensor],
 
 def _value_and_grad(loss_fn: Callable, params: Params, *args) -> Tuple[torch.Tensor, Params]:
     """(loss, grads) of ``loss_fn(params, *args)`` with respect to every
-    leaf of the params tree (leaves are taken as views, not copies)."""
-    live = {p: t.detach().requires_grad_(True) for p, t in paths.iter_leaves(params)}
+    leaf of the params tree (leaves are taken as views, not copies, and
+    keep their mesh layouts)."""
+    live = {p: set_shard(t.detach().requires_grad_(True), shard_of(t))
+            for p, t in paths.iter_leaves(params)}
     loss = loss_fn(paths.rebuild(params, live), *args)
     grads = torch.autograd.grad(loss, list(live.values()))
     return loss.detach(), paths.rebuild(params, dict(zip(live, grads)))
 
 
+MESH_FAMILIES = ("dense", "moe")
+
+
+def check_train_mesh(model: Model, ctx: ParallelContext) -> None:
+    """Refuse by name a family that does not train on a mesh of more than
+    one device (a world of one is the one-device step)."""
+    cfg = model.config
+    if ctx.entry_size(tuple(ctx.shape)) == 1:
+        return
+    if cfg.family not in MESH_FAMILIES or cfg.mla is not None:
+        what = "MLA" if cfg.mla is not None else f"the {cfg.family} family"
+        raise NotImplementedError(
+            f"training {what} on a mesh is not ported: the sharded train step runs the "
+            "dense and MoE (GQA) families (ROADMAP item 13d)")
+
+
+def shard_batch(batch: Dict[str, torch.Tensor], ctx: ParallelContext
+                ) -> Dict[str, torch.Tensor]:
+    """This rank's rows of the global batch: the ``coord("batch")``-th of
+    ``axis_size("batch")`` equal blocks (model ranks share them)."""
+    nb, c = ctx.axis_size("batch"), ctx.coord("batch")
+    if nb == 1:
+        return batch
+    out = {}
+    for k, v in batch.items():
+        if v.shape[0] % nb:
+            raise ValueError(f"a global batch of {v.shape[0]} rows does not split over "
+                             f"the {nb}-way batch axes")
+        n = v.shape[0] // nb
+        out[k] = v[c * n:(c + 1) * n]
+    return out
+
+
+def _is_fsdp(p: torch.Tensor, ctx: ParallelContext) -> bool:
+    sh = shard_of(p)
+    return sh is not None and bool(set(sh.axes()) & set(ctx.batch_axes))
+
+
+@torch.no_grad()
+def reduce_grads(params: Params, grads: Params, ctx: ParallelContext) -> Params:
+    """Every rank's gradients summed over the batch axes: the FSDP leaves'
+    were reduce-scattered by their gathers' backward, the others are summed
+    here (one all-reduce per dtype).  The result carries the params'
+    layouts."""
+    flat_p = paths.leaves(params)
+    flat_g = paths.leaves(grads)
+    if ctx.axis_size("batch") > 1:
+        buckets: Dict[torch.dtype, list] = {}
+        for i, (p, g) in enumerate(zip(flat_p, flat_g)):
+            if not _is_fsdp(p, ctx):
+                buckets.setdefault(g.dtype, []).append(i)
+        for idx in buckets.values():
+            summed = ctx.all_reduce(torch.cat([flat_g[i].reshape(-1) for i in idx]), "batch")
+            for i, piece in zip(idx, summed.split([flat_g[i].numel() for i in idx])):
+                flat_g[i] = piece.view_as(flat_g[i])
+    marked = {path: set_shard(g, shard_of(p))
+              for (path, p), g in zip(paths.iter_leaves(params), flat_g)}
+    return paths.rebuild(params, marked)
+
+
 def make_train_step(model: Model, tcfg: TrainConfig,
-                    constraint_table: Optional[Dict[str, admm_mod.LayerConstraint]] = None
+                    constraint_table: Optional[Dict[str, admm_mod.LayerConstraint]] = None,
+                    ctx: Optional[ParallelContext] = None
                     ) -> Callable[[TrainState, Dict[str, torch.Tensor]],
                                   Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """Build the train step (gradient accumulation over ``microbatches``).
 
     With ADMM on and no ``constraint_table`` the default constraints (at
-    ``admm_rho``) of the first state's params are used.
+    ``admm_rho``) of the first state's params are used.  ``ctx`` (a
+    ``ParallelContext`` over a live mesh) runs the step of the module
+    docstring on that mesh, for a state placed there; without it the mesh
+    is a world of one, where every collective and the batch split are
+    no-ops.  The step takes the global batch, the same on every rank;
+    ``step.grads(state, batch)`` gives the loss and the reduced gradients.
     """
     lr_fn = opt.cosine_schedule(tcfg)
     table = constraint_table
+    ctx = ctx if ctx is not None else ParallelContext.for_shape({"data": 1, "model": 1})
+    check_train_mesh(model, ctx)
 
-    def loss_fn(params, batch, admm_state):
+    def loss_fn(params, batch):
+        # on a mesh: one FSDP gather of the embedding/head for the forward and the loss
+        params = L.gathered_top(params)
         hidden, aux = model.forward(params, batch, remat=tcfg.remat, return_hidden=True)
-        loss = hidden_loss(model, params, batch, hidden, aux)
-        if admm_state is not None:
-            loss = loss + admm_mod.admm_penalty(params, admm_state, table)
-        return loss
+        return hidden_loss(model, params, batch, hidden, aux)
 
-    def microbatch_grads(params, batch, admm_state):
+    def microbatch_grads(params, batch):
         n = tcfg.microbatches
         if n <= 1:
-            return _value_and_grad(loss_fn, params, batch, admm_state)
+            return _value_and_grad(loss_fn, params, batch)
         splits = {k: v.reshape(n, v.shape[0] // n, *v.shape[1:]) for k, v in batch.items()}
         loss_sum = 0.0
         grad_sum = paths.tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                                       device=p.device), params)
         for i in range(n):
-            loss, grads = _value_and_grad(loss_fn, params, {k: v[i] for k, v in splits.items()},
-                                          admm_state)
+            loss, grads = _value_and_grad(loss_fn, params, {k: v[i] for k, v in splits.items()})
             grad_sum = paths.tree_map(torch.add, grad_sum, grads)
             loss_sum = loss_sum + loss
         return loss_sum / n, paths.tree_map(lambda g: g / n, grad_sum)
 
+    def grads_fn(state: TrainState, batch: Dict[str, torch.Tensor]
+                 ) -> Tuple[torch.Tensor, Params]:
+        """This rank's loss (the global one) and reduced gradient shards,
+        the ADMM penalty and its gradient included."""
+        loss, grads = microbatch_grads(state.params, shard_batch(batch, ctx))
+        grads = reduce_grads(state.params, grads, ctx)
+        if state.admm is not None:
+            with torch.no_grad():
+                loss = loss + admm_mod.admm_penalty(state.params, state.admm, table)
+                by_path = dict(paths.iter_leaves(grads))
+                for path, g in admm_mod.penalty_grads(state.params, state.admm, table):
+                    by_path[path].add_(g)
+        return loss, grads
+
     def step_fn(state: TrainState, batch: Dict[str, torch.Tensor]
                 ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         nonlocal table
-        if state.admm is not None and table is None:
-            table = admm_mod.constraint_table(
-                state.params, admm_mod.default_constraints(rho=tcfg.admm_rho))
-        loss, grads = microbatch_grads(state.params, batch, state.admm)
-        grads, new_err = grad_compress.apply_compression(
-            grads, tcfg.grad_compression, state.grad_err, state.rng)
-        grads, gnorm = opt.clip_by_global_norm(grads, tcfg.grad_clip)
-        params, new_opt = opt.adamw_update(state.params, grads, state.opt, tcfg, lr_fn)
+        with parallel_context(ctx):
+            if state.admm is not None and table is None:
+                table = admm_mod.constraint_table(
+                    state.params, admm_mod.default_constraints(rho=tcfg.admm_rho))
+            loss, grads = grads_fn(state, batch)
+            grads, new_err = grad_compress.apply_compression(
+                grads, tcfg.grad_compression, state.grad_err, state.rng, like=state.params)
+            grads, gnorm = opt.clip_by_global_norm(grads, tcfg.grad_clip, like=state.params)
+            params, new_opt = opt.adamw_update(state.params, grads, state.opt, tcfg, lr_fn)
         new_state = TrainState(params=params, opt=new_opt, step=state.step + 1,
                                admm=state.admm, grad_err=new_err, rng=state.rng)
         return new_state, {"loss": loss, "grad_norm": gnorm, "lr": lr_fn(new_opt.step)}
 
+    step_fn.grads = lambda state, batch: _in(ctx, grads_fn, state, batch)
     return step_fn
+
+
+def _in(ctx: ParallelContext, fn: Callable, *args):
+    with parallel_context(ctx):
+        return fn(*args)
 
 
 def init_train_state(model: Model, tcfg: TrainConfig, seed: Optional[int] = None,
@@ -203,18 +341,21 @@ def init_train_state(model: Model, tcfg: TrainConfig, seed: Optional[int] = None
 
 
 def maybe_admm_update(state: TrainState, table, tcfg: TrainConfig,
-                      host_step: int) -> TrainState:
+                      host_step: int, ctx: Optional[ParallelContext] = None) -> TrainState:
     """ADMM Z/U update every ``admm_update_every`` steps (``host_step`` is the
     number of steps taken).  Signs are re-elected every
     ``admm_sign_refresh_every`` Z-updates (the paper's every-M-epochs sign
-    re-election), and on the first Z-update, which has none yet."""
+    re-election), and on the first Z-update, which has none yet.  On a mesh
+    (``ctx``) each rank updates its shards."""
     if state.admm is None or host_step == 0:
         return state
     if host_step % tcfg.admm_update_every != 0:
         return state
     z_updates = host_step // tcfg.admm_update_every
     refresh = z_updates % max(tcfg.admm_sign_refresh_every, 1) == 0
-    new_admm = admm_mod.admm_update(state.params, state.admm, table, refresh_signs=refresh)
+    with parallel_context(ctx) if ctx is not None else contextlib.nullcontext():
+        new_admm = admm_mod.admm_update(state.params, state.admm, table,
+                                        refresh_signs=refresh)
     return dataclasses.replace(state, admm=new_admm)
 
 

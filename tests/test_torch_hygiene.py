@@ -133,11 +133,15 @@ def test_reliability_and_moe_are_the_ports_own(module):
 
 @pytest.mark.parametrize("module", ["distributed/__init__.py", "distributed/context.py",
                                     "distributed/sharding.py", "distributed/moe_dispatch.py",
-                                    "launch/mesh.py"])
+                                    "launch/mesh.py", "launch/train.py",
+                                    "training/train_loop.py", "training/optimizer.py",
+                                    "training/grad_compress.py", "core/admm.py",
+                                    "checkpoint/manager.py"])
 def test_the_mesh_modules_are_the_ports_own(module):
-    """The mesh modules import neither JAX nor the JAX package: the rule
-    table, the scanned prefixes, the FSDP threshold and ``MeshConfig`` are
-    the port's own copies."""
+    """The mesh modules and the sharded training path (the launcher, the
+    train step, the optimizer, the compression, ADMM, checkpoints) import
+    neither JAX nor the JAX package: the rule table, the scanned prefixes,
+    the FSDP threshold and ``MeshConfig`` are the port's own copies."""
     path = ROOT / "src" / "repro_torch" / module
     assert path in PORT_FILES
     mods = set(_imported_modules(path))

@@ -227,15 +227,19 @@ def test_validate_tree_sharding_refuses_the_references_bad_cases(case):
 
 @pytest.mark.parametrize("flag", ["--pods", "--mesh-data", "--mesh-model"])
 def test_train_mesh_flags_name_item_13c(flag, capsys):
-    """The reference's train mesh flags parse; a value other than 1 is
-    refused with a message naming ROADMAP item 13c (not a usage error);
-    at 1 the launcher trains as always."""
+    """ROADMAP item 13c (sharded training) is ported: the reference's train
+    mesh flags build the mesh.  A mesh of 2 in a process that is alone is
+    refused by name (not a usage error), pointing to ``--fake-devices``
+    (the sharded runs: tests/test_torch_mesh_train*.py); at 1 the launcher
+    trains on a world of one and prints its mesh line."""
     with pytest.raises(SystemExit) as e:
         train_launch.main(["--reduced", "--steps", "1", "--device", "cpu", flag, "2"])
-    assert "ROADMAP item 13c" in str(e.value.code)
+    assert "needs 2 processes" in str(e.value.code) and "--fake-devices 2" in str(e.value.code)
     train_launch.main(["--reduced", "--steps", "1", "--log-every", "1", "--seq-len", "16",
                        "--global-batch", "2", "--device", "cpu", flag, "1"])
-    assert "step     1  loss" in capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert out.startswith("mesh: {'data': 1, 'model': 1} over 1 devices") and (
+        "step     1  loss" in out)
 
 
 def test_serve_fake_devices_needs_the_cpu():
@@ -261,3 +265,29 @@ def test_serve_fake_devices_spawns_a_cpu_world(capfd):
     out = capfd.readouterr().out.splitlines()
     assert "mesh: {'data': 1, 'model': 2} over 2 devices, 23 param leaves sharded" in out
     assert [ln for ln in out if ln.startswith("req ")] == plain and len(plain) == 2
+
+
+def test_preemption_on_a_mesh_saves_when_any_rank_is_signalled(monkeypatch):
+    """On a mesh a SIGTERM is held even between steps, and every rank saves
+    at the end of the step where ``agree`` reports that any rank holds one
+    (the save gathers: all ranks must make it at one step)."""
+    from repro_torch.checkpoint import manager as ckpt
+    saved, exits = [], []
+    monkeypatch.setattr(ckpt.os, "_exit", exits.append)
+    others = {"pending": False}
+    handler = ckpt.PreemptionHandler(lambda: saved.append(len(saved)),
+                                     agree=lambda mine: mine or others["pending"])
+    with handler.critical():
+        pass
+    assert saved == [] and exits == []
+    handler(15, None)                 # between steps: held, not acted on
+    assert saved == []
+    with handler.critical():
+        pass
+    assert saved == [0] and exits == [0]
+    quiet = ckpt.PreemptionHandler(lambda: saved.append(len(saved)),
+                                   agree=lambda mine: mine or others["pending"])
+    others["pending"] = True          # another rank was signalled
+    with quiet.critical():
+        pass
+    assert saved == [0, 1] and exits == [0, 0]

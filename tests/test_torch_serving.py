@@ -100,7 +100,7 @@ def test_unported_options_are_refused():
     with pytest.raises(TypeError, match="DeviceMesh"):
         TEngine(tm, tp, **kw, page_size=8, mesh=object())
     xm = tbuild(torch_reduced("xlstm-350m"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13a"):
+    with pytest.raises(NotImplementedError, match="ROADMAP item 13d"):
         TEngine(xm, xm.init(0), **kw, mesh=object())
     # health= is ported (reliability/health): it arms the monitor on a FORMS
     # tree (tests/test_torch_reliability.py)
