@@ -262,6 +262,18 @@ Phases, each printing JSON lines:
                K) equal to the whole leaf's slice bit for bit, timed beside
                the byte bound and the launch floor; then ``train --reduced
                --mesh-data 1 --mesh-model 1`` and its ``mesh:`` line;
+15c. dryrun  — the dry run's analysis held against the card: full-width
+               qwen2-1.5b on a world of one (data=1, model=1), a decode step
+               at batch 16 on an 8,192-token cache, a prefill at 1 x 8,192
+               and a train step at 8 x 1,024 (f32 moments), each built and
+               traced on fake CUDA tensors by ``launch/dryrun``'s own
+               functions (the card's allocation unchanged), then run on the
+               card: FLOPs within 1% of the trace's, the inputs' bytes within
+               1% of the argument bytes, the peak within 10% or 0.5 GB of the
+               prediction, the step ms beside the roofline's (not gated);
+               then ``dryrun --arch qwen2-1.5b --mesh single`` in this process
+               (three production cells on fake CUDA tensors): no allocation,
+               no kernel launch;
 16. checkpoint — checkpointed ADMM training of qwen2-1.5b at full width,
                depth cut to 2 layers, the train phase's settings: run A (4
                steps) twice, run B (2 steps, ``save_async`` after the step-2
@@ -2738,6 +2750,159 @@ def phase_mesh_train(plain, floor_ms):
     return launches, rows
 
 
+# --------------------------------------------------------------------------
+# the dry run's analysis held against the card
+# --------------------------------------------------------------------------
+
+# qwen2-1.5b cells that fit one card: (kind, seq_len, batch)
+DRYRUN_CELLS = (("decode", 8192, 16), ("prefill", 8192, 1), ("train", 1024, 8))
+DRYRUN_REPS = 3
+
+
+def _materialize(cell, gen):
+    """Real tensors on the card for a cell's fake global arguments: zeros,
+    the params drawn from ``gen`` (N(0, 0.02))."""
+    import torch
+    from repro_torch.core import paths
+    from repro_torch.launch import dryrun as D
+    args = D._map(cell.args, lambda t: torch.zeros(t.shape, dtype=t.dtype, device="cuda"))
+    params = args[0].params if cell.names[0] == "state" else args[0]
+    for leaf in paths.leaves(params):
+        if leaf.is_floating_point():
+            leaf.normal_(0.0, 0.02, generator=gen)
+    return args
+
+
+def phase_dryrun():
+    """The dry run's analysis against the card: full-width qwen2-1.5b on a
+    world of one (``data=1, model=1``), a decode step at batch 16 on an
+    8,192-token cache, a prefill at 1 x 8,192 and a train step at 8 x 1,024
+    (f32 moments, no ADMM).  Each cell is built and traced with the dry
+    run's own functions on fake CUDA tensors, then the same step runs on
+    the card: its ``FlopCounterMode`` FLOPs against the trace's (1%), the
+    growth of ``memory_allocated`` as the inputs are placed against the
+    argument bytes (1%), ``max_memory_allocated`` against the predicted
+    peak (10% or 0.5 GB), the measured step ms beside the roofline's.  Then
+    ``dryrun --arch qwen2-1.5b --mesh single`` (its three production cells,
+    in this process): no allocation on the card and no kernel launch."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.analysis import roofline as roof
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed.context import RecordingContext
+    from repro_torch.launch import dryrun as D
+    from repro_torch.models.registry import build
+
+    cfg = get_config("qwen2-1.5b")
+    ctx = RecordingContext({"data": 1, "model": 1})
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    smi = nvidia_smi_line()
+    rows = []
+    for kind, seq, batch in DRYRUN_CELLS:
+        shape = ShapeConfig(f"{kind}_{batch}x{seq}", seq, batch, kind)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        with D.fake_mode():
+            cell = D.build_cell(build(cfg, device="cuda"), shape, ctx)
+            trace = D.trace_step(cell, cell.place(), ctx)
+        if torch.cuda.memory_allocated() != before:
+            raise AssertionError(f"the fake trace of {shape.name} allocated on the card")
+        report = roof.RooflineReport(
+            arch=cfg.name, shape=shape.name, mesh="1x1", chips=1, kind=kind,
+            hlo_flops_per_device=trace.cost.flops, hlo_bytes_per_device=trace.cost.bytes,
+            collective_bytes_per_device=float(trace.cost.collectives.total_bytes),
+            model_flops_global=roof.model_flops(kind, cfg.active_param_count(),
+                                                batch * (seq if kind != "decode" else 1)),
+            tokens_per_step=batch * (seq if kind != "decode" else 1))
+
+        args = _materialize(cell, gen)
+        torch.cuda.synchronize()
+        arg_measured = torch.cuda.memory_allocated() - before
+        local = cell.place(args)
+        torch.cuda.reset_peak_memory_stats()
+        with FlopCounterMode(display=False) as fc:
+            out = cell.fn(*local)
+        torch.cuda.synchronize()
+        peak_measured = torch.cuda.max_memory_allocated() - before
+        del out
+        flops_measured = float(fc.get_total_flops())
+        times = []
+        for _ in range(DRYRUN_REPS):
+            t = time.perf_counter()
+            out = cell.fn(*local)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            del out
+        del args, local
+        predicted_peak = trace.argument_size + trace.temp_size
+        step_ms = statistics.median(times)
+        row = {"cell": shape.name, "kind": kind, "seq_len": seq, "batch": batch,
+               "flops_traced": trace.cost.flops, "flops_card": flops_measured,
+               "flops_rel_diff": abs(flops_measured - trace.cost.flops) / trace.cost.flops,
+               "argument_bytes_traced": trace.argument_size,
+               "argument_bytes_card": arg_measured,
+               "argument_rel_diff": abs(arg_measured - trace.argument_size) / trace.argument_size,
+               "peak_bytes_predicted": predicted_peak, "peak_bytes_card": peak_measured,
+               "peak_error_bytes": predicted_peak - peak_measured,
+               "peak_errs": "over" if predicted_peak > peak_measured else "under",
+               "bytes_traced": trace.cost.bytes, "trace_s": trace.seconds,
+               "roofline_step_ms": report.step_time_s * 1e3,
+               "roofline_bottleneck": report.bottleneck, "step_ms": step_ms,
+               "step_ms_all": times, "step_over_roofline": step_ms / (report.step_time_s * 1e3)}
+        rows.append(row)
+        emit("dryrun", nvidia_smi=smi, **row)
+        if row["flops_rel_diff"] > 0.01:
+            raise AssertionError(f"{shape.name}: the card's FLOPs {flops_measured} are not "
+                                 f"within 1% of the trace's {trace.cost.flops}")
+        if row["argument_rel_diff"] > 0.01:
+            raise AssertionError(f"{shape.name}: the inputs took {arg_measured} bytes on the "
+                                 f"card, the trace counts {trace.argument_size}")
+        if abs(predicted_peak - peak_measured) > max(0.1 * peak_measured, 0.5e9):
+            raise AssertionError(f"{shape.name}: predicted peak {predicted_peak} bytes, the "
+                                 f"card's {peak_measured}")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # the CLI's qwen2-1.5b cells on the production mesh, in this process
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    reset_counts()
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    try:
+        t = time.perf_counter()
+        D.main(["--arch", "qwen2-1.5b", "--mesh", "single", "--out", out_dir])
+        cli_s = time.perf_counter() - t
+        cells = {}
+        for path in sorted(pathlib.Path(out_dir).glob("*.json")):
+            d = json.loads(path.read_text())
+            cells[d["shape"]] = {"status": d["status"], "traced_device": d["traced_device"],
+                                 "flops": d["cost_analysis"]["flops"],
+                                 "bytes": d["cost_analysis"]["bytes_accessed"],
+                                 "collective_bytes": d["collectives"]["total_bytes"],
+                                 "argument_size": d["memory_analysis"]["argument_size"],
+                                 "temp_size": d["memory_analysis"]["temp_size"],
+                                 "step_ms": d["roofline"]["step_time_s"] * 1e3,
+                                 "bottleneck": d["roofline"]["bottleneck"],
+                                 "trace_s": d["lower_s"]}
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    launches = launch_counts()
+    moved = torch.cuda.memory_allocated() - before
+    emit("dryrun_cli", nvidia_smi=smi, seconds=cli_s, cells=cells, launches=launches,
+         allocated_delta=moved)
+    if moved != 0 or any(launches.values()):
+        raise AssertionError(f"the dry run moved the card's allocation by {moved} bytes or "
+                             f"launched kernels: {launches}")
+    if sorted(cells) != ["decode_32k", "prefill_32k", "train_4k"] or any(
+            c["status"] != "ok" or c["traced_device"] != "cuda" for c in cells.values()):
+        raise AssertionError(f"the dry run's qwen2-1.5b cells: {cells}")
+    return rows
+
+
 def profile_train_step(step, state, batch):
     """One train step under ``torch.profiler``; returns the new state and
     the step's device busy vs idle over its wall time, device time by
@@ -4881,6 +5046,8 @@ def main() -> int:
         pol_launches, train_run = phase_train()
         torch.cuda.empty_cache()
         mesh_train_launches, mesh_train_rows = phase_mesh_train(train_run, floor_ms)
+        torch.cuda.empty_cache()
+        phase_dryrun()
         torch.cuda.empty_cache()
         ckpt_pol_launches = phase_checkpoint(ckpt_root)
     finally:

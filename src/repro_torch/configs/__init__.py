@@ -6,14 +6,16 @@ olmoe-1b-7b and deepseek-v3-671b (MLA + MTP), whisper-small
 (encoder-decoder), and the recurrent families' xlstm-350m (sLSTM + mLSTM)
 and zamba2-2.7b (Mamba2 + shared attention), and the VLM backbone
 phi-3-vision-4.2b (patch embeddings before the text tokens).  The paper's
-CNNs are in ``paper_cnns``.
+CNNs are in ``paper_cnns``; the dry run's input-shape cells in ``shapes``.
 """
 from __future__ import annotations
 
 import importlib
 from typing import Dict, List
 
-from repro_torch.configs.base import MLAConfig, ModelConfig  # noqa: F401
+from repro_torch.configs.base import (MeshConfig, MLAConfig, ModelConfig,  # noqa: F401
+                                      ShapeConfig, TrainConfig)
+from repro_torch.configs.shapes import SHAPES, shapes_for  # noqa: F401
 
 _ARCH_MODULES: Dict[str, str] = {
     "qwen2-1.5b": "repro_torch.configs.qwen2_1_5b",

@@ -1,9 +1,10 @@
-"""Config dataclasses: the model architecture and the training loop.
+"""Config dataclasses: the model architecture, the input shapes, the mesh
+and the training loop.
 
-Copies of the JAX package's ``ModelConfig``, ``MeshConfig`` and
-``TrainConfig`` (same fields, same defaults), so the port and the reference
-describe one architecture, one device mesh and one training run with one
-record each.
+Copies of the JAX package's ``ModelConfig``, ``ShapeConfig``,
+``MeshConfig`` and ``TrainConfig`` (same fields, same defaults), so the
+port and the reference describe one architecture, one input-shape cell, one
+device mesh and one training run with one record each.
 """
 from __future__ import annotations
 
@@ -126,6 +127,20 @@ class ModelConfig:
         all_experts = L * 3 * d * self.moe_d_ff * self.num_experts
         active_experts = L * 3 * d * self.moe_d_ff * self.experts_per_token
         return total - all_experts + active_experts
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned input-shape cell."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str        # train | prefill | decode
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
 
 
 @dataclasses.dataclass(frozen=True)

@@ -13,8 +13,16 @@ kernels on them and makes the collectives that the layouts imply, itself.
   also knows this rank's coordinates and process groups and makes the
   collectives; built over axis sizes alone (:meth:`ParallelContext.
   for_shape`), it computes specs without any process.
+* :class:`RecordingContext` — a context over a mesh's axis sizes
+  (``RecordingContext.for_config(MeshConfig(...))``) with no process
+  group: its collectives return a tensor of the output's shape on the
+  input's device and dtype, and add their operand bytes under the HLO
+  kind (``all-reduce``, ``all-gather``, ``reduce-scatter``,
+  ``all-to-all``).  The dry run traces rank 0's step through it on fake
+  tensors (``launch/dryrun.py``).
 * :func:`parallel_context` — the ambient context that the model layers
-  read, as the reference's ``constrain`` reads its own (None: one device).
+  read, as the reference's ``constrain`` reads its own (None: one device);
+  :func:`checkpointed` keeps it for a block recomputed in the backward pass.
 * :class:`LeafShard` — a leaf's layout: its spec (one entry per dim: None,
   an axis name or a tuple of names) and its global shape.  A sharded FORMS
   leaf carries the trio of its planes in ``FormsLinearParams.shard``, a
@@ -39,6 +47,7 @@ import threading
 from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 Entry = Any   # None, an axis name, or a tuple of axis names
 MODEL_AXIS = "model"
@@ -247,6 +256,48 @@ class ParallelContext:
         return out
 
 
+# the HLO names of collectives, the JAX package's analyzer's kinds
+COLLECTIVE_KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+                    "collective-permute")
+
+
+class RecordingContext(ParallelContext):
+    """A context over a mesh's axis sizes that records its collectives
+    instead of making them (see the module docstring).  It stands for rank
+    0 (every coordinate 0) and is its own process group; the autograd
+    pairs are the live mesh's, so a traced train step records the
+    backward's conjugate collectives too.  ``bytes_by_kind``/
+    ``count_by_kind`` hold the operand bytes and calls per kind;
+    :meth:`reset` zeroes them."""
+
+    def __init__(self, shape: Dict[str, int]):
+        super().__init__(shape)
+        self._lock = threading.Lock()
+        self.reset()
+
+    @classmethod
+    def for_config(cls, cfg: Any) -> "RecordingContext":
+        """Over a ``configs.base.MeshConfig``'s axes: ``(pod, data, model)``
+        on a multi-pod mesh, else ``(data, model)``, as ``launch/mesh``
+        names them."""
+        if cfg.pods > 1:
+            return cls({"pod": cfg.pods, "data": cfg.data, "model": cfg.model})
+        return cls({"data": cfg.data, "model": cfg.model})
+
+    def reset(self) -> None:
+        with self._lock:
+            self.bytes_by_kind: Dict[str, int] = {k: 0 for k in COLLECTIVE_KINDS}
+            self.count_by_kind: Dict[str, int] = {k: 0 for k in COLLECTIVE_KINDS}
+
+    def record(self, kind: str, t: torch.Tensor) -> None:
+        with self._lock:
+            self.bytes_by_kind[kind] += t.numel() * t.element_size()
+            self.count_by_kind[kind] += 1
+
+    def _group(self, logical: str) -> "RecordingContext":
+        return self
+
+
 # ---------------------------------------------------------------------------
 # the collectives' autograd pairs
 # ---------------------------------------------------------------------------
@@ -256,15 +307,22 @@ _OPS = {"sum": "SUM", "max": "MAX"}
 
 def _reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
     out = t.contiguous().clone()
-    torch.distributed.all_reduce(out, op=getattr(torch.distributed.ReduceOp, _OPS[op]),
-                                 group=group)
+    if isinstance(group, RecordingContext):
+        group.record("all-reduce", out)
+    else:
+        torch.distributed.all_reduce(out, op=getattr(torch.distributed.ReduceOp, _OPS[op]),
+                                     group=group)
     return out
 
 
 def _gather(t: torch.Tensor, pc: ParallelContext, logical: str, dim: int) -> torch.Tensor:
     parts = [torch.empty_like(t, memory_format=torch.contiguous_format)
              for _ in range(pc.axis_size(logical))]
-    torch.distributed.all_gather(parts, t.contiguous(), group=pc._group(logical))
+    group = pc._group(logical)
+    if isinstance(group, RecordingContext):
+        group.record("all-gather", t)
+    else:
+        torch.distributed.all_gather(parts, t.contiguous(), group=group)
     return torch.cat(parts, dim=dim)
 
 
@@ -280,13 +338,21 @@ def _reduce_scatter(t: torch.Tensor, pc: ParallelContext, logical: str,
     n = pc.axis_size(logical)
     out = torch.empty((src.shape[0] // n,) + tuple(src.shape[1:]), dtype=src.dtype,
                       device=src.device)
-    torch.distributed.reduce_scatter_tensor(out, src, group=pc._group(logical))
+    group = pc._group(logical)
+    if isinstance(group, RecordingContext):
+        group.record("reduce-scatter", src)
+    else:
+        torch.distributed.reduce_scatter_tensor(out, src, group=group)
     return out.movedim(0, dim).contiguous()
 
 
 def _a2a(t: torch.Tensor, pc: ParallelContext, logical: str) -> torch.Tensor:
     out = torch.empty_like(t, memory_format=torch.contiguous_format)
-    torch.distributed.all_to_all_single(out, t.contiguous(), group=pc._group(logical))
+    group = pc._group(logical)
+    if isinstance(group, RecordingContext):
+        group.record("all-to-all", t)
+    else:
+        torch.distributed.all_to_all_single(out, t.contiguous(), group=group)
     return out
 
 
@@ -372,6 +438,17 @@ def parallel_context(ctx: Optional[ParallelContext]) -> Iterator[Optional[Parall
         yield ctx
     finally:
         _STATE.ctx = prev
+
+
+def checkpointed(fn, *args):
+    """``torch.utils.checkpoint`` (non-reentrant, no RNG state) of
+    ``fn(*args)`` whose recompute in the backward pass runs under the
+    forward's ambient context: autograd runs a CUDA backward on its own
+    device thread, where this thread-local context is not set, so a
+    recomputed sharded block would otherwise take the one-device path."""
+    ctx = current_context()
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
+                      context_fn=lambda: (contextlib.nullcontext(), parallel_context(ctx)))
 
 
 def model_ctx() -> Optional[ParallelContext]:

@@ -49,6 +49,7 @@ def _entry():
 def admm_polarize(v: torch.Tensor, *, m: int, rule: str
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (projected, signs) of a (K, N) or (L, K, N) tensor."""
+    build.refuse_fake("admm_polarize", v)
     if rule not in _RULES:
         raise ValueError(f"the polarization kernel takes rule 'sum' or 'energy', got "
                          f"{rule!r} (the frozen projection is plain torch)")

@@ -72,6 +72,7 @@ def bitserial_crossbar(x_codes: torch.Tensor, cell_planes: torch.Tensor,
     refused, not cut to its low byte); the plain version takes any integer
     planes.
     """
+    build.refuse_fake("bitserial_crossbar", x_codes, cell_planes, signs)
     devices = {t.device for t in (x_codes, cell_planes, signs)}
     if len(devices) != 1:
         raise ValueError(f"operands lie on different devices: {sorted(map(str, devices))}")

@@ -28,6 +28,17 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_LOG: Dict[str, Dict[str, object]] = {}
 
 
+def refuse_fake(kernel: str, *ts) -> None:
+    """Raise when a kernel's wrapper is reached with fake tensors (a trace
+    under ``FakeTensorMode``): the kernel cannot run there, and its plain
+    version would stand in for it unseen."""
+    from torch._subclasses.fake_tensor import is_fake
+    if any(is_fake(t) for t in ts):
+        raise RuntimeError(f"{kernel} reached with fake tensors: a kernel of the port "
+                           "does not run under FakeTensorMode, and its plain version "
+                           "does not stand in for it")
+
+
 def nvcc() -> str:
     found = shutil.which("nvcc")
     if found:

@@ -185,6 +185,7 @@ def _tile_mask(x: torch.Tensor, bm: int) -> torch.Tensor:
 
 
 def _device_of(*ts: torch.Tensor) -> torch.device:
+    build.refuse_fake("polarized_matmul", *ts)
     devices = {t.device for t in ts}
     if len(devices) != 1:
         raise ValueError(f"operands lie on different devices: {sorted(map(str, devices))}")

@@ -415,12 +415,26 @@ def write_view_range(view: torch.Tensor, rows: torch.Tensor, grid: torch.Tensor,
                      offset: int) -> torch.Tensor:
     """:func:`write_view` into a rank's slice of a sequence-sharded cache
     (positions ``offset .. offset + S_local - 1``): rows at positions this
-    rank does not hold are dropped, so each row lands on its owner only."""
+    rank does not hold are dropped, so each row lands on its owner only.
+    Shapes stay static (no host sync): a dropped row lands on the slice's
+    first or last position carrying that position's final value, as in
+    :func:`write_view`, so the duplicate writes there agree."""
     b, s = view.shape[:2]
     loc = grid - offset
     live = (loc >= 0) & (loc < s)
     bidx = torch.arange(b, device=view.device)[:, None].expand_as(grid)
-    view[bidx[live], loc[live].long()] = rows[live]
+    tail = (-1,) + (1,) * (rows.ndim - 2)
+    rows_b = bidx[:, 0]
+
+    def final(hit: torch.Tensor, cur: torch.Tensor) -> torch.Tensor:
+        t_hit = hit.to(torch.int8).argmax(dim=1)          # at most one t per row
+        return torch.where(hit.any(dim=1).reshape(tail), rows[rows_b, t_hit], cur)
+
+    first = final(live & (loc == 0), view[:, 0])
+    last = final(live & (loc == s - 1), view[:, s - 1])
+    shape = (*grid.shape, *tail[1:])
+    fill = torch.where((loc < 0).reshape(shape), first[:, None], last[:, None])
+    view[bidx, loc.clamp(0, s - 1).long()] = torch.where(live.reshape(shape), rows, fill)
     return view
 
 

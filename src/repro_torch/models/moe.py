@@ -46,11 +46,10 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import MLAConfig, ModelConfig
 from repro_torch.distributed import moe_dispatch
-from repro_torch.distributed.context import current_context, model_ctx
+from repro_torch.distributed.context import checkpointed, current_context, model_ctx
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import (_serving_head, layer_params,
                                             unstack_layers, with_head_cast)
@@ -414,7 +413,7 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor], *,
     auxs = []
     for bp in unstack_layers(params["blocks"], cfg.num_layers):
         if remat and torch.is_grad_enabled():
-            x, aux = checkpoint(body, x, bp, use_reentrant=False, preserve_rng_state=False)
+            x, aux = checkpointed(body, x, bp)
         else:
             x, aux = body(x, bp)
         auxs.append(aux)

@@ -10,10 +10,9 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.context import model_ctx, set_shard, shard_of
+from repro_torch.distributed.context import checkpointed, model_ctx, set_shard, shard_of
 from repro_torch.forms.linear import FormsLinearParams
 from repro_torch.models import layers as L
 from repro_torch.serving import kv_cache as KV
@@ -176,7 +175,7 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor], *,
 
     for bp in unstack_layers(params["blocks"], cfg.num_layers):
         if remat and torch.is_grad_enabled():
-            x = checkpoint(body, x, bp, use_reentrant=False, preserve_rng_state=False)
+            x = checkpointed(body, x, bp)
         else:
             x = body(x, bp)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)

@@ -21,9 +21,9 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.context import checkpointed
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import (_normal, _serving_head, head_matrix,
                                             layer_params, unstack_layers, with_head_cast)
@@ -114,7 +114,7 @@ def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor, *,
 
     for bp in unstack_layers(params["enc_blocks"], cfg.encoder_layers):
         if remat and torch.is_grad_enabled():
-            x = checkpoint(body, x, bp, use_reentrant=False, preserve_rng_state=False)
+            x = checkpointed(body, x, bp)
         else:
             x = body(x, bp)
     return L.layernorm(x, params["enc_final_norm"], cfg.norm_eps)
@@ -161,7 +161,7 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor], *,
 
     for bp in unstack_layers(params["dec_blocks"], cfg.num_layers):
         if remat and torch.is_grad_enabled():
-            x = checkpoint(body, x, bp, use_reentrant=False, preserve_rng_state=False)
+            x = checkpointed(body, x, bp)
         else:
             x = body(x, bp)
     x = L.layernorm(x, params["final_norm"], cfg.norm_eps)

@@ -23,9 +23,9 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.context import checkpointed
 from repro_torch.models import layers as L
 from repro_torch.models.ssm_common import (DEFAULT_CHUNK, chunked_linear_recurrence,
                                            recurrence_decode_step)
@@ -203,7 +203,7 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor], *,
     for bp in params["blocks"]:
         fn = _block_fn(cfg, bp, dtype)
         if remat and torch.is_grad_enabled():
-            x = checkpoint(fn, x, use_reentrant=False, preserve_rng_state=False)
+            x = checkpointed(fn, x)
         else:
             x = fn(x)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)

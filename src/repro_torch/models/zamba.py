@@ -27,9 +27,9 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.context import checkpointed
 from repro_torch.models import layers as L
 from repro_torch.models.ssm_common import (DEFAULT_CHUNK, causal_conv1d,
                                            chunked_linear_recurrence, recurrence_decode_step)
@@ -194,7 +194,7 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor], *,
     for g in range(n_groups):
         for bp in layers[g * per:(g + 1) * per]:
             if remat and torch.is_grad_enabled():
-                x = checkpoint(body, x, bp, use_reentrant=False, preserve_rng_state=False)
+                x = checkpointed(body, x, bp)
             else:
                 x = body(x, bp)
         x, _ = _shared_attn_apply(params["shared_attn"], x, cfg, positions, None, None,

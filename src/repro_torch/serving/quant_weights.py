@@ -62,7 +62,8 @@ def dequantize_leaf(v: dict, dtype: torch.dtype) -> torch.Tensor:
 
 
 def quantize_tree(params: Any, bits: int = 8) -> Tuple[Any, int, int]:
-    """Quantize the matching weights of a nested-dict tree; returns ``(tree,
+    """Quantize the matching weights of a tree of dicts and lists, as the
+    reference's ``tree_flatten`` walks it; returns ``(tree,
     bytes_before, bytes_after)``.  ``bytes_after`` counts the int8
     container as stored: a 4-bit grid does not halve it."""
     acc = [0, 0]
@@ -70,6 +71,8 @@ def quantize_tree(params: Any, bits: int = 8) -> Tuple[Any, int, int]:
     def visit(tree, prefix):
         if isinstance(tree, dict):
             return {k: visit(v, prefix + (k,)) for k, v in tree.items()}
+        if isinstance(tree, list):      # xLSTM's per-layer blocks
+            return [visit(v, prefix + (i,)) for i, v in enumerate(tree)]
         if not (isinstance(tree, torch.Tensor) and tree.ndim >= 2):
             return tree
         pstr = path_str(prefix)

@@ -35,12 +35,11 @@ import dataclasses
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import TrainConfig
 from repro_torch.core import admm as admm_mod
 from repro_torch.core import paths
-from repro_torch.distributed.context import (ParallelContext, current_context,
+from repro_torch.distributed.context import (ParallelContext, checkpointed, current_context,
                                              parallel_context, set_shard, shard_of)
 from repro_torch.models import layers as L
 from repro_torch.models.registry import Model
@@ -141,8 +140,7 @@ def chunked_ce(hidden: torch.Tensor, head: torch.Tensor, tokens: torch.Tensor,
     for i in range(0, n + pad, c):
         args = (h[i:i + c], t[i:i + c], mask[i:i + c], head)
         if torch.is_grad_enabled():
-            total = total + checkpoint(fn, *args, use_reentrant=False,
-                                       preserve_rng_state=False)
+            total = total + checkpointed(fn, *args)
         else:
             total = total + fn(*args)
     nb = ctx.axis_size("batch") if ctx is not None else 1

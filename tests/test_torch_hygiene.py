@@ -41,10 +41,15 @@ def test_port_imports_neither_msgpack_nor_ml_dtypes():
     assert ROOT / "src" / "repro_torch" / "checkpoint" / "manager.py" in PORT_FILES
 
 
-@pytest.mark.parametrize("module", ["core/crossbar.py", "core/perfmodel.py", "forms/autobits.py"])
+@pytest.mark.parametrize("module", ["core/crossbar.py", "core/perfmodel.py", "forms/autobits.py",
+                                    "configs/shapes.py", "analysis/roofline.py",
+                                    "analysis/opcount.py", "analysis/report.py",
+                                    "launch/dryrun.py"])
 def test_the_hardware_model_and_autobits_are_the_ports_own(module):
-    """The hardware model imports no JAX in the reference either; the port
-    still keeps its own copy, and autobits takes it from there."""
+    """The hardware model imports no JAX in the reference either, nor do
+    the dry run's shapes, roofline and report; the port still keeps its own
+    copies, autobits takes the hardware model from there, and the dry run
+    counts with its own analysis."""
     path = ROOT / "src" / "repro_torch" / module
     assert path in PORT_FILES
     mods = set(_imported_modules(path))
@@ -52,6 +57,8 @@ def test_the_hardware_model_and_autobits_are_the_ports_own(module):
                                                       "ml_dtypes")}
     if module == "forms/autobits.py":
         assert "repro_torch.core" in mods and "torch.utils.flop_counter" in mods
+    if module == "launch/dryrun.py":
+        assert "repro_torch.analysis" in mods and "torch.utils.flop_counter" in mods
 
 
 def test_no_kernel_toolchain_is_touched_at_import():
