@@ -159,17 +159,26 @@ Phases, each printing JSON lines:
                byte bound, prefill ms, peak memory, launches reckoned (kv_up
                is rebuilt by the absorbed decode, not launched); with no
                token dropped, the engine's absorbed decode logits
-               teacher-forced against the expanded forward; #1 held at every
-               (shape, M) of the run, timed at M=4; #4 bit for bit at each
-               matrix shape, timed;
+               teacher-forced against the expanded forward; the tree served
+               again through ``ServingEngine(mesh=...)`` on a world of one
+               (mesh_mla: the plain engine's tokens, or a first parting at
+               a near-tie below the bf16 check's logit difference, and its
+               launches); #1 held at every (shape, M) of the run, timed at
+               M=4; #4 bit for bit at each matrix shape, timed;
 10g. whisper  — full-width whisper-small (12 + 12 layers, d_model 768,
                vocab 51865, tied head) compressed and served on the paged
                cache against the engine's zero encoder context, twice (the
                same tokens), launches reckoned (the cross k/v at M = slots x
                max_len on the tensor-core route); the model at f32: encode
                written into enc_out, prefill against stepwise decode, card
-               against CPU; #1 held at every (shape, M) of the run, #4 bit
-               for bit at its shapes;
+               against CPU; the tree on a world of one (mesh_whisper: the
+               tokens exactly, the launches); #1 held at every (shape, M)
+               of the run, #4 bit for bit at its shapes;
+10g'. mesh_shards — #1 and #2 (every other K slice dead) held and timed
+               at every local shard shape that model = 2, 4 and 8 give
+               deepseek-v3's q_up, kv_up, wo and shared expert and
+               whisper-small's attention, cross attention and MLP, at M=4
+               and 64 on bf16 x, and whisper's cross k/v at M = 4 x 256;
 10h. xlstm    — full-width xlstm-350m (24 blocks: 21 mLSTM on the chunked
                linear recurrence, 3 sLSTM stepped token by token; d_model
                1024, vocab 50304, untied head), not cut, compressed (163
@@ -262,6 +271,16 @@ Phases, each printing JSON lines:
                K) equal to the whole leaf's slice bit for bit, timed beside
                the byte bound and the launch floor; then ``train --reduced
                --mesh-data 1 --mesh-model 1`` and its ``mesh:`` line;
+15b'. mesh_train_whisper, mesh_train_mla — full-width whisper-small and
+               deepseek-v3 at the deepest cut whose state, gradients and
+               step transients (reckoned on fake tensors) leave ~10 GB of
+               the card (printed): 2 ADMM steps (a fresh Z-update after
+               each) plain and through the sharded step on a world of one,
+               under deterministic algorithms, equal bit for bit (losses,
+               gradient norms, every param and Z leaf's sum), #4 launched
+               once per constrained leaf per Z-update in both; #4 bit for
+               bit at every training shard of their stacked leaves at
+               2x2, 4x2 and 8x1, timed;
 15c. dryrun  — the dry run's analysis held against the card: full-width
                qwen2-1.5b on a world of one (data=1, model=1), a decode step
                at batch 16 on an 8,192-token cache, a prefill at 1 x 8,192
@@ -1127,18 +1146,7 @@ def phase_mesh(plain_engine, plain_tokens):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(7)
     scrub = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
-    flush = lambda: scrub.zero_()
-    rows = {"polarized_matmul": [], "polarized_matmul_skip": []}
-    for tp in SHARD_TP:
-        for name, K, N, cut in SHARD_PROJ:
-            k, n = (K // tp, N) if cut == "k" else (K, N // tp)
-            for M in (DECODE_M, PREFILL_M):
-                one = held_matmul(gen, M, k, n, flush=flush)
-                two = held_skip(gen, M, k, n, flush)
-                for key, rec in (("polarized_matmul", one), ("polarized_matmul_skip", two)):
-                    rec.update(tp=tp, proj=name)
-                    rows[key].append(rec)
-                    emit("mesh_kernel", kernel=key, **rec)
+    rows = shard_rows("mesh_kernel", SHARD_PROJ, gen, lambda: scrub.zero_())
 
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     t0 = time.perf_counter()
@@ -2574,9 +2582,10 @@ def shard_coords(spec, ctx):
         yield dict(zip(axes, combo))
 
 
-def train_shard_rows(gen, flush, floor_ms):
+def train_shard_rows(gen, flush, floor_ms, leaves=ADMM_LEAVES, label="mesh_train_kernel"):
     """Kernel #4 (the fresh Z-update's sign election) at the local shards of
-    qwen2-1.5b's 7 stacked leaves under ``params_shardings(fsdp=True)`` at
+    the stacked leaves ``leaves`` (path -> (L, K, N); qwen2-1.5b's 7 by
+    default) under ``params_shardings(fsdp=True)`` at
     each mesh of ``TRAIN_SHARD_MESHES``: on every shard the kernel's output
     and signs equal the whole leaf's slice bit for bit, and the quantized Z
     with the column scale max-reduced over the shards that split K equals
@@ -2591,14 +2600,15 @@ def train_shard_rows(gen, flush, floor_ms):
     rows = []
     for data, model in TRAIN_SHARD_MESHES:
         ctx = ParallelContext.for_shape({"data": data, "model": model})
-        tree = {"blocks": {}}
-        for path, shape in ADMM_LEAVES.items():
-            _, sub, name = path.split("/")
-            tree["blocks"].setdefault(sub, {})[name] = torch.empty(shape, device="meta")
+        tree = {}
+        for path, shape in leaves.items():
+            root, sub, name = path.split("/")
+            tree.setdefault(root, {}).setdefault(sub, {})[name] = torch.empty(shape,
+                                                                              device="meta")
         specs = params_shardings(tree, ctx, fsdp=True)
-        for path, shape in ADMM_LEAVES.items():
-            _, sub, name = path.split("/")
-            sp = padded_spec(specs["blocks"][sub][name].spec, len(shape))
+        for path, shape in leaves.items():
+            root, sub, name = path.split("/")
+            sp = padded_spec(specs[root][sub][name].spec, len(shape))
             v = torch.randn(shape, generator=gen, device="cuda")
             out, signs = admm_polarize(v, m=8, rule="sum")
             z = Q.project_quantize(out, spec, Q.scale_for(out, spec))
@@ -2633,7 +2643,7 @@ def train_shard_rows(gen, flush, floor_ms):
                    "launch_floor_ms": floor_ms}
             rec["bound_ms"], rec["bound_by"] = polarize_bound(local)
             rows.append(rec)
-            emit("mesh_train_kernel", **rec)
+            emit(label, **rec)
             if not equal:
                 raise AssertionError(f"kernel #4 on a training shard differs from the whole "
                                      f"leaf's slice: {rec}")
@@ -3873,8 +3883,10 @@ def phase_mla():
     rebuilt by the absorbed decode, not launched).  At a capacity factor
     of experts / top-k (no token dropped), the engine's teacher-forced
     decode logits (absorbed) against ``forward`` (expanded) on the same
-    tree.  Then #1 held at every (shape, M) of the run and timed at M=4,
-    #4 bit for bit at each matrix shape and timed."""
+    tree.  The same tree served on a world of one (:func:`mesh_serve`,
+    near-tie threshold: the bf16 check's logit difference).  Then #1 held
+    at every (shape, M) of the run and timed at M=4, #4 bit for bit at each
+    matrix shape and timed."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core import paths
@@ -3964,6 +3976,8 @@ def phase_mla():
     expert = sum(code_bytes(*MLA_SHAPES[n]) for n in ("shared_gate", "shared_up",
                                                        "shared_down"))
     rebuilt = L * (cfg.num_experts * expert + code_bytes(*MLA_SHAPES["kv_up"]))
+    mesh = mesh_serve("mla", model, tree, kw, prompts, engine, runs[0]["tokens"],
+                      checks["bfloat16"]["max_logit_diff"])
     del engine, tree
     torch.cuda.empty_cache()
     gen = torch.Generator(device="cuda")
@@ -4020,7 +4034,8 @@ def phase_mla():
                     for n in decode_rows}, layer_m4=layer, head_m4=head_row,
          polarize=pol, polarize_layer=pol_layer)
     return {"launches": last["launches"], "polarize_launches": pol_launches,
-            "layer_m4": layer, "head_m4": head_row, "held": held, "pol_layer": pol_layer}
+            "layer_m4": layer, "head_m4": head_row, "held": held, "pol_layer": pol_layer,
+            "mesh_launches": mesh}
 
 
 def phase_whisper():
@@ -4036,8 +4051,9 @@ def phase_whisper():
     model at f32 on the same tree: ``encode`` of seeded frames written into
     ``enc_out``, prefill logits against stepwise decode, on the card and on
     the CPU (the plain versions), each held at WHISPER_TOL of the largest
-    |value|.  #1 held at every (shape, M) of the run and timed at M=4, #4
-    bit for bit at the three matrix shapes."""
+    |value|.  The served tree on a world of one (:func:`mesh_serve`, the
+    tokens exactly).  #1 held at every (shape, M) of the run and timed at
+    M=4, #4 bit for bit at the three matrix shapes."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -4086,6 +4102,8 @@ def phase_whisper():
     if runs[0]["tokens"] != runs[1]["tokens"] or float(enc_out.abs().max()) != 0.0:
         raise AssertionError("two greedy whisper runs differ, or enc_out was written")
     serve_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    kw = dict(spec=spec, batch_slots=4, max_len=SERVE_MAX_LEN, decode_block=4, device="cuda")
+    mesh = mesh_serve("whisper", model, tree, kw, prompts, engine, runs[0]["tokens"], 0.0)
     del engine
     # the model at f32, card and CPU, on the same tree
     c = WHISPER_CHECK
@@ -4156,7 +4174,308 @@ def phase_whisper():
          max_rel_err=max(r["max_rel_err"] for r in held), layer_m4=layer, cross_kv=cross,
          polarize=pol)
     return {"launches": last["launches"], "polarize_launches": pol_launches,
-            "layer_m4": layer, "cross_kv": cross}
+            "layer_m4": layer, "cross_kv": cross, "mesh_launches": mesh}
+
+
+# --------------------------------------------------------------------------
+# MLA and whisper on a device mesh: serving, #1/#2 at their shard shapes,
+# sharded training and #4 at their training shards
+# --------------------------------------------------------------------------
+
+# the local shard shapes of deepseek-v3's and whisper-small's FORMS leaves
+# on a model axis of tp: (name, K, N, how the spec cuts it).  q_up, kv_up
+# and the shared experts' gate/up by columns, wo and shared_down by
+# whole-fragment rows; whisper's self- and cross-attention q/k/v and
+# mlp/up by columns, wo and mlp/down by rows (its 12 heads do not divide
+# 8: the columns still split, and the block runs on all heads there)
+MLA_SHARD_PROJ = (("mla/q_up", 1536, 24576, "n"), ("mla/kv_up", 512, 32768, "n"),
+                  ("mla/wo", 16384, 7168, "k"), ("moe/shared_gate|up", 7168, 2048, "n"),
+                  ("moe/shared_down", 2048, 7168, "k"))
+WHISPER_SHARD_PROJ = (("attn|xattn/wq|wk|wv", 768, 768, "n"), ("attn|xattn/wo", 768, 768, "k"),
+                      ("mlp/up", 768, 3072, "n"), ("mlp/down", 3072, 768, "k"))
+CROSS_KV_M = DECODE_M * SERVE_MAX_LEN    # the cross k/v of a decode step: slots x max_len
+MESH_TRAIN_FAMILY_STEPS = 2
+# deepseek-v3's train cut: the most layers (at most MLA_CUT's), then the
+# most routed experts (MLA_CUT's, halved down to top-k), whose state,
+# gradients and step transients, reckoned from their bytes, leave about 10
+# GB of the card's 80 GB.  The transients are reckoned as 4 x the largest
+# leaf in f32 (the int8 AdamW's f32 moments and update of one leaf): a
+# 1-layer, 16-expert cut (state and gradients 61.5 GB) ran out of memory
+# at ~74.6 GB in its first step's AdamW
+MLA_TRAIN_BUDGET = 70e9
+MLA_TRAIN_TRANSIENT_LEAVES = 4
+MLA_TRAIN = dict(seq_len=64, global_batch=2, moment_dtype="int8")
+WHISPER_TRAIN = dict(seq_len=64, global_batch=2, moment_dtype="float32")
+
+
+def mesh_serve(label, model, tree, kw, prompts, plain_engine, plain_tokens, threshold):
+    """A family phase's compressed tree served by ``ServingEngine(mesh=
+    make_mesh(MeshConfig(data=1, model=1)))`` on a world of one over NCCL
+    beside the phase's plain engine, plain, mesh, mesh, plain: every run's
+    tokens equal the plain engine's (or part first at a near-tie whose
+    top-2 margin lies below ``threshold``, the phase's measured logit
+    difference; 0: exactly), every run's launches equal and each kernel of
+    the path launched.  Returns the mesh run's launches (f32, tc)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import MeshConfig
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.serving.engine import ServingEngine
+
+    t0 = time.perf_counter()
+    mesh = make_mesh(MeshConfig(data=1, model=1), device="cuda")
+    init_s = time.perf_counter() - t0
+    engine = ServingEngine(model, tree, page_size=16, **kw, mesh=mesh)
+    order = [("plain", plain_engine), ("mesh", engine), ("mesh", engine), ("plain", plain_engine)]
+    runs = [(name, served(eng, prompts)) for name, eng in order]
+    launches = [[r["counts"]["polarized_matmul"], r["counts"]["polarized_matmul_tc"]]
+                for _, r in runs]
+    parts = [first_divergence(plain_engine, prompts, plain_tokens, r["tokens"])
+             for _, r in runs]
+    del engine
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    step_ms = {name: [r["decode_step_ms"] for n, r in runs if n == name]
+               for name in ("plain", "mesh")}
+    emit(f"mesh_{label}", arch=model.config.name, mesh={"data": 1, "model": 1},
+         backend="nccl", world=1, init_s=init_s, decode_steps=runs[1][1]["decode_steps"],
+         decode_step_ms=step_ms,
+         decode_step_ms_mean={k: float(np.mean(v)) for k, v in step_ms.items()},
+         mean_prefill_ms={name: [r["mean_prefill_ms"] for n, r in runs if n == name]
+                          for name in ("plain", "mesh")},
+         launches=launches[1], tokens_equal=all(p is None for p in parts), first_parts=parts,
+         near_tie_threshold=threshold, nvidia_smi=nvidia_smi_line())
+    if any(p is not None and not p["top2_margin"] < threshold for p in parts):
+        raise AssertionError(f"{label} on a mesh: tokens parted from the plain engine's "
+                             f"away from a near-tie: {parts}")
+    if any(n != launches[0] for n in launches) or not all(launches[1]):
+        raise AssertionError(f"{label}: launches differ between the plain and the mesh "
+                             f"engine, or a kernel never ran: {launches}")
+    return launches[1]
+
+
+def shard_rows(label, projs, gen, flush, ms=(DECODE_M, PREFILL_M)):
+    """Kernels #1 and #2 (every other K slice dead) held and timed at every
+    local shard shape of ``projs`` at model = SHARD_TP, at each M of
+    ``ms`` on bf16 x: two launches equal bit for bit, #2 equal to #1."""
+    rows = {"polarized_matmul": [], "polarized_matmul_skip": []}
+    for tp in SHARD_TP:
+        for name, K, N, cut in projs:
+            k, n = (K // tp, N) if cut == "k" else (K, N // tp)
+            for M in ms:
+                one = held_matmul(gen, M, k, n, flush=flush)
+                two = held_skip(gen, M, k, n, flush)
+                for key, rec in (("polarized_matmul", one), ("polarized_matmul_skip", two)):
+                    rec.update(tp=tp, proj=name)
+                    rows[key].append(rec)
+                    emit(label, kernel=key, **rec)
+    return rows
+
+
+def phase_mesh_shards():
+    """#1 and #2 at the local shard shapes that model = 2, 4 and 8 give
+    deepseek-v3's and whisper-small's FORMS leaves (``MLA_SHARD_PROJ``,
+    ``WHISPER_SHARD_PROJ``) at M=4 and M=64, and whisper's cross k/v at
+    M = slots x max_len.  Returns the rows by family."""
+    import torch
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(19)
+    scrub = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    flush = lambda: scrub.zero_()
+    out = {"mla": shard_rows("mesh_mla_kernel", MLA_SHARD_PROJ, gen, flush),
+           "whisper": shard_rows("mesh_whisper_kernel", WHISPER_SHARD_PROJ, gen, flush)}
+    cross = shard_rows("mesh_whisper_kernel", (("xattn/wk|wv (cross k/v)", 768, 768, "n"),),
+                       gen, flush, ms=(CROSS_KV_M,))
+    for key, rs in cross.items():
+        out["whisper"][key] += rs
+    emit("mesh_shards", rows={f: {k: len(v) for k, v in r.items()} for f, r in out.items()},
+         nvidia_smi=nvidia_smi_line())
+    return out
+
+
+def mla_train_cut():
+    """deepseek-v3's train cut (see MLA_TRAIN_BUDGET): each (layers,
+    experts) candidate's train state (``MLA_TRAIN``'s moments, ADMM),
+    gradients and transients reckoned on fake tensors (nothing allocated);
+    the deepest that fits, then the one with the most experts.  Returns
+    (the config, the reckoning in GB)."""
+    from repro_torch.analysis import opcount
+    from repro_torch.configs import get_config
+    from repro_torch.core import paths
+    from repro_torch.launch import dryrun as D
+    from repro_torch.models.registry import build
+    from repro_torch.training import train_loop
+
+    published = get_config(MLA_ARCH)
+    tcfg = train_config(moment_dtype=MLA_TRAIN["moment_dtype"])
+    experts = [e for e in (MLA_CUT["num_experts"] >> i for i in range(5))
+               if e >= published.experts_per_token]
+    reckoned = {}
+    for layers in range(1, MLA_CUT["num_layers"] + 1):
+        for e in experts:
+            cfg = dataclasses.replace(published, num_layers=layers, num_experts=e)
+            with D.fake_mode():
+                state, _ = train_loop.init_train_state(build(cfg, device="cpu"), tcfg,
+                                                       params=D.param_specs(cfg, "cpu"))
+                state_b = opcount.tree_bytes([state.params, state.opt.mu, state.opt.nu,
+                                              state.opt.mu_scale, state.opt.nu_scale,
+                                              state.admm])
+                grads_b = opcount.tree_bytes(state.params)
+                largest = max(t.numel() for t in paths.leaves(state.params)) * 4
+            reckoned[f"{layers}x{e}"] = (state_b + grads_b
+                                         + MLA_TRAIN_TRANSIENT_LEAVES * largest) / 1e9
+    fits = [tuple(map(int, k.split("x"))) for k, gb in reckoned.items()
+            if gb * 1e9 <= MLA_TRAIN_BUDGET]
+    if not fits:
+        raise AssertionError(f"no cut of deepseek-v3 fits the card: {reckoned}")
+    layers, e = max(fits)
+    return (dataclasses.replace(published, num_layers=layers, num_experts=e),
+            {"reckoned_gb": reckoned, "budget_gb": MLA_TRAIN_BUDGET / 1e9})
+
+
+
+def train_pair(cfg, tcfg, shape):
+    """The plain train step and the sharded one on a world of one over NCCL
+    (``make_train_step(ctx=)``, the state placed by ``place_train_state``),
+    each alone on the card (one state at a time), from the same seed and
+    batches (``launch.train.train_batch``: whisper's frames too), under
+    deterministic algorithms: MESH_TRAIN_FAMILY_STEPS steps with a Z-update
+    after each.  Each run's losses, gradient norms, the float64 sum of
+    every param and Z leaf afterwards, #4's launches, step ms and peak
+    memory."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import MeshConfig
+    from repro_torch.core import paths
+    from repro_torch.data.synthetic import LMStreamConfig
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import train_batch
+    from repro_torch.models.registry import build
+    from repro_torch.training import train_loop
+
+    out = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for mode in ("plain", "mesh"):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            model = build(cfg, device="cuda")
+            ds = LMStreamConfig(vocab_size=cfg.vocab_size, seq_len=shape["seq_len"],
+                                global_batch=shape["global_batch"], seed=0)
+            batches = [train_batch(model, ds, i, torch.device("cuda"))
+                       for i in range(MESH_TRAIN_FAMILY_STEPS)]
+            t0 = time.perf_counter()
+            ctx = None
+            state, table = train_loop.init_train_state(model, tcfg)
+            if mode == "mesh":
+                ctx = shd.ParallelContext.for_mesh(make_mesh(MeshConfig(data=1, model=1),
+                                                             device="cuda"))
+                state = shd.place_train_state(state, ctx, table)
+            step = train_loop.make_train_step(model, tcfg, table, ctx=ctx)
+            torch.cuda.synchronize()
+            setup_s = time.perf_counter() - t0
+            reset_counts()
+            losses, gnorms, step_ms = [], [], []
+            for i in range(MESH_TRAIN_FAMILY_STEPS):
+                t = time.perf_counter()
+                state, metrics = step(state, batches[i])
+                state = train_loop.maybe_admm_update(state, table, tcfg, i + 1, ctx)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t) * 1e3)
+                losses.append(float(metrics["loss"]))
+                gnorms.append(float(metrics["grad_norm"]))
+            launches = launch_counts()["admm_polarize"]
+            sums = {p: float(t.double().sum()) for p, t in paths.iter_leaves(state.params)}
+            sums.update({f"z:{p}": float(st.z.double().sum()) for p, st in state.admm.items()})
+            out[mode] = {"losses": losses, "grad_norms": gnorms, "step_ms": step_ms,
+                         "setup_s": setup_s, "admm_polarize_launches": launches,
+                         "constrained_leaves": len(table), "sums": sums,
+                         "params": sum(t.numel() for t in paths.leaves(state.params)),
+                         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+            del state, step, model, batches
+            if ctx is not None:
+                dist.destroy_process_group()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_mesh_train_families(floor_ms):
+    """Sharded training of whisper-small (full width) and deepseek-v3 (MLA,
+    its MoE and MTP module; at :func:`mla_train_cut`, printed) on a world
+    of one: :func:`train_pair` with ADMM (a fresh Z-update after each of 2
+    steps): the sharded run equal to the plain one bit for bit (losses,
+    gradient norms, every param and Z leaf's sum), #4 launched once per
+    constrained leaf per Z-update in both.  Then #4 bit for bit at every
+    training shard of their stacked leaves at data x model = 2x2, 4x2 and
+    8x1 (:func:`train_shard_rows`).  Returns the sharded runs' #4 launches
+    and the shard rows."""
+    import torch
+    from repro_torch.configs import get_config
+
+    mla_cfg, reckoning = mla_train_cut()
+    families = {"whisper": (get_config(WHISPER_ARCH), WHISPER_TRAIN),
+                "mla": (mla_cfg, MLA_TRAIN)}
+    launches = {}
+    for name, (cfg, shape) in families.items():
+        tcfg = train_config(total_steps=100, admm_update_every=1,
+                            moment_dtype=shape["moment_dtype"])
+        runs = train_pair(cfg, tcfg, shape)
+        plain, mesh = runs["plain"], runs["mesh"]
+        want = MESH_TRAIN_FAMILY_STEPS * plain["constrained_leaves"]
+        equal = all(plain[k] == mesh[k] for k in ("losses", "grad_norms", "sums"))
+        extra = {}
+        if name == "mla":
+            extra = {"cut": {k: [getattr(get_config(MLA_ARCH), k), getattr(cfg, k)]
+                             for k in ("num_layers", "num_experts")}, **reckoning}
+        emit(f"mesh_train_{name}", arch=cfg.name, mesh={"data": 1, "model": 1},
+             backend="nccl", world=1, steps=MESH_TRAIN_FAMILY_STEPS, **shape, **extra,
+             params=plain["params"], bit_equal=equal,
+             **{f"{k}_{m}": runs[m][k] for m in ("plain", "mesh")
+                for k in ("losses", "grad_norms", "step_ms", "setup_s",
+                          "admm_polarize_launches", "peak_mem_gb")},
+             admm_polarize_launches_reckoned=want, nvidia_smi=nvidia_smi_line())
+        if not equal:
+            raise AssertionError(f"{name}: the sharded step on a world of one differs from "
+                                 f"the plain step")
+        if not (plain["admm_polarize_launches"] == mesh["admm_polarize_launches"] == want):
+            raise AssertionError(f"{name}: #4 launched {plain['admm_polarize_launches']} "
+                                 f"(plain) and {mesh['admm_polarize_launches']} (mesh) "
+                                 f"times, reckoned {want}")
+        launches[name] = mesh["admm_polarize_launches"]
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(23)
+    scrub = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    flush = lambda: scrub.zero_()
+    rows = {"whisper": train_shard_rows(gen, flush, floor_ms, WHISPER_TRAIN_LEAVES,
+                                        "mesh_train_whisper_kernel"),
+            "mla": train_shard_rows(gen, flush, floor_ms, mla_train_leaves(mla_cfg),
+                                    "mesh_train_mla_kernel")}
+    del scrub
+    torch.cuda.empty_cache()
+    return launches, rows
+
+
+# whisper-small's stacked crossbar leaves (L, K, N): encoder self-attention
+# and MLP, decoder self- and cross-attention and MLP
+WHISPER_TRAIN_LEAVES = {
+    **{f"enc_blocks/attn/{w}": (12, 768, 768) for w in ("wk", "wo", "wq", "wv")},
+    "enc_blocks/mlp/down": (12, 3072, 768), "enc_blocks/mlp/up": (12, 768, 3072),
+    **{f"dec_blocks/{a}/{w}": (12, 768, 768) for a in ("attn", "xattn")
+       for w in ("wk", "wo", "wq", "wv")},
+    "dec_blocks/mlp/down": (12, 3072, 768), "dec_blocks/mlp/up": (12, 768, 3072)}
+
+
+def mla_train_leaves(cfg):
+    """deepseek-v3's stacked 3-D crossbar leaves (L, K, N) at ``cfg``'s
+    depth: the five MLA projections and the shared expert's three (the
+    routed experts' 4-D leaves are projected gathered, as a conv view)."""
+    return {f"blocks/{'moe' if n.startswith('shared') else 'mla'}/{n}":
+            (cfg.num_layers, *MLA_SHAPES[n]) for n in sorted(MLA_SHAPES)}
 
 
 # --------------------------------------------------------------------------
@@ -5030,6 +5349,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         whisper = phase_whisper()
         torch.cuda.empty_cache()
+        family_shards = phase_mesh_shards()
+        torch.cuda.empty_cache()
         xlstm = phase_xlstm()
         torch.cuda.empty_cache()
         zamba = phase_zamba()
@@ -5046,6 +5367,8 @@ def main() -> int:
         pol_launches, train_run = phase_train()
         torch.cuda.empty_cache()
         mesh_train_launches, mesh_train_rows = phase_mesh_train(train_run, floor_ms)
+        torch.cuda.empty_cache()
+        family_train_launches, family_train_rows = phase_mesh_train_families(floor_ms)
         torch.cuda.empty_cache()
         phase_dryrun()
         torch.cuda.empty_cache()
@@ -5074,7 +5397,9 @@ def main() -> int:
             and all(cnn["launches"].values()) and all(vlm["launches"])
             and vlm["polarize_launches"]
             and all(all(v.values()) for v in dense_launches.values())
-            and all(mesh_launches.values()) and mesh_train_launches):
+            and all(mesh_launches.values()) and mesh_train_launches
+            and all(mla["mesh_launches"]) and all(whisper["mesh_launches"])
+            and all(family_train_launches.values())):
         raise AssertionError("a kernel of a path was never launched on it")
 
     def total(rows, key):
@@ -5120,6 +5445,10 @@ def main() -> int:
         "vlm": {"layer_m4": vlm["layer_m4"], "head_m4": vlm["head_m4"]},
         "mesh_launches": mesh_launches["polarized_matmul"],
         "mesh_shards": [r for r in mesh_rows["polarized_matmul"] if r["route"] == "f32"],
+        "mesh_mla_launches": mla["mesh_launches"][0],
+        "mesh_whisper_launches": whisper["mesh_launches"][0],
+        "mesh_family_shards": {f: [r for r in rows["polarized_matmul"] if r["route"] == "f32"]
+                               for f, rows in family_shards.items()},
         "verify": [r for r in verify_rows if r["route"] == "f32"],
         "bits": [r for r in width_rows if r["route"] == "f32"],
         "heads": head_rows,
@@ -5158,7 +5487,12 @@ def main() -> int:
                "untied heads' shapes at M=4, bf16 x; mesh_launches: the slice served on "
                "a data=1,model=1 mesh; mesh_shards: every local shard shape of the "
                "slice's projections and head at model = 2, 4, 8 (N/tp columns, Kp/tp "
-               "rows for o/down), M=4 on bf16 x (M=64: the tensor-core entry's)",
+               "rows for o/down), M=4 on bf16 x (M=64: the tensor-core entry's); "
+               "mesh_mla_launches, mesh_whisper_launches: the mla and whisper phases' "
+               "trees served on a data=1,model=1 mesh; mesh_family_shards: every local "
+               "shard shape of their FORMS leaves at model = 2, 4, 8 (MLA q_up, kv_up, wo, "
+               "the shared expert; whisper's attention, cross attention and MLP), M=4 "
+               "on bf16 x",
     }, {
         "name": "polarized_matmul_skip", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/polarized_matmul.cu",
@@ -5175,10 +5509,14 @@ def main() -> int:
                    ("kernel_ms", "dense_ms", "plain_ms", "bound_ms", "library_ms")},
         "dense_configs_launches": dense_launches["block"]["polarized_matmul_skip"],
         "mesh_shards": [r for r in mesh_rows["polarized_matmul_skip"] if r["route"] == "f32"],
+        "mesh_family_shards": {f: [r for r in rows["polarized_matmul_skip"]
+                                   if r["route"] == "f32"]
+                               for f, rows in family_shards.items()},
         "per": "the 7 projections of one qwen2-1.5b layer at M=4, f32 x, every other "
                "K slice of x zero (bf16_x: the same on bf16 x; mesh_shards: the local "
                "shard shapes of the mesh phase, every other K slice dead, M=4 on bf16 "
-               "x; M=64: the tensor-core entry's)",
+               "x; M=64: the tensor-core entry's; mesh_family_shards: the same at MLA's "
+               "and whisper's shard shapes)",
     }, {
         "name": "bitserial_crossbar", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/bitserial_crossbar.cu",
@@ -5224,6 +5562,11 @@ def main() -> int:
                          for name, f in cnn["full"].items()},
         "vlm_launches": vlm["polarize_launches"],
         "mesh_train_launches": mesh_train_launches,
+        "mesh_train_family_launches": family_train_launches,
+        "mesh_train_family_shards": {
+            f: [{k: r[k] for k in ("mesh", "leaf", "local_shape", "shards", "kernel_ms",
+                                   "bound_ms", "bound_by", "launch_floor_ms")} for r in rows]
+            for f, rows in family_train_rows.items()},
         "mesh_train_shards": [{k: r[k] for k in ("mesh", "leaf", "local_shape", "shards",
                                                  "kernel_ms", "bound_ms", "bound_by",
                                                  "launch_floor_ms")}
@@ -5255,6 +5598,10 @@ def main() -> int:
                "train run's (4 steps on a data=1,model=1 mesh); mesh_train_shards: one local "
                "shard of each stacked leaf at data x model = 2x2, 4x2 and 8x1 (fsdp=True "
                "specs), sum rule, every shard held bit for bit; "
+               "mesh_train_family_launches: whisper-small's and the cut deepseek-v3's "
+               "sharded train runs (2 steps, a fresh Z-update after each, one launch per "
+               "constrained leaf); mesh_train_family_shards: their stacked leaves' "
+               "shards, as mesh_train_shards; "
                "moe_expert_triple: one (layer, expert)'s w_gate, w_up (2048x1024) "
                "and w_down (1024x2048), energy rule; per_matrix: those calls "
                "for the 7 matrices of one qwen2-1.5b layer, energy rule",
@@ -5279,6 +5626,12 @@ def main() -> int:
         "mesh_launches": mesh_launches["polarized_matmul_tc"],
         "mesh_shards": [dict(r, skip=key.endswith("skip")) for key, rs in mesh_rows.items()
                         for r in rs if r["route"] == "tc"],
+        "mesh_mla_launches": mla["mesh_launches"][1],
+        "mesh_whisper_launches": whisper["mesh_launches"][1],
+        "mesh_family_shards": {f: [dict(r, skip=key.endswith("skip"))
+                                   for key, rs in rows.items() for r in rs
+                                   if r["route"] == "tc"]
+                               for f, rows in family_shards.items()},
         "whisper_launches": whisper["launches"][1],
         "whisper_cross_kv": whisper["cross_kv"],
         "xlstm_launches": xlstm["launches"][1],
@@ -5324,7 +5677,10 @@ def main() -> int:
                "vlm_launches: phi-3-vision-4.2b's prefills at their buckets; "
                "bits: the 7 at M=64 on 2-, 4- and 6-bit codes; mesh_launches: the slice "
                "served on a data=1,model=1 mesh; mesh_shards: the mesh phase's shard "
-               "shapes at M=64 (skip: the block-skip launch, every other K slice dead)",
+               "shapes at M=64 (skip: the block-skip launch, every other K slice dead); "
+               "mesh_mla_launches, mesh_whisper_launches: their phases' trees on a "
+               "data=1,model=1 mesh; mesh_family_shards: MLA's and whisper's shard shapes "
+               "at M=64 and whisper's cross k/v at M = 4 slots x 256",
     }]}
     emit("total", seconds=time.perf_counter() - t_start)
     print(json.dumps(kernels), flush=True)

@@ -168,15 +168,20 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 def to_dense(p: FormsLinearParams) -> torch.Tensor:
     """Reconstruct the dense weight tensor — exact inverse of compression
     ((K, N), stacked (..., K, N), or the conv ``orig_shape`` view).  A leaf
-    that holds one rank's K or N slice of its matrix is refused: ``k`` and
-    the fragment grid describe the whole matrix, so a slice would come back
-    with the wrong rows.  (Slices along leading axes, a rank's experts,
-    hold whole matrices.)"""
-    if any(p.matrix_split()):
+    that holds one rank's N slice of a matrix comes back as the rank's
+    columns of the whole matrix: signs are per (fragment, column) and
+    scales per column, so the columns are self-contained (MLA's absorbed
+    decode rebuilds its rank's heads of ``kv_up`` so).  A K slice is
+    refused: ``k`` and the fragment grid describe the whole matrix, so a
+    slice would come back with the wrong rows; so is an N slice of a conv
+    view.  (Slices along leading axes, a rank's experts, hold whole
+    matrices.)"""
+    k_split, n_split = p.matrix_split()
+    if k_split or (n_split and p.orig_shape is not None and len(p.orig_shape) == 4):
         raise ValueError(
             f"to_dense of a sharded FORMS leaf (mags spec {p.shard[0].spec}, global "
             f"shape {p.shard[0].shape}, local {tuple(p.mags.shape)}): this rank holds "
-            "a slice of the matrix; gather it first")
+            "a K slice of the matrix; gather it first")
     dense = _to_dense_2d(p.mags, p.signs, p.scale, p.k, p.m)
     if p.orig_shape is not None and len(p.orig_shape) == 4:
         dense = matrix_to_conv(dense, p.orig_shape, p.policy)

@@ -31,10 +31,10 @@ the MoE train cells' bytes differ by about 0.01% (a decomposition in their
 backward that depends on the device).  The artifact names the device as
 ``traced_device``.
 
-The families that do not run on a mesh of more than one device (MLA,
-whisper, xLSTM, Zamba2: ROADMAP item 13d) are refused by that item's
-name: their cells write ``status: "refused"`` with the per-device
-argument bytes of their specs and nothing traced.
+The families that do not run on a mesh of more than one device (xLSTM,
+Zamba2: ROADMAP item 13e) are refused by that item's name: their cells
+write ``status: "refused"`` with the per-device argument bytes of their
+specs and nothing traced.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch yi-9b --shape train_4k --mesh single
@@ -63,7 +63,7 @@ from repro_torch.distributed.context import RecordingContext, parallel_context
 from repro_torch.models.registry import Model, build
 
 PyTree = Any
-REFUSED_ITEM = "13d"
+REFUSED_ITEM = "13e"
 
 
 def trace_device() -> str:
@@ -278,7 +278,7 @@ def build_cell(model: Model, shape: ShapeConfig, ctx, *, admm: bool = False,
 
 
 def refusal(model: Model, kind: str, ctx) -> Optional[str]:
-    """The port's own refusal of a family on this mesh (ROADMAP item 13d),
+    """The port's own refusal of a family on this mesh (ROADMAP item 13e),
     or None: ``train_loop.check_train_mesh`` for a train cell, the serving
     engine's ``_check_mesh_family`` for the others."""
     if ctx.entry_size(tuple(ctx.shape)) == 1:

@@ -30,9 +30,10 @@ state (FSDP over the batch axes for leaves of 4M elements or more, tensor
 parallel over ``model``) and its rows of every global batch; at 1/1/1 a
 world of one.  It prints a ``mesh:`` line, and rank 0 prints every line.
 On the card start one process per card with ``torchrun``; on the CPU
-``--fake-devices N`` runs the N ranks as gloo processes.  The dense and
-MoE (GQA) families train on a mesh of more than one device; the others are
-refused by name (ROADMAP item 13d).
+``--fake-devices N`` runs the N ranks as gloo processes.  The attention
+families (dense, MoE, MLA with its MTP module, whisper) train on a mesh of
+more than one device; the recurrent ones are refused by name (ROADMAP item
+13e).
 """
 from __future__ import annotations
 
@@ -51,6 +52,19 @@ from repro_torch.core.device import resolve_device
 from repro_torch.data.synthetic import LMStreamConfig, lm_batch
 from repro_torch.models.registry import build
 from repro_torch.training import train_loop
+
+
+def train_batch(model, ds: LMStreamConfig, step: int, dev: torch.device):
+    """The global batch of ``step``: the token stream's, and for whisper
+    the encoder's frame embeddings ``(B, seq_len, d_model)`` too, drawn on
+    the CPU from the step's seed (the same on every rank and device)."""
+    batch = lm_batch(ds, step, dev)
+    if "frames" in model.input_fields:
+        g = torch.Generator()
+        g.manual_seed((ds.seed * 1_000_003 + step) % (2 ** 63) + 1)
+        batch["frames"] = torch.randn((ds.global_batch, ds.seq_len, model.config.d_model),
+                                      generator=g).to(dev)
+    return batch
 
 
 def main(argv=None) -> None:
@@ -182,7 +196,7 @@ def _train_on(args, dev: torch.device, mesh) -> None:
     for i in range(start, args.steps):
         ts = time.perf_counter()
         with guard():
-            state, metrics = step(state, lm_batch(ds, i, dev))
+            state, metrics = step(state, train_batch(model, ds, i, dev))
             state = train_loop.maybe_admm_update(state, table, tcfg, i + 1, ctx)
         dt = time.perf_counter() - ts
         if i > start + 2 and dt > 5 * (time.perf_counter() - t0) / max(i - start, 1):

@@ -74,7 +74,9 @@ def load_leaf(v, name: str, dtype: torch.dtype) -> torch.Tensor:
     serves them either): a layer's stacked experts (``w_gate``/``w_up``/
     ``w_down``, mags ``(E, Kp, N)``), which the MoE family's expert FFN
     multiplies with ``torch.einsum``, and a layer's MLA ``kv_up``, which
-    the absorbed decode folds into the query and the output.
+    the absorbed decode folds into the query and the output.  On a mesh a
+    leaf split along N comes back as this rank's columns (``kv_up``: the
+    rank's heads); one split along K raises (``forms.to_dense``).
     """
     if isinstance(v, dict) and "q" in v:
         return dequantize_leaf(v, dtype)
@@ -521,16 +523,28 @@ def attention_block(p: Params, x: torch.Tensor, *, n_heads: int, n_kv: int,
 def cross_attention_block(p: Params, x: torch.Tensor, enc: torch.Tensor, *,
                           n_heads: int, hd: int, dtype=torch.bfloat16) -> torch.Tensor:
     """Encoder-decoder cross attention (whisper's decoder): MHA over the
-    whole encoder output, no mask, f32 scores."""
+    whole encoder output, no mask, f32 scores.  ``enc`` is whole on every
+    rank.  On a mesh whose model size divides the heads the block runs on
+    this rank's heads, as :func:`attention_block` does (its q/k/v columns,
+    its rows of ``wo``, then a sum over ``model``); otherwise on all heads
+    (the N-split projections gathered)."""
     b, s, _ = x.shape
     se = enc.shape[1]
-    q = linear(p, "wq", x, dtype).reshape(b, s, n_heads, hd)
-    k = linear(p, "wk", enc, dtype).reshape(b, se, n_heads, hd)
-    v = linear(p, "wv", enc, dtype).reshape(b, se, n_heads, hd)
+    ctx = model_ctx()
+    tp = ctx.axis_size("model") if ctx is not None else 1
+    local = tp > 1 and n_heads % tp == 0
+    if local:
+        n_heads //= tp
+    entry = all_split(p, ("wk", "wv"))
+    if entry:
+        enc = model_entry(enc)
+    q = linear(p, "wq", x, dtype, out_local=local).reshape(b, s, n_heads, hd)
+    k = linear(p, "wk", enc, dtype, out_local=local, x_entry=entry).reshape(b, se, n_heads, hd)
+    v = linear(p, "wv", enc, dtype, out_local=local, x_entry=entry).reshape(b, se, n_heads, hd)
     scores = torch.einsum("bqhd,bshd->bhqs", q.float(), k.float()) * attn_scale(hd, x.device)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhqs,bshd->bqhd", probs, v.float()).to(dtype)
-    return linear(p, "wo", out.reshape(b, s, n_heads * hd), dtype)
+    return linear(p, "wo", out.reshape(b, s, n_heads * hd), dtype, x_local=local)
 
 
 # ---------------------------------------------------------------------------
@@ -600,9 +614,14 @@ def _hidden_width(p: Params) -> int:
 
 def gelu_mlp(p: Params, x: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
     """Biased two-layer MLP with the tanh-approximate GELU, which is
-    ``jax.nn.gelu``'s default (whisper)."""
-    h = F.gelu(linear(p, "up", x, dtype) + wload(p, "b_up", dtype), approximate="tanh")
-    return linear(p, "down", h, dtype) + wload(p, "b_down", dtype)
+    ``jax.nn.gelu``'s default (whisper).  On a mesh the hidden columns stay
+    on their rank (``up``'s columns plus the bias's share, ``down``'s K
+    rows, then a sum over ``model``)."""
+    ctx = model_ctx()
+    local = ctx is not None and p["b_up"].shape[-1] % ctx.axis_size("model") == 0
+    h = linear(p, "up", x, dtype, out_local=local)
+    h = F.gelu(h + _vec_like(wload(p, "b_up", dtype), h.shape[-1]), approximate="tanh")
+    return linear(p, "down", h, dtype, x_local=local) + wload(p, "b_down", dtype)
 
 
 def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor,

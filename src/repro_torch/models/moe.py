@@ -238,14 +238,29 @@ def mla_init(g: torch.Generator, cfg: ModelConfig, n: int) -> Params:
     }
 
 
-def _mla_q(p: Params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor, dtype):
-    """Per-head ``(q_nope, q_rope)`` with rope applied, and the new tokens'
-    latents ``(c_kv, k_rope)``."""
+def _mla_heads(cfg: ModelConfig) -> Tuple[int, bool]:
+    """The heads this rank attends with, and whether they are its own
+    share: on a mesh whose model size divides the heads, ``H / tp`` (its
+    columns of ``q_up`` and ``kv_up``, its rows of ``wo``); otherwise all
+    of them, as ``layers.attention_block`` does."""
+    ctx = model_ctx()
+    tp = ctx.axis_size("model") if ctx is not None else 1
+    if tp > 1 and cfg.num_heads % tp == 0:
+        return cfg.num_heads // tp, True
+    return cfg.num_heads, False
+
+
+def _mla_q(p: Params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor, dtype,
+           h: int, local: bool):
+    """Per-head ``(q_nope, q_rope)`` with rope applied, on ``h`` heads (the
+    rank's own when ``local``), and the new tokens' latents ``(c_kv,
+    k_rope)``, whole on every rank (``q_down`` and ``kv_down`` are
+    replicated)."""
     m: MLAConfig = cfg.mla
     b, s, _ = x.shape
     nope, rope, r = m.qk_nope_head_dim, m.qk_rope_head_dim, m.kv_lora_rank
     cq = L.rmsnorm(L.linear(p, "q_down", x, dtype), p["q_norm"], cfg.norm_eps)
-    q = L.linear(p, "q_up", cq, dtype).reshape(b, s, cfg.num_heads, nope + rope)
+    q = L.linear(p, "q_up", cq, dtype, out_local=local).reshape(b, s, h, nope + rope)
     q_rope = L.apply_rope(q[..., nope:], positions, cfg.rope_theta)
     kv = L.linear(p, "kv_down", x, dtype)
     c_kv = L.rmsnorm(kv[..., :r], p["kv_norm"], cfg.norm_eps)
@@ -254,27 +269,45 @@ def _mla_q(p: Params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor
 
 
 def _mla_qkv_full(p: Params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
-                  dtype):
-    """Expanded-form q, k, v for full-sequence attention, and the latents."""
+                  dtype, h: int, local: bool):
+    """Expanded-form q, k, v for full-sequence attention on ``h`` heads,
+    and the latents."""
     m: MLAConfig = cfg.mla
     b, s, _ = x.shape
-    h, nope, rope = cfg.num_heads, m.qk_nope_head_dim, m.qk_rope_head_dim
-    q_nope, q_rope, c_kv, k_rope = _mla_q(p, x, cfg, positions, dtype)
-    kvu = L.linear(p, "kv_up", c_kv, dtype).reshape(b, s, h, nope + m.v_head_dim)
+    nope, rope = m.qk_nope_head_dim, m.qk_rope_head_dim
+    q_nope, q_rope, c_kv, k_rope = _mla_q(p, x, cfg, positions, dtype, h, local)
+    kvu = L.linear(p, "kv_up", c_kv, dtype, out_local=local).reshape(b, s, h,
+                                                                     nope + m.v_head_dim)
     k_nope, v = kvu[..., :nope], kvu[..., nope:]
+    # the shared rope key meets only this rank's heads: its cotangent is
+    # partial until summed over model
+    k_rope_h = model_ctx().copy_to(k_rope, "model") if local else k_rope
     q_full = torch.cat([q_nope, q_rope], dim=-1)
-    k_full = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, rope)], dim=-1)
+    k_full = torch.cat([k_nope, k_rope_h[:, :, None, :].expand(b, s, h, rope)], dim=-1)
     return q_full, k_full, v, c_kv, k_rope
 
 
 def mla_full(p: Params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
              dtype, q_chunk: int) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Expanded-form MLA.  Returns (out, latents): the per-position decode
-    cache entries ``{"c_kv", "k_rope"}``, for prefill's one-shot write."""
-    q, k, v, c_kv, k_rope = _mla_qkv_full(p, x, cfg, positions, dtype)
+    cache entries ``{"c_kv", "k_rope"}`` (whole), for prefill's one-shot
+    write.  On a mesh the attention runs on :func:`_mla_heads`'s heads and
+    ``wo`` sums its K rows' partials over ``model``."""
+    h, local = _mla_heads(cfg)
+    q, k, v, c_kv, k_rope = _mla_qkv_full(p, x, cfg, positions, dtype, h, local)
     out = L.causal_attention(q, k, v, q_chunk=q_chunk, positions=positions)
     b, s = x.shape[:2]
-    return L.linear(p, "wo", out.reshape(b, s, -1), dtype), {"c_kv": c_kv, "k_rope": k_rope}
+    return (L.linear(p, "wo", out.reshape(b, s, -1), dtype, x_local=local),
+            {"c_kv": c_kv, "k_rope": k_rope})
+
+
+def cache_rows(arr: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
+    """Rows for a latent cache leaf (whole along the last dim) in the
+    leaf's layout: this rank's share of the last dim where the leaf holds
+    one (``c_kv``'s ``kv_lora_rank`` split over ``model``), else ``arr``."""
+    if arr.shape[-1] == leaf.shape[-1]:
+        return arr
+    return L._cols(arr, model_ctx())
 
 
 def mla_decode(p: Params, x: torch.Tensor, cfg: ModelConfig, cache: Dict[str, torch.Tensor],
@@ -290,19 +323,36 @@ def mla_decode(p: Params, x: torch.Tensor, cfg: ModelConfig, cache: Dict[str, to
     the query's latent and rope parts go to the cache dtype, the scores
     and the latent output sum in f32, the probabilities go to the cache
     dtype and the latent output to ``dtype``.
+
+    On a mesh the block runs on :func:`_mla_heads`'s heads, with ``w_uk``
+    and ``w_uv`` from the rank's ``kv_up`` columns (its heads).  A latent
+    cache split along ``r`` over ``model`` (the reference's
+    ``cache_logical_axes``) takes this rank's share of the new latents, and
+    its view is gathered over ``model`` per layer before the scores, which
+    need all of ``r`` for every head: the per-head sums are then the
+    one-device ones.  The new latents come back in the cache's layout.
     """
     m: MLAConfig = cfg.mla
     b, s, _ = x.shape
-    h, nope, dv, r = cfg.num_heads, m.qk_nope_head_dim, m.v_head_dim, m.kv_lora_rank
+    nope, dv, r = m.qk_nope_head_dim, m.v_head_dim, m.kv_lora_rank
+    h, local = _mla_heads(cfg)
     positions = L.position_grid(pos, b, s)                # (B, T)
-    q_nope, q_rope, c_new, k_rope_new = _mla_q(p, x, cfg, positions, dtype)
+    q_nope, q_rope, c_new, k_rope_new = _mla_q(p, x, cfg, positions, dtype, h, local)
     c_cache, r_cache = cache["c_kv"], cache["k_rope"]
-    c_t, r_t = c_new.to(c_cache.dtype), k_rope_new.to(r_cache.dtype)
+    c_t = cache_rows(c_new.to(c_cache.dtype), c_cache)
+    r_t = k_rope_new.to(r_cache.dtype)
     L.write_view(c_cache, c_t, positions)
     L.write_view(r_cache, r_t, positions)
+    if c_cache.shape[-1] != r:
+        c_cache = model_ctx().all_gather(c_cache, "model", -1)
 
     # absorb: q_lat[b,t,h,r] = q_nope @ W_uk(h)^T
-    w = L.wload(p, "kv_up", dtype).reshape(r, h, nope + dv)
+    w = L.wload(p, "kv_up", dtype)
+    if local and w.shape[-1] != h * (nope + dv):
+        # a whole kv_up (an int-grid leaf: the MLA rules do not match its
+        # ``/q`` codes, in either package): this rank's heads
+        w = L._cols(w, model_ctx())
+    w = w.reshape(r, h, nope + dv)
     w_uk, w_uv = w[..., :nope], w[..., nope:]
     q_lat = torch.einsum("bthn,rhn->bthr", q_nope.float(), w_uk.float()).to(dtype)
     scale = L.attn_scale(nope + m.qk_rope_head_dim, x.device)
@@ -316,7 +366,8 @@ def mla_decode(p: Params, x: torch.Tensor, cfg: ModelConfig, cache: Dict[str, to
     o_lat = torch.einsum("bhts,bsr->bthr", probs.to(c_cache.dtype).float(),
                          c_cache.float()).to(dtype)
     o = torch.einsum("bthr,rhv->bthv", o_lat.float(), w_uv.float()).to(dtype)
-    return L.linear(p, "wo", o.reshape(b, s, h * dv), dtype), {"c_kv": c_t, "k_rope": r_t}
+    return (L.linear(p, "wo", o.reshape(b, s, h * dv), dtype, x_local=local),
+            {"c_kv": c_t, "k_rope": r_t})
 
 
 # ---------------------------------------------------------------------------
@@ -466,17 +517,26 @@ def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int, device,
         page_size=page_size)
 
 
+def _serving_top(params: Params) -> Params:
+    """The params serving reads, each FSDP leaf outside the layer stack
+    gathered once (``layers.gathered_top``; the layers gather their own
+    slices): the MTP module, which serving never runs, is left out."""
+    return L.gathered_top({k: v for k, v in params.items() if k != "mtp"})
+
+
 def _prefill_core(cfg: ModelConfig, params: Params, tokens: torch.Tensor, length: int):
     """Bulk prefill compute over a (1, S) prompt.  Returns the logits of
     the last real token (1, V) and the full-prompt rows ``(L, 1, S, ...)``
     per cache leaf."""
     dtype = L.DTYPES[cfg.dtype]
+    params = _serving_top(params)
     x = L.embed_lookup(params["embed"], tokens, dtype)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     rows: Dict[str, list] = {name: [] for name in _cache_widths(cfg)}
     for i in range(cfg.num_layers):
-        x, _, new = _block_apply(cfg, layer_params(params["blocks"], i), x, positions,
-                                 None, None, dtype, L.DEFAULT_Q_CHUNK, collect_kv=True)
+        x, _, new = _block_apply(cfg, L.gathered(layer_params(params["blocks"], i)), x,
+                                 positions, None, None, dtype, L.DEFAULT_Q_CHUNK,
+                                 collect_kv=True)
         for name, arr in new.items():
             rows[name].append(arr)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
@@ -495,7 +555,7 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     logits, rows = _prefill_core(cfg, params, tokens, length)
     for name, arr in rows.items():
         leaf = cache[name]
-        leaf[:, slot:slot + 1, :arr.shape[2]] = arr.to(leaf.dtype)
+        leaf[:, slot:slot + 1, :arr.shape[2]] = cache_rows(arr, leaf).to(leaf.dtype)
     return logits, cache
 
 
@@ -505,6 +565,7 @@ def prefill_paged(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     """Paged bulk prefill (exact length), one whole-page write at ``pages``."""
     del slot
     logits, rows = _prefill_core(cfg, params, tokens, length)
+    rows = {name: cache_rows(arr, cache.pool[name]) for name, arr in rows.items()}
     return logits, KV.commit_pages(cache, rows, pages)
 
 
@@ -517,13 +578,14 @@ def _decode_core(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     dispatch, so drops can differ from T = 1, as in the reference."""
     dtype = L.DTYPES[cfg.dtype]
     b, t = tokens.shape
+    params = _serving_top(params)
     x = L.embed_lookup(params["embed"], tokens, dtype)
     positions = L.position_span(pos.to(torch.int32).expand(b), t)
     toks: Dict[str, list] = {name: [] for name in views}
     for i in range(cfg.num_layers):
-        x, _, new = _block_apply(cfg, layer_params(params["blocks"], i), x, positions,
-                                 {name: v[i] for name, v in views.items()}, positions,
-                                 dtype, L.DEFAULT_Q_CHUNK)
+        x, _, new = _block_apply(cfg, L.gathered(layer_params(params["blocks"], i)), x,
+                                 positions, {name: v[i] for name, v in views.items()},
+                                 positions, dtype, L.DEFAULT_Q_CHUNK)
         for name, arr in new.items():
             toks[name].append(arr)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)

@@ -15,6 +15,18 @@ encoder output ``enc_out`` beside it, slot-addressed (the paged cache's
 step projects the cross-attention K/V.  The serving engine, in both
 packages, never writes ``enc_out``: it serves against a zero encoder
 context unless the caller writes ``encode(frames)`` into the cache.
+
+On a mesh (explicit SPMD, ``models/layers``): the attention blocks run on
+the rank's heads where the model axis divides them, else on all heads;
+``frame_proj`` is replicated; the MLP keeps its hidden columns local.  The
+self-attention cache follows the reference's ``cache_logical_axes``: the
+page pool splits its heads over ``model`` (or replicates them where they
+do not divide), the dense slot cache splits its heads or, where they do
+not divide, its sequence (context-parallel decode).  ``enc_out`` is held
+``("batch", None, "model")``: each rank's slots, ``d`` split over
+``model``; a decode step gathers it over ``model`` once, before the
+layers' cross k/v projections.  Training gathers each FSDP leaf inside
+its block (``layers.gathered``), the others once (``layers.gathered_top``).
 """
 from __future__ import annotations
 
@@ -23,10 +35,11 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.context import checkpointed
+from repro_torch.distributed.context import checkpointed, model_ctx
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import (_normal, _serving_head, head_matrix,
-                                            layer_params, unstack_layers, with_head_cast)
+                                            layer_params, seq_offset, unstack_layers,
+                                            with_head_cast)
 from repro_torch.serving import kv_cache as KV
 
 Params = Dict[str, Any]
@@ -98,12 +111,14 @@ def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor, *,
     """frames: (B, S, d) precomputed frame embeddings (the stub frontend)
     -> the encoder output (B, S, d)."""
     dtype = L.DTYPES[cfg.dtype]
+    params = L.gathered_top(params)
     s = frames.shape[1]
     x = L.linear(params, "frame_proj", frames.to(dtype), dtype)
     x = x + sinusoidal_positions(s, cfg.d_model, x.device).to(dtype)[None]
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
 
     def body(x, bp):
+        bp = L.gathered(bp)
         h, _ = L.attention_block(
             bp["attn"], L.layernorm(x, bp["norm1"], cfg.norm_eps),
             n_heads=cfg.num_heads, n_kv=cfg.num_kv_heads, hd=cfg.hd(),
@@ -122,13 +137,13 @@ def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor, *,
 
 def _dec_block_apply(cfg: ModelConfig, bp: Params, x: torch.Tensor, enc_out: torch.Tensor,
                      positions: torch.Tensor, cache, cache_pos, dtype, q_chunk: int,
-                     collect_kv: bool = False):
+                     collect_kv: bool = False, seq_off: Optional[int] = None):
     h, new_kv = L.attention_block(
         bp["attn"], L.layernorm(x, bp["norm1"], cfg.norm_eps),
         n_heads=cfg.num_heads, n_kv=cfg.num_kv_heads, hd=cfg.hd(),
         rope_theta=cfg.rope_theta, positions=positions, q_chunk=q_chunk,
         cache=cache, cache_pos=cache_pos, use_rope=False, return_kv=collect_kv,
-        dtype=dtype)
+        dtype=dtype, seq_offset=seq_off)
     x = x + h
     x = x + L.cross_attention_block(bp["xattn"], L.layernorm(x, bp["norm_x"], cfg.norm_eps),
                                     enc_out, n_heads=cfg.num_heads, hd=cfg.hd(), dtype=dtype)
@@ -151,13 +166,15 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor], *,
     """batch: ``{"frames": (B, S, d), "tokens": (B, S)}`` -> the decoder's
     logits (B, S, V) (or its final hidden states) and an empty aux."""
     dtype = L.DTYPES[cfg.dtype]
+    params = L.gathered_top(params)
     enc_out = encode(cfg, params, batch["frames"], remat=remat, q_chunk=q_chunk)
     tokens = batch["tokens"]
     positions = torch.arange(tokens.shape[1], dtype=torch.int32, device=tokens.device)
     x = _embed(cfg, params, tokens, positions, dtype)
 
     def body(x, bp):
-        return _dec_block_apply(cfg, bp, x, enc_out, positions, None, None, dtype, q_chunk)[0]
+        return _dec_block_apply(cfg, L.gathered(bp), x, enc_out, positions, None, None,
+                                dtype, q_chunk)[0]
 
     for bp in unstack_layers(params["dec_blocks"], cfg.num_layers):
         if remat and torch.is_grad_enabled():
@@ -225,12 +242,28 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     slot's cached encoder output; the prompt's K/V rows are written at
     ``[:, slot, :S]`` in place and ``enc_out`` is left as it is."""
     dtype = L.DTYPES[cfg.dtype]
-    enc_out = cache["enc_out"][slot:slot + 1].to(dtype)
+    enc_out = whole_enc_out(cfg, cache["enc_out"][slot:slot + 1]).to(dtype)
     logits, rows = _prefill_core(cfg, params, tokens, enc_out, length)
+    off = seq_offset(cache["k"])
     for name, arr in rows.items():
         leaf = cache[name]
-        leaf[:, slot:slot + 1, :arr.shape[2]] = arr.to(leaf.dtype)
+        if off is None:
+            leaf[:, slot:slot + 1, :arr.shape[2]] = arr.to(leaf.dtype)
+        else:
+            # this rank holds positions off .. off + S_local - 1
+            hi = min(off + leaf.shape[2], arr.shape[2])
+            if hi > off:
+                leaf[:, slot:slot + 1, :hi - off] = arr[:, :, off:hi].to(leaf.dtype)
     return logits, cache
+
+
+def whole_enc_out(cfg: ModelConfig, enc: torch.Tensor) -> torch.Tensor:
+    """The slot-addressed encoder output whole along ``d``: on a mesh that
+    splits its last dim over ``model`` (``("batch", None, "model")``) the
+    ranks' shares gathered, else ``enc`` itself."""
+    if enc.shape[-1] == cfg.d_model:
+        return enc
+    return model_ctx().all_gather(enc, "model", -1)
 
 
 def prefill_paged(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
@@ -239,27 +272,28 @@ def prefill_paged(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     """Paged decoder prefill: the self-attention K/V land in whole pages;
     the encoder output is read from the slot-addressed ``dense`` leaf."""
     dtype = L.DTYPES[cfg.dtype]
-    enc_out = cache.dense["enc_out"][slot:slot + 1].to(dtype)
+    enc_out = whole_enc_out(cfg, cache.dense["enc_out"][slot:slot + 1]).to(dtype)
     logits, rows = _prefill_core(cfg, params, tokens, enc_out, length)
     return logits, KV.commit_pages(cache, rows, pages)
 
 
 def _decode_core(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                  k_cache: torch.Tensor, v_cache: torch.Tensor, enc_out: torch.Tensor,
-                 pos: torch.Tensor):
+                 pos: torch.Tensor, seq_off: Optional[int] = None):
     """Decode compute against ``(L, B, S, kv, hd)`` self-attention views,
     written in place; token t of row b sits at ``pos[b] + t``.  Returns
-    (logits (B, T, V), new-token K and V ``(L, B, T, kv, hd)``)."""
+    (logits (B, T, V), new-token K and V ``(L, B, T, kv, hd)``).
+    ``seq_off``: the first position of a sequence-sharded dense cache."""
     dtype = L.DTYPES[cfg.dtype]
     b, t = tokens.shape
     positions = L.position_span(pos.to(torch.int32).expand(b), t)
     x = _embed(cfg, params, tokens, positions, dtype)
-    enc_out = enc_out.to(dtype)
+    enc_out = whole_enc_out(cfg, enc_out).to(dtype)
     k_tok, v_tok = [], []
     for i in range(cfg.num_layers):
         x, (k, v) = _dec_block_apply(cfg, layer_params(params["dec_blocks"], i), x, enc_out,
                                      positions, (k_cache[i], v_cache[i]), positions, dtype,
-                                     Q_CHUNK)
+                                     Q_CHUNK, seq_off=seq_off)
         k_tok.append(k)
         v_tok.append(v)
     x = L.layernorm(x, params["final_norm"], cfg.norm_eps)
@@ -274,7 +308,7 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     into the cache leaves in place (rows past max_len are dropped)."""
     pos = pos.to(torch.int32).expand(tokens.shape[0])
     logits, _, _ = _decode_core(cfg, params, tokens, cache["k"], cache["v"],
-                                cache["enc_out"], pos)
+                                cache["enc_out"], pos, seq_off=seq_offset(cache["k"]))
     return logits, cache
 
 

@@ -75,8 +75,8 @@ runs identically on every rank: the logits of each step are gathered over
 so the tokens, and with them every scheduling decision, agree everywhere.
 A paged pool sharded over ``data`` keeps one free list per data rank
 (``PageAllocator(partitions=...)``), so page ids may differ from the
-one-device engine's; tokens do not.  The dense and MoE (GQA) families
-serve on a mesh; MLA, whisper and the recurrent families are refused by
+one-device engine's; tokens do not.  The attention families (dense, MoE,
+MLA, whisper) serve on a mesh; the recurrent families are refused by
 name.
 """
 from __future__ import annotations
@@ -302,7 +302,7 @@ class ModelRunner:
                                      "vector (pages=...)")
                 return model.prefill_paged(params, toks, cache,
                                            self._to_device(self._local_pages(pages)),
-                                           slot, n)
+                                           self._local_slot(slot), n)
             return model.prefill(params, toks, cache, self._local_slot(slot), n)
 
     def _local_slot(self, slot: int) -> int:
@@ -657,12 +657,8 @@ class Scheduler:
 
 def _check_mesh_family(model: Model) -> None:
     """Refuse by name the families the mesh engine does not serve."""
-    cfg = model.config
-    if cfg.family not in ("dense", "moe") or cfg.mla is not None:
-        what = "MLA" if cfg.mla is not None else f"the {cfg.family} family"
-        raise NotImplementedError(
-            f"serving {what} on a mesh is not ported: the mesh engine runs the "
-            "dense and MoE (GQA) families (ROADMAP item 13d)")
+    from repro_torch.distributed.sharding import check_mesh_family
+    check_mesh_family(model.config, "serving")
 
 
 def _check_mesh(dev: torch.device, ctx: Any, batch_slots: int) -> None:

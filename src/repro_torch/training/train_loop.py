@@ -175,20 +175,12 @@ def _value_and_grad(loss_fn: Callable, params: Params, *args) -> Tuple[torch.Ten
     return loss.detach(), paths.rebuild(params, dict(zip(live, grads)))
 
 
-MESH_FAMILIES = ("dense", "moe")
-
-
 def check_train_mesh(model: Model, ctx: ParallelContext) -> None:
     """Refuse by name a family that does not train on a mesh of more than
     one device (a world of one is the one-device step)."""
-    cfg = model.config
-    if ctx.entry_size(tuple(ctx.shape)) == 1:
-        return
-    if cfg.family not in MESH_FAMILIES or cfg.mla is not None:
-        what = "MLA" if cfg.mla is not None else f"the {cfg.family} family"
-        raise NotImplementedError(
-            f"training {what} on a mesh is not ported: the sharded train step runs the "
-            "dense and MoE (GQA) families (ROADMAP item 13d)")
+    from repro_torch.distributed.sharding import check_mesh_family
+    if ctx.entry_size(tuple(ctx.shape)) > 1:
+        check_mesh_family(model.config, "training")
 
 
 def shard_batch(batch: Dict[str, torch.Tensor], ctx: ParallelContext

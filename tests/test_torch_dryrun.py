@@ -7,7 +7,7 @@
 * Per-device argument bytes of every arch at ``decode_32k`` and
   ``train_4k`` on the 16x16 mesh equal the same sum over the reference's
   shardings (``params_shardings``/``cache_shardings``/the train state's)
-  of its ``jax.eval_shape`` trees, the item-13d families included.  Two
+  of its ``jax.eval_shape`` trees, every family included.  Two
   differences are exact and named: the reference's PRNG key (uint32[2])
   is a host generator in the port, and with int8 moments (deepseek-v3)
   the port cuts each moment's row scales with its rows where the
@@ -26,7 +26,9 @@
   and ``test_torch_mesh_train`` run the same helpers unchanged.
 * The CLI at full width in a subprocess (the check the reference's own
   subprocess test makes), under 2 GB of peak RSS.
-* Refused cells, ``resolve_device`` under fake mode, a kernel reached with
+* MLA's and whisper's cells on the 2x16x16 mesh (their argument bytes
+  against the reference's), the refused cells of item 13e,
+  ``resolve_device`` under fake mode, a kernel reached with
   fake tensors, the context-parallel cache write without a host sync, and
   the int8 weights of a list-shaped tree.
 """
@@ -59,7 +61,7 @@ from repro_torch.analysis import opcount
 from repro_torch.analysis import report
 from repro_torch.analysis import roofline as roof
 from repro_torch.configs import ARCH_NAMES, SHAPES, get_config, get_reduced, shapes_for
-from repro_torch.configs.base import ShapeConfig
+from repro_torch.configs.base import MeshConfig, ShapeConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.context import RecordingContext, parallel_context
@@ -140,9 +142,10 @@ def test_roofline_arithmetic_equals_the_reference(inputs):
 MESH_SIZES = {"data": 16, "model": 16}
 
 
-def _ref_bytes(specs, shardings) -> int:
+def _ref_bytes(specs, shardings, sizes=MESH_SIZES) -> int:
     """Per-device bytes of a spec tree under its ``NamedSharding`` tree on
-    the 16x16 mesh: each sharded dim divided by its axes' sizes."""
+    the mesh of axis ``sizes`` (the 16x16 mesh by default): each sharded
+    dim divided by its axes' sizes."""
     leaves = jax.tree_util.tree_leaves(specs)
     shs = jax.tree_util.tree_leaves(shardings, is_leaf=lambda x: hasattr(x, "spec"))
     assert len(leaves) == len(shs)
@@ -152,7 +155,7 @@ def _ref_bytes(specs, shardings) -> int:
         for dim, entry in enumerate(tuple(s.spec)):
             if entry is not None:
                 names = entry if isinstance(entry, tuple) else (entry,)
-                shape[dim] //= math.prod(MESH_SIZES[n] for n in names)
+                shape[dim] //= math.prod(sizes[n] for n in names)
         total += math.prod(shape) * np.dtype(a.dtype).itemsize
     return total
 
@@ -422,17 +425,56 @@ def test_report_table_equals_the_reference(cli_run, tmp_path):
     assert stats["refused"] == ["zamba2-2.7b x long_500k"]
 
 
+MULTI_SIZES = {"pod": 2, "data": 16, "model": 16}
+
+
 @pytest.mark.parametrize("arch,shape", [("xlstm-350m", "long_500k"),
                                         ("deepseek-v3-671b", "train_4k"),
                                         ("whisper-small", "decode_32k")])
-def test_item_13d_cells_are_refused_by_name(arch, shape, tmp_path):
+def test_item_13d_cells_trace_and_13e_cells_are_refused_by_name(jdr, arch, shape,
+                                                               tmp_path):
+    """On the 2x16x16 mesh: MLA and whisper (item 13d) trace as ``ok``,
+    their per-device argument bytes equal to the reference's shardings
+    (the named exceptions of the 16x16 test); the recurrent families' cells
+    are written as refused by item 13e, with their argument bytes."""
     res = D.run_cell(arch, shape, "multi", str(tmp_path))
     on_disk = json.loads((tmp_path / f"{arch}__{shape}__multi.json").read_text())
-    assert on_disk == res
-    assert res["status"] == "refused" and res["item"] == "13d" and res["chips"] == 512
-    assert "ROADMAP item 13d" in res["reason"]
-    assert not {"cost_analysis", "roofline", "collectives"} & set(res)
-    assert res["memory_analysis"]["argument_size"] > 0
+    assert on_disk == res and res["chips"] == 512
+    got = res["memory_analysis"]["argument_breakdown"]
+    if arch == "xlstm-350m":
+        assert res["status"] == "refused" and res["item"] == "13e"
+        assert "ROADMAP item 13e" in res["reason"]
+        assert not {"cost_analysis", "roofline", "collectives"} & set(res)
+        assert res["memory_analysis"]["argument_size"] > 0
+        return
+    assert res["status"] == "ok", res
+    assert res["cost_analysis"]["flops"] > 0 and res["collectives"]["total_bytes"] > 0
+    jctx = jshd.ParallelContext.for_mesh(AbstractMesh((2, 16, 16), ("pod", "data", "model")))
+    jmodel = jbuild(jget(arch))
+    with jshd.parallel_context(jctx):
+        if shape == "train_4k":
+            _, specs, in_sh, _, _ = jdr.build_train_cell(
+                jmodel, JSHAPES[shape], jctx, JTrainConfig(remat=True, moment_dtype="int8"))
+        else:
+            _, specs, in_sh, _, _ = jdr.build_decode_cell(jmodel, JSHAPES[shape], jctx)
+    if shape == "decode_32k":
+        for i, name in enumerate(("params", "tokens", "cache")):
+            assert got[name] == _ref_bytes(specs[i], in_sh[i], MULTI_SIZES), name
+        assert got["pos"] == 4 * 128 // 32
+        return
+    with D.fake_mode():
+        cell = D.build_cell(build(get_config(arch), device="cpu"), SHAPES[shape],
+                            RecordingContext.for_config(MeshConfig(pods=2)),
+                            moment_dtype="int8")
+        opt = dict(zip(cell.names, cell.place()))["state"].opt
+        scales = opcount.tree_bytes([opt.mu_scale, opt.nu_scale])
+    state, st_sh = specs[0], in_sh[0]
+    ref_key = _ref_bytes(state.rng, st_sh.rng, MULTI_SIZES)
+    ref_scales = _ref_bytes([state.opt.mu_scale, state.opt.nu_scale],
+                            [st_sh.opt.mu_scale, st_sh.opt.nu_scale], MULTI_SIZES)
+    assert 0 < scales < ref_scales and ref_key == 8
+    assert got["state"] - scales == _ref_bytes(state, st_sh, MULTI_SIZES) - ref_key - ref_scales
+    assert got["batch"] == _ref_bytes(specs[1], in_sh[1], MULTI_SIZES) * 32
 
 
 def test_list_prints_each_archs_cells(capsys):

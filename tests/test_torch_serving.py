@@ -99,9 +99,10 @@ def test_unported_options_are_refused():
     # the families the mesh engine does not serve are refused by name
     with pytest.raises(TypeError, match="DeviceMesh"):
         TEngine(tm, tp, **kw, page_size=8, mesh=object())
-    xm = tbuild(torch_reduced("xlstm-350m"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13d"):
-        TEngine(xm, xm.init(0), **kw, mesh=object())
+    for arch in ("xlstm-350m", "zamba2-2.7b"):
+        xm = tbuild(torch_reduced(arch), device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP item 13e"):
+            TEngine(xm, xm.init(0), **kw, mesh=object())
     # health= is ported (reliability/health): it arms the monitor on a FORMS
     # tree (tests/test_torch_reliability.py)
     from repro_torch.reliability import HealthConfig
