@@ -176,9 +176,12 @@ Phases, each printing JSON lines:
                of the run, #4 bit for bit at its shapes;
 10g'. mesh_shards — #1 and #2 (every other K slice dead) held and timed
                at every local shard shape that model = 2, 4 and 8 give
-               deepseek-v3's q_up, kv_up, wo and shared expert and
-               whisper-small's attention, cross attention and MLP, at M=4
-               and 64 on bf16 x, and whisper's cross k/v at M = 4 x 256;
+               deepseek-v3's q_up, kv_up, wo and shared expert,
+               whisper-small's attention, cross attention and MLP,
+               xlstm-350m's N-split projections (the mLSTM's wi/wf at N = 2
+               and 1, the sLSTM's on f32 x) and zamba2-2.7b's shared block,
+               at M=4 and 64 on bf16 x, and whisper's cross k/v at M = 4 x
+               256;
 10h. xlstm    — full-width xlstm-350m (24 blocks: 21 mLSTM on the chunked
                linear recurrence, 3 sLSTM stepped token by token; d_model
                1024, vocab 50304, untied head), not cut, compressed (163
@@ -193,13 +196,15 @@ Phases, each printing JSON lines:
                the same tree: prefill vs stepwise decode, card vs CPU, and
                forward at S=256 in two chunks vs one; #1 held at every
                (shape, M, x dtype), N = 4 (wi/wf) included, timed at M=4;
-               #4 bit for bit at its three shapes, timed;
+               #4 bit for bit at its three shapes, timed; the tree on a
+               world of one (mesh_xlstm: the plain engine's tokens and
+               launches, decode ms beside the plain engine's);
 10i. zamba    — full-width zamba2-2.7b (54 Mamba2 blocks in 9 groups, the
                shared attention block after each; vocab 32000), not cut,
                served as xlstm (116 polarizations, 172 #1 launches per
-               step); the model check on the full-width model cut to 6
-               layers (one group); #1 and #4 held and timed at its six
-               matrix shapes;
+               step; mesh_zamba as mesh_xlstm); the model check on the
+               full-width model cut to 6 layers (one group); #1 and #4 held
+               and timed at its six matrix shapes;
 10j. cnn      — the paper's CNN pipeline (``launch/cnn_pipeline``): on
                ``tiny_cnn()`` at the reference's step counts (m=4), trained
                and evaluated on the card with ``tests/test_system.py``'s
@@ -271,10 +276,12 @@ Phases, each printing JSON lines:
                K) equal to the whole leaf's slice bit for bit, timed beside
                the byte bound and the launch floor; then ``train --reduced
                --mesh-data 1 --mesh-model 1`` and its ``mesh:`` line;
-15b'. mesh_train_whisper, mesh_train_mla — full-width whisper-small and
-               deepseek-v3 at the deepest cut whose state, gradients and
-               step transients (reckoned on fake tensors) leave ~10 GB of
-               the card (printed): 2 ADMM steps (a fresh Z-update after
+15b'. mesh_train_whisper, mesh_train_mla, mesh_train_xlstm,
+               mesh_train_zamba — full-width whisper-small and xlstm-350m,
+               deepseek-v3 and zamba2-2.7b (int8 moments: full width) at
+               the deepest cut whose state, gradients and step transients
+               (reckoned on fake tensors) leave ~10 GB of the card
+               (printed): 2 ADMM steps (a fresh Z-update after
                each) plain and through the sharded step on a world of one,
                under deterministic algorithms, equal bit for bit (losses,
                gradient norms, every param and Z leaf's sum), #4 launched
@@ -1047,16 +1054,16 @@ SHARD_PROJ = (("q", 1536, 1536, "n"), ("k/v", 1536, 256, "n"), ("o", 1536, 1536,
               ("head", 1536, 151936, "n"))
 
 
-def held_skip(gen, M, K, N, flush):
-    """Kernel #2 at (M, K, N) on bf16 x with every other K slice dead: two
-    launches equal bit for bit, equal to the dense launch, held against the
-    plain version within REL_TOL, and timed beside it, the bf16
-    ``torch.matmul`` of the pre-folded weight and the bound."""
+def held_skip(gen, M, K, N, flush, x_dtype=None):
+    """Kernel #2 at (M, K, N) on bf16 x (or ``x_dtype``) with every other K
+    slice dead: two launches equal bit for bit, equal to the dense launch,
+    held against the plain version within REL_TOL, and timed beside it, the
+    ``torch.matmul`` of the pre-folded weight in x's dtype and the bound."""
     import torch
     from repro_torch.kernels import polarized_matmul as pm
     from repro_torch.kernels.ref import ref_polarized_matmul_skip
 
-    x, mags, signs, scale = kernel_inputs(gen, M, K, N, x_dtype=torch.bfloat16)
+    x, mags, signs, scale = kernel_inputs(gen, M, K, N, x_dtype=x_dtype or torch.bfloat16)
     x = dead_slices(x, 0.5)
     tc = pm.uses_tensor_cores(x.dtype, mags.dtype, "cuda", M)
     bm = pm.tile_rows(M, tc)
@@ -1067,13 +1074,14 @@ def held_skip(gen, M, K, N, flush):
     want = ref_polarized_matmul_skip(x, mags, signs, scale, mask, 8, bm, pm._KC)
     torch.cuda.synchronize()
     abs_err = float((got - want).abs().max())
-    rec = {"M": M, "K": K, "N": N, "route": "tc" if tc else "f32",
+    rec = {"M": M, "K": K, "N": N, "x": str(x.dtype).removeprefix("torch."),
+           "route": "tc" if tc else "f32",
            "max_abs_err": abs_err, "max_rel_err": abs_err / float(want.abs().max())}
     if not (torch.equal(got, again) and torch.equal(got, dense)):
         raise AssertionError(f"the skip launches differ (from each other or dense): {rec}")
     if not rec["max_rel_err"] <= REL_TOL:
         raise AssertionError(f"kernel #2 disagrees with its plain version: {rec}")
-    wb = (mags.float() * signs.float().repeat_interleave(8, dim=0)).to(torch.bfloat16)
+    wb = (mags.float() * signs.float().repeat_interleave(8, dim=0)).to(x.dtype)
     rec["kernel_ms"] = timed_ms(lambda: pm.polarized_matmul_skip(x, mags, signs, scale, 8,
                                                                  mask=mask), flush)
     rec["plain_ms"] = timed_ms(lambda: ref_polarized_matmul_skip(x, mags, signs, scale, mask,
@@ -1082,7 +1090,8 @@ def held_skip(gen, M, K, N, flush):
     if tc:
         rec["bound_ms"], rec["bound_by"] = bound_tc(M, K, N, live_rows=live_rows(mask, K))
     else:
-        rec["bound_ms"], rec["bound_by"] = skip_bound(mask, M, K, N, 1, x_bytes=2)
+        rec["bound_ms"], rec["bound_by"] = skip_bound(mask, M, K, N, 1,
+                                                      x_bytes=x.element_size())
     return rec
 
 
@@ -2584,8 +2593,8 @@ def shard_coords(spec, ctx):
 
 def train_shard_rows(gen, flush, floor_ms, leaves=ADMM_LEAVES, label="mesh_train_kernel"):
     """Kernel #4 (the fresh Z-update's sign election) at the local shards of
-    the stacked leaves ``leaves`` (path -> (L, K, N); qwen2-1.5b's 7 by
-    default) under ``params_shardings(fsdp=True)`` at
+    the leaves ``leaves`` (path -> (L, K, N) stacked or (K, N); qwen2-1.5b's
+    7 by default) under ``params_shardings(fsdp=True)`` at
     each mesh of ``TRAIN_SHARD_MESHES``: on every shard the kernel's output
     and signs equal the whole leaf's slice bit for bit, and the quantized Z
     with the column scale max-reduced over the shards that split K equals
@@ -2602,13 +2611,17 @@ def train_shard_rows(gen, flush, floor_ms, leaves=ADMM_LEAVES, label="mesh_train
         ctx = ParallelContext.for_shape({"data": data, "model": model})
         tree = {}
         for path, shape in leaves.items():
-            root, sub, name = path.split("/")
-            tree.setdefault(root, {}).setdefault(sub, {})[name] = torch.empty(shape,
-                                                                              device="meta")
+            *parents, name = path.split("/")
+            node = tree
+            for key in parents:
+                node = node.setdefault(key, {})
+            node[name] = torch.empty(shape, device="meta")
         specs = params_shardings(tree, ctx, fsdp=True)
         for path, shape in leaves.items():
-            root, sub, name = path.split("/")
-            sp = padded_spec(specs[root][sub][name].spec, len(shape))
+            node = specs
+            for key in path.split("/"):
+                node = node[key]
+            sp = padded_spec(node.spec, len(shape))
             v = torch.randn(shape, generator=gen, device="cuda")
             out, signs = admm_polarize(v, m=8, rule="sum")
             z = Q.project_quantize(out, spec, Q.scale_for(out, spec))
@@ -4193,6 +4206,18 @@ MLA_SHARD_PROJ = (("mla/q_up", 1536, 24576, "n"), ("mla/kv_up", 512, 32768, "n")
                   ("moe/shared_down", 2048, 7168, "k"))
 WHISPER_SHARD_PROJ = (("attn|xattn/wq|wk|wv", 768, 768, "n"), ("attn|xattn/wo", 768, 768, "k"),
                       ("mlp/up", 768, 3072, "n"), ("mlp/down", 3072, 768, "k"))
+# xlstm-350m's and zamba2-2.7b's: xLSTM's N-split projections (the mLSTM's
+# q/k/v/o on bf16 x, the sLSTM's z/i/f on f32 x) and the mLSTM's wi/wf
+# (N = 4 heads: 2 and 1 columns at tp = 2 and 4, whole at 8), its wout and
+# wo_g whole (no shard); Zamba2's shared block by columns (q/k/v, gate/up)
+# and whole-fragment rows (wo, down), its Mamba leaves whole (no rule
+# matches blocks/in_proj or blocks/out_proj)
+XLSTM_SHARD_PROJ = (("mlstm/wq|wk|wv|wo", 1024, 1024, "n"), ("mlstm/wi|wf", 1024, 4, "n"),
+                    ("slstm/wz|wi|wf (f32 x)", 1024, 1024, "n", "float32"))
+ZAMBA_SHARD_PROJ = (("shared_attn/attn/wq|wk|wv", 2560, 2560, "n"),
+                    ("shared_attn/attn/wo", 2560, 2560, "k"),
+                    ("shared_attn/mlp/gate|up", 2560, 10240, "n"),
+                    ("shared_attn/mlp/down", 10240, 2560, "k"))
 CROSS_KV_M = DECODE_M * SERVE_MAX_LEN    # the cross k/v of a decode step: slots x max_len
 MESH_TRAIN_FAMILY_STEPS = 2
 # deepseek-v3's train cut: the most layers (at most MLA_CUT's), then the
@@ -4206,6 +4231,13 @@ MLA_TRAIN_BUDGET = 70e9
 MLA_TRAIN_TRANSIENT_LEAVES = 4
 MLA_TRAIN = dict(seq_len=64, global_batch=2, moment_dtype="int8")
 WHISPER_TRAIN = dict(seq_len=64, global_batch=2, moment_dtype="float32")
+# the recurrent families' sharded train pairs: xlstm-350m at full width
+# (5.96 GB reckoned with f32 moments); zamba2-2.7b at the deepest depth in
+# whole groups of shared_attn_every Mamba blocks that MLA_TRAIN_BUDGET
+# holds, reckoned as deepseek-v3's with int8 moments (full width, 54
+# layers: 66.05 GB; f32 moments would take 80.58 GB)
+XLSTM_TRAIN = dict(seq_len=64, global_batch=2, moment_dtype="float32")
+ZAMBA_TRAIN = dict(seq_len=64, global_batch=2, moment_dtype="int8")
 
 
 def mesh_serve(label, model, tree, kw, prompts, plain_engine, plain_tokens, threshold):
@@ -4257,15 +4289,22 @@ def mesh_serve(label, model, tree, kw, prompts, plain_engine, plain_tokens, thre
 
 def shard_rows(label, projs, gen, flush, ms=(DECODE_M, PREFILL_M)):
     """Kernels #1 and #2 (every other K slice dead) held and timed at every
-    local shard shape of ``projs`` at model = SHARD_TP, at each M of
-    ``ms`` on bf16 x: two launches equal bit for bit, #2 equal to #1."""
+    local shard shape of ``projs`` ((name, K, N, cut[, x dtype])) at model =
+    SHARD_TP, at each M of ``ms`` on bf16 x (or the projection's x dtype):
+    two launches equal bit for bit, #2 equal to #1.  A dim that tp does not
+    divide replicates (the rank holds the whole leaf, held in its family's
+    phase): no row."""
+    import torch
     rows = {"polarized_matmul": [], "polarized_matmul_skip": []}
     for tp in SHARD_TP:
-        for name, K, N, cut in projs:
+        for name, K, N, cut, *xd in projs:
+            if (K if cut == "k" else N) % tp:
+                continue
+            xd = getattr(torch, xd[0]) if xd else None
             k, n = (K // tp, N) if cut == "k" else (K, N // tp)
             for M in ms:
-                one = held_matmul(gen, M, k, n, flush=flush)
-                two = held_skip(gen, M, k, n, flush)
+                one = held_matmul(gen, M, k, n, flush=flush, x_dtype=xd)
+                two = held_skip(gen, M, k, n, flush, x_dtype=xd)
                 for key, rec in (("polarized_matmul", one), ("polarized_matmul_skip", two)):
                     rec.update(tp=tp, proj=name)
                     rows[key].append(rec)
@@ -4275,16 +4314,22 @@ def shard_rows(label, projs, gen, flush, ms=(DECODE_M, PREFILL_M)):
 
 def phase_mesh_shards():
     """#1 and #2 at the local shard shapes that model = 2, 4 and 8 give
-    deepseek-v3's and whisper-small's FORMS leaves (``MLA_SHARD_PROJ``,
-    ``WHISPER_SHARD_PROJ``) at M=4 and M=64, and whisper's cross k/v at
-    M = slots x max_len.  Returns the rows by family."""
+    deepseek-v3's, whisper-small's, xlstm-350m's and zamba2-2.7b's FORMS
+    leaves (``MLA_SHARD_PROJ``, ``WHISPER_SHARD_PROJ``, ``XLSTM_SHARD_PROJ``,
+    ``ZAMBA_SHARD_PROJ``) at M=4 and M=64, and whisper's cross k/v at M =
+    slots x max_len.  Returns the rows by family."""
     import torch
     gen = torch.Generator(device="cuda")
     gen.manual_seed(19)
     scrub = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
     flush = lambda: scrub.zero_()
     out = {"mla": shard_rows("mesh_mla_kernel", MLA_SHARD_PROJ, gen, flush),
-           "whisper": shard_rows("mesh_whisper_kernel", WHISPER_SHARD_PROJ, gen, flush)}
+           "whisper": shard_rows("mesh_whisper_kernel", WHISPER_SHARD_PROJ, gen, flush),
+           "xlstm": shard_rows("mesh_xlstm_kernel", XLSTM_SHARD_PROJ, gen, flush),
+           "zamba": shard_rows("mesh_zamba_kernel", ZAMBA_SHARD_PROJ, gen, flush)}
+    narrow = sorted({r["N"] for r in out["xlstm"]["polarized_matmul"] if r["N"] < 4})
+    if narrow != [1, 2]:
+        raise AssertionError(f"the mLSTM's wi/wf shards were not held at N = 1 and 2: {narrow}")
     cross = shard_rows("mesh_whisper_kernel", (("xattn/wk|wv (cross k/v)", 768, 768, "n"),),
                        gen, flush, ms=(CROSS_KV_M,))
     for key, rs in cross.items():
@@ -4294,37 +4339,41 @@ def phase_mesh_shards():
     return out
 
 
-def mla_train_cut():
-    """deepseek-v3's train cut (see MLA_TRAIN_BUDGET): each (layers,
-    experts) candidate's train state (``MLA_TRAIN``'s moments, ADMM),
-    gradients and transients reckoned on fake tensors (nothing allocated);
-    the deepest that fits, then the one with the most experts.  Returns
-    (the config, the reckoning in GB)."""
+def reckon_train_gb(cfg, moment_dtype):
+    """The train state (``moment_dtype`` moments, ADMM), gradients and
+    transients (MLA_TRAIN_TRANSIENT_LEAVES x the largest leaf in f32) of
+    ``cfg`` in GB, reckoned on fake tensors (nothing allocated)."""
     from repro_torch.analysis import opcount
-    from repro_torch.configs import get_config
     from repro_torch.core import paths
     from repro_torch.launch import dryrun as D
     from repro_torch.models.registry import build
     from repro_torch.training import train_loop
 
+    tcfg = train_config(moment_dtype=moment_dtype)
+    with D.fake_mode():
+        state, _ = train_loop.init_train_state(build(cfg, device="cpu"), tcfg,
+                                               params=D.param_specs(cfg, "cpu"))
+        state_b = opcount.tree_bytes([state.params, state.opt.mu, state.opt.nu,
+                                      state.opt.mu_scale, state.opt.nu_scale, state.admm])
+        grads_b = opcount.tree_bytes(state.params)
+        largest = max(t.numel() for t in paths.leaves(state.params)) * 4
+    return (state_b + grads_b + MLA_TRAIN_TRANSIENT_LEAVES * largest) / 1e9
+
+
+def mla_train_cut():
+    """deepseek-v3's train cut (see MLA_TRAIN_BUDGET): each (layers,
+    experts) candidate reckoned by :func:`reckon_train_gb`; the deepest
+    that fits, then the one with the most experts.  Returns (the config,
+    the reckoning in GB)."""
+    from repro_torch.configs import get_config
+
     published = get_config(MLA_ARCH)
-    tcfg = train_config(moment_dtype=MLA_TRAIN["moment_dtype"])
     experts = [e for e in (MLA_CUT["num_experts"] >> i for i in range(5))
                if e >= published.experts_per_token]
-    reckoned = {}
-    for layers in range(1, MLA_CUT["num_layers"] + 1):
-        for e in experts:
-            cfg = dataclasses.replace(published, num_layers=layers, num_experts=e)
-            with D.fake_mode():
-                state, _ = train_loop.init_train_state(build(cfg, device="cpu"), tcfg,
-                                                       params=D.param_specs(cfg, "cpu"))
-                state_b = opcount.tree_bytes([state.params, state.opt.mu, state.opt.nu,
-                                              state.opt.mu_scale, state.opt.nu_scale,
-                                              state.admm])
-                grads_b = opcount.tree_bytes(state.params)
-                largest = max(t.numel() for t in paths.leaves(state.params)) * 4
-            reckoned[f"{layers}x{e}"] = (state_b + grads_b
-                                         + MLA_TRAIN_TRANSIENT_LEAVES * largest) / 1e9
+    reckoned = {f"{layers}x{e}": reckon_train_gb(
+                    dataclasses.replace(published, num_layers=layers, num_experts=e),
+                    MLA_TRAIN["moment_dtype"])
+                for layers in range(1, MLA_CUT["num_layers"] + 1) for e in experts}
     fits = [tuple(map(int, k.split("x"))) for k, gb in reckoned.items()
             if gb * 1e9 <= MLA_TRAIN_BUDGET]
     if not fits:
@@ -4332,6 +4381,25 @@ def mla_train_cut():
     layers, e = max(fits)
     return (dataclasses.replace(published, num_layers=layers, num_experts=e),
             {"reckoned_gb": reckoned, "budget_gb": MLA_TRAIN_BUDGET / 1e9})
+
+
+def zamba_train_cut():
+    """zamba2-2.7b's train depth (see ZAMBA_TRAIN): the deepest in whole
+    groups of ``shared_attn_every`` Mamba blocks whose reckoning
+    (:func:`reckon_train_gb`) MLA_TRAIN_BUDGET holds, the published 54 if it
+    does.  Returns (the config, the reckoning in GB)."""
+    from repro_torch.configs import get_config
+
+    published = get_config(ZAMBA_ARCH)
+    per = published.shared_attn_every
+    reckoned = {}
+    for layers in range(published.num_layers, 0, -per):
+        reckoned[layers] = reckon_train_gb(dataclasses.replace(published, num_layers=layers),
+                                           ZAMBA_TRAIN["moment_dtype"])
+        if reckoned[layers] * 1e9 <= MLA_TRAIN_BUDGET:
+            return (dataclasses.replace(published, num_layers=layers),
+                    {"reckoned_gb": reckoned, "budget_gb": MLA_TRAIN_BUDGET / 1e9})
+    raise AssertionError(f"no depth of zamba2-2.7b fits the card: {reckoned}")
 
 
 
@@ -4404,21 +4472,26 @@ def train_pair(cfg, tcfg, shape):
 
 
 def phase_mesh_train_families(floor_ms):
-    """Sharded training of whisper-small (full width) and deepseek-v3 (MLA,
-    its MoE and MTP module; at :func:`mla_train_cut`, printed) on a world
-    of one: :func:`train_pair` with ADMM (a fresh Z-update after each of 2
-    steps): the sharded run equal to the plain one bit for bit (losses,
-    gradient norms, every param and Z leaf's sum), #4 launched once per
-    constrained leaf per Z-update in both.  Then #4 bit for bit at every
-    training shard of their stacked leaves at data x model = 2x2, 4x2 and
-    8x1 (:func:`train_shard_rows`).  Returns the sharded runs' #4 launches
-    and the shard rows."""
+    """Sharded training of whisper-small (full width), deepseek-v3 (MLA,
+    its MoE and MTP module; at :func:`mla_train_cut`, printed), xlstm-350m
+    (full width) and zamba2-2.7b (at :func:`zamba_train_cut`, printed) on
+    a world of one: :func:`train_pair` with ADMM (a fresh Z-update after
+    each of 2 steps): the sharded run equal to the plain one bit for bit
+    (losses, gradient norms, every param and Z leaf's sum), #4 launched
+    once per constrained leaf per Z-update in both.  Then #4 bit for bit at
+    every training shard of their stacked leaves (xLSTM: one mLSTM and one
+    sLSTM block's matrices; Zamba2: the Mamba stacks and the shared block)
+    at data x model = 2x2, 4x2 and 8x1 (:func:`train_shard_rows`).  Returns
+    the sharded runs' #4 launches and the shard rows."""
     import torch
     from repro_torch.configs import get_config
 
     mla_cfg, reckoning = mla_train_cut()
+    zamba_cfg, zamba_reckoning = zamba_train_cut()
     families = {"whisper": (get_config(WHISPER_ARCH), WHISPER_TRAIN),
-                "mla": (mla_cfg, MLA_TRAIN)}
+                "mla": (mla_cfg, MLA_TRAIN),
+                "xlstm": (get_config(XLSTM_ARCH), XLSTM_TRAIN),
+                "zamba": (zamba_cfg, ZAMBA_TRAIN)}
     launches = {}
     for name, (cfg, shape) in families.items():
         tcfg = train_config(total_steps=100, admm_update_every=1,
@@ -4431,6 +4504,9 @@ def phase_mesh_train_families(floor_ms):
         if name == "mla":
             extra = {"cut": {k: [getattr(get_config(MLA_ARCH), k), getattr(cfg, k)]
                              for k in ("num_layers", "num_experts")}, **reckoning}
+        if name == "zamba":
+            extra = {"cut": {"num_layers": [get_config(ZAMBA_ARCH).num_layers,
+                                            cfg.num_layers]}, **zamba_reckoning}
         emit(f"mesh_train_{name}", arch=cfg.name, mesh={"data": 1, "model": 1},
              backend="nccl", world=1, steps=MESH_TRAIN_FAMILY_STEPS, **shape, **extra,
              params=plain["params"], bit_equal=equal,
@@ -4454,7 +4530,11 @@ def phase_mesh_train_families(floor_ms):
     rows = {"whisper": train_shard_rows(gen, flush, floor_ms, WHISPER_TRAIN_LEAVES,
                                         "mesh_train_whisper_kernel"),
             "mla": train_shard_rows(gen, flush, floor_ms, mla_train_leaves(mla_cfg),
-                                    "mesh_train_mla_kernel")}
+                                    "mesh_train_mla_kernel"),
+            "xlstm": train_shard_rows(gen, flush, floor_ms, XLSTM_TRAIN_LEAVES,
+                                      "mesh_train_xlstm_kernel"),
+            "zamba": train_shard_rows(gen, flush, floor_ms, zamba_train_leaves(zamba_cfg),
+                                      "mesh_train_zamba_kernel")}
     del scrub
     torch.cuda.empty_cache()
     return launches, rows
@@ -4468,6 +4548,28 @@ WHISPER_TRAIN_LEAVES = {
     **{f"dec_blocks/{a}/{w}": (12, 768, 768) for a in ("attn", "xattn")
        for w in ("wk", "wo", "wq", "wv")},
     "dec_blocks/mlp/down": (12, 3072, 768), "dec_blocks/mlp/up": (12, 768, 3072)}
+
+
+# xlstm-350m's crossbar leaves, one block of each kind (every block of a
+# kind has the same specs: the list counts as scanned): the mLSTM at block
+# 1, the sLSTM at block 0
+XLSTM_TRAIN_LEAVES = {
+    **{f"blocks/1/mlstm/{w}": (1024, 1024) for w in ("wq", "wk", "wv", "wo", "wout")},
+    **{f"blocks/1/mlstm/{w}": (1024, 4) for w in ("wi", "wf")},
+    **{f"blocks/0/slstm/{w}": (1024, 1024) for w in ("wz", "wi", "wf", "wo_g", "wout")}}
+
+
+def zamba_train_leaves(cfg):
+    """zamba2-2.7b's crossbar leaves at ``cfg``'s depth: the stacked Mamba
+    in_proj/out_proj (L, K, N) and the shared block's 7 matrices."""
+    d, d_in = cfg.d_model, cfg.ssm_expand * cfg.d_model
+    heads = d_in // cfg.ssm_head_dim
+    return {"blocks/in_proj": (cfg.num_layers, d, 2 * d_in + 2 * cfg.ssm_state + heads),
+            "blocks/out_proj": (cfg.num_layers, d_in, d),
+            **{f"shared_attn/attn/{w}": (d, cfg.num_heads * cfg.hd())
+               for w in ("wq", "wk", "wv", "wo")},
+            **{f"shared_attn/mlp/{w}": (d, cfg.d_ff) for w in ("gate", "up")},
+            "shared_attn/mlp/down": (cfg.d_ff, d)}
 
 
 def mla_train_leaves(cfg):
@@ -4503,7 +4605,8 @@ RECURRENT_CHECK = dict(slots=2, max_len=64, prompt=8, seq=256)
 RECURRENT_TOL = 1e-3
 
 
-def serve_recurrent(cfg, want_pol, prefill_launches, step_launches, state_leaves, step_calls):
+def serve_recurrent(cfg, want_pol, prefill_launches, step_launches, state_leaves, step_calls,
+                    label):
     """A recurrent family at ``cfg``, random weights from seed 0, compressed
     by FORMS (m=8, 8 bits, energy rule; ``want_pol`` polarizations
     reckoned) and served with ``page_size=16`` asked for: the engine falls
@@ -4516,7 +4619,10 @@ def serve_recurrent(cfg, want_pol, prefill_launches, step_launches, state_leaves
     leaf per decode step.
     The decode step's byte bound: every code, sign and scale of the tree
     read once, and the recurrent state (the cache leaves in
-    ``state_leaves``) read and written once."""
+    ``state_leaves``) read and written once.  Then ``mesh_serve`` (line
+    ``mesh_<label>``): the same tree through ``ServingEngine(mesh=)`` on a
+    world of one, its tokens and launches the plain engine's, so the
+    launches reckoned here too."""
     import torch
     from repro_torch.core import paths
     from repro_torch.forms import FormsSpec, compress_tree, compressed_paths
@@ -4572,6 +4678,11 @@ def serve_recurrent(cfg, want_pol, prefill_launches, step_launches, state_leaves
         raise AssertionError(f"two greedy {cfg.name} runs gave other tokens")
     state_bytes = cache_nbytes({name: engine.cache[name] for name in state_leaves})
     last = runs[-1]
+    kw = dict(spec=spec, batch_slots=4, max_len=SERVE_MAX_LEN, decode_block=4, device="cuda")
+    mesh = mesh_serve(label, model, tree, kw, prompts, engine, last["tokens"], 0.0)
+    if mesh != last["launches"]:
+        raise AssertionError(f"{cfg.name} on a mesh launched {mesh}, reckoned "
+                             f"{last['launches']}")
     line = dict(arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model, vocab=cfg.vocab_size,
                 params=n_params, init_ms=init_ms, compress_s=compress_ms / 1e3,
                 compression=rep.summary(), tree_gb=tree_bytes / 1e9, peak_gb=peak_gb,
@@ -4585,7 +4696,7 @@ def serve_recurrent(cfg, want_pol, prefill_launches, step_launches, state_leaves
                 step_bound_ms=(tree_bytes + 2 * state_bytes) / HBM_BYTES_PER_S * 1e3,
                 mean_prefill_ms=[r["mean_prefill_ms"] for r in runs],
                 launches=last["launches"], launches_per_decode_step=step_launches,
-                tokens=last["tokens"])
+                mesh_launches=mesh, tokens=last["tokens"])
     del engine
     return line, tree
 
@@ -4680,7 +4791,9 @@ def phase_xlstm():
     ``serve_recurrent`` with 163 polarizations reckoned (7 per mLSTM, 5 per
     sLSTM, the head) and 163 #1 launches per decode step on the f32 kernel
     (the sLSTM's wz/wi/wf/wo_g take f32 x at every M, so its prefill runs
-    them on the f32 kernel at M = S).  The model check on the same tree.
+    them on the f32 kernel at M = S), then served on a world of one
+    (``mesh_xlstm``: the same tokens and launches).  The model check on the
+    same tree.
     #1 held at every (shape, M, x dtype) of the run, N = 4 included (the
     mLSTM's wi/wf), timed at M=4 beside the library call and the bound; #4
     bit for bit at the three matrix shapes, timed."""
@@ -4703,7 +4816,7 @@ def phase_xlstm():
     per_step = 7 * n_m + 5 * n_s + 1
     line, tree = serve_recurrent(cfg, 7 * n_m + 5 * n_s + 1, prefill_launches, per_step,
                                  [f"layer{i}" for i in range(cfg.num_layers)],
-                                 lambda path: 1)   # every leaf is one 2-D matrix
+                                 lambda path: 1, "xlstm")   # every leaf is one 2-D matrix
     check = recurrent_model_check(cfg, tree, xlstm)
     del tree
     torch.cuda.empty_cache()
@@ -4740,7 +4853,8 @@ def phase_xlstm():
                                    "bound_by")} for n, r in m4.items()},
          decode_step_m4=step, polarize=pol, polarize_tree=pol_tree)
     return {"launches": line["launches"], "polarize_launches": line["polarize_launches"],
-            "step_m4": step, "gates_m4": m4["gates"], "pol_tree": pol_tree}
+            "mesh_launches": line["mesh_launches"], "step_m4": step, "gates_m4": m4["gates"],
+            "pol_tree": pol_tree}
 
 
 def phase_zamba():
@@ -4750,9 +4864,10 @@ def phase_zamba():
     not cut: ``serve_recurrent`` with 116 polarizations reckoned (in_proj
     and out_proj per layer, the shared block's 7, the head) and 172 #1
     launches per decode step (2 per Mamba block, 7 per shared-block
-    application, the head).  The model check on the full-width model cut to
-    ZAMBA_CHECK_LAYERS layers (one group), which keeps its CPU side near a
-    minute.  #1 held at every (shape, M) of the run, timed at M=4; #4 bit
+    application, the head), then served on a world of one (``mesh_zamba``:
+    the same tokens and launches).  The model check on the full-width
+    model cut to ZAMBA_CHECK_LAYERS layers (one group), which keeps its CPU
+    side near a minute.  #1 held at every (shape, M) of the run, timed at M=4; #4 bit
     for bit at each matrix shape, timed."""
     import torch
     from repro_torch.configs import get_config
@@ -4775,7 +4890,7 @@ def phase_zamba():
     line, tree = serve_recurrent(
         cfg, 2 * L + 7 + 1, prefill_launches, per_call + 1, ["ssm", "conv"],
         lambda path: L if path.startswith("blocks/") else
-        groups if path.startswith("shared_attn/") else 1)
+        groups if path.startswith("shared_attn/") else 1, "zamba")
     cut = dataclasses.replace(cfg, num_layers=ZAMBA_CHECK_LAYERS)
     check = recurrent_model_check(cut, {**tree, "blocks": _first_layers(tree["blocks"],
                                                                          ZAMBA_CHECK_LAYERS)},
@@ -4816,7 +4931,7 @@ def phase_zamba():
                                    "bound_by")} for n, r in m4.items()},
          decode_step_m4=step, polarize=pol, polarize_tree=pol_tree)
     return {"launches": line["launches"], "polarize_launches": line["polarize_launches"],
-            "step_m4": step, "pol_tree": pol_tree}
+            "mesh_launches": line["mesh_launches"], "step_m4": step, "pol_tree": pol_tree}
 
 
 # --------------------------------------------------------------------------
@@ -5399,6 +5514,7 @@ def main() -> int:
             and all(all(v.values()) for v in dense_launches.values())
             and all(mesh_launches.values()) and mesh_train_launches
             and all(mla["mesh_launches"]) and all(whisper["mesh_launches"])
+            and all(xlstm["mesh_launches"]) and all(zamba["mesh_launches"])
             and all(family_train_launches.values())):
         raise AssertionError("a kernel of a path was never launched on it")
 
@@ -5447,6 +5563,8 @@ def main() -> int:
         "mesh_shards": [r for r in mesh_rows["polarized_matmul"] if r["route"] == "f32"],
         "mesh_mla_launches": mla["mesh_launches"][0],
         "mesh_whisper_launches": whisper["mesh_launches"][0],
+        "mesh_xlstm_launches": xlstm["mesh_launches"][0],
+        "mesh_zamba_launches": zamba["mesh_launches"][0],
         "mesh_family_shards": {f: [r for r in rows["polarized_matmul"] if r["route"] == "f32"]
                                for f, rows in family_shards.items()},
         "verify": [r for r in verify_rows if r["route"] == "f32"],
@@ -5488,11 +5606,13 @@ def main() -> int:
                "a data=1,model=1 mesh; mesh_shards: every local shard shape of the "
                "slice's projections and head at model = 2, 4, 8 (N/tp columns, Kp/tp "
                "rows for o/down), M=4 on bf16 x (M=64: the tensor-core entry's); "
-               "mesh_mla_launches, mesh_whisper_launches: the mla and whisper phases' "
+               "mesh_mla_launches, mesh_whisper_launches, mesh_xlstm_launches, "
+               "mesh_zamba_launches: the mla, whisper, xlstm and zamba phases' "
                "trees served on a data=1,model=1 mesh; mesh_family_shards: every local "
                "shard shape of their FORMS leaves at model = 2, 4, 8 (MLA q_up, kv_up, wo, "
-               "the shared expert; whisper's attention, cross attention and MLP), M=4 "
-               "on bf16 x",
+               "the shared expert; whisper's attention, cross attention and MLP; xLSTM's "
+               "N-split projections, the mLSTM's wi/wf at N = 2 and 1, the sLSTM's on "
+               "f32 x; Zamba2's shared block), M=4 on bf16 x",
     }, {
         "name": "polarized_matmul_skip", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/polarized_matmul.cu",
@@ -5515,8 +5635,8 @@ def main() -> int:
         "per": "the 7 projections of one qwen2-1.5b layer at M=4, f32 x, every other "
                "K slice of x zero (bf16_x: the same on bf16 x; mesh_shards: the local "
                "shard shapes of the mesh phase, every other K slice dead, M=4 on bf16 "
-               "x; M=64: the tensor-core entry's; mesh_family_shards: the same at MLA's "
-               "and whisper's shard shapes)",
+               "x; M=64: the tensor-core entry's; mesh_family_shards: the same at MLA's, "
+               "whisper's, xLSTM's (the sLSTM's on f32 x) and Zamba2's shard shapes)",
     }, {
         "name": "bitserial_crossbar", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/bitserial_crossbar.cu",
@@ -5598,10 +5718,12 @@ def main() -> int:
                "train run's (4 steps on a data=1,model=1 mesh); mesh_train_shards: one local "
                "shard of each stacked leaf at data x model = 2x2, 4x2 and 8x1 (fsdp=True "
                "specs), sum rule, every shard held bit for bit; "
-               "mesh_train_family_launches: whisper-small's and the cut deepseek-v3's "
-               "sharded train runs (2 steps, a fresh Z-update after each, one launch per "
-               "constrained leaf); mesh_train_family_shards: their stacked leaves' "
-               "shards, as mesh_train_shards; "
+               "mesh_train_family_launches: whisper-small's, the cut deepseek-v3's, "
+               "xlstm-350m's and zamba2-2.7b's sharded train runs (2 steps, a fresh "
+               "Z-update after each, one launch per constrained leaf); "
+               "mesh_train_family_shards: their stacked leaves' shards (xLSTM: one "
+               "mLSTM and one sLSTM block's matrices; Zamba2: the Mamba stacks and the "
+               "shared block), as mesh_train_shards; "
                "moe_expert_triple: one (layer, expert)'s w_gate, w_up (2048x1024) "
                "and w_down (1024x2048), energy rule; per_matrix: those calls "
                "for the 7 matrices of one qwen2-1.5b layer, energy rule",
@@ -5628,6 +5750,8 @@ def main() -> int:
                         for r in rs if r["route"] == "tc"],
         "mesh_mla_launches": mla["mesh_launches"][1],
         "mesh_whisper_launches": whisper["mesh_launches"][1],
+        "mesh_xlstm_launches": xlstm["mesh_launches"][1],
+        "mesh_zamba_launches": zamba["mesh_launches"][1],
         "mesh_family_shards": {f: [dict(r, skip=key.endswith("skip"))
                                    for key, rs in rows.items() for r in rs
                                    if r["route"] == "tc"]
@@ -5678,8 +5802,9 @@ def main() -> int:
                "bits: the 7 at M=64 on 2-, 4- and 6-bit codes; mesh_launches: the slice "
                "served on a data=1,model=1 mesh; mesh_shards: the mesh phase's shard "
                "shapes at M=64 (skip: the block-skip launch, every other K slice dead); "
-               "mesh_mla_launches, mesh_whisper_launches: their phases' trees on a "
-               "data=1,model=1 mesh; mesh_family_shards: MLA's and whisper's shard shapes "
+               "mesh_mla_launches, mesh_whisper_launches, mesh_xlstm_launches, "
+               "mesh_zamba_launches: their phases' trees on a data=1,model=1 mesh; "
+               "mesh_family_shards: MLA's, whisper's, xLSTM's and Zamba2's shard shapes "
                "at M=64 and whisper's cross k/v at M = 4 slots x 256",
     }]}
     emit("total", seconds=time.perf_counter() - t_start)

@@ -2,9 +2,8 @@
 
   python -m repro_torch.analysis.report <dir>
 
-Cells refused by name (``status: "refused"``) and failed ones are skipped,
-as the JAX package's report skips every cell that is not ``ok``; the
-refused cells are listed after each table.
+Cells that are not ``ok`` are skipped, as the JAX package's report skips
+them; ``summary_stats`` also lists the cells over the card's HBM.
 """
 from __future__ import annotations
 
@@ -51,8 +50,6 @@ def summary_stats(rows: List[Dict], mesh: str = "single") -> Dict:
         bn[d["roofline"]["bottleneck"]] = bn.get(d["roofline"]["bottleneck"], 0) + 1
     return {"cells": len(ok), "bottlenecks": bn,
             "total_compile_s": sum(d["compile_s"] for d in ok),
-            "refused": sorted(f"{d['arch']} x {d['shape']}" for d in rows
-                              if d.get("mesh") == mesh and d.get("status") == "refused"),
             "over_hbm": sorted(f"{d['arch']} x {d['shape']}" for d in ok
                                if d.get("memory_analysis", {}).get("fits_hbm") is False)}
 

@@ -158,20 +158,6 @@ def param_spec(path: str, shape: Tuple[int, ...], scanned: bool = False) -> Spec
     return _trim(entries)
 
 
-#: the families that serve and train on a mesh of more than one device:
-#: the attention families (dense, MoE and MLA, whisper)
-MESH_FAMILIES = ("dense", "moe", "whisper")
-
-
-def check_mesh_family(cfg: Any, what: str) -> None:
-    """Refuse by name a family that does not run on a mesh of more than one
-    device (``what``: ``"serving"`` or ``"training"``)."""
-    if cfg.family not in MESH_FAMILIES:
-        raise NotImplementedError(
-            f"{what} the {cfg.family} family on a mesh is not ported: the mesh runs the "
-            "attention families (dense, MoE, MLA, whisper) (ROADMAP item 13e)")
-
-
 FSDP_THRESHOLD = 1 << 22   # leaves above 4M elements get FSDP sharding
 
 # tree prefixes whose params carry a leading scan (layer) axis

@@ -31,11 +31,6 @@ the MoE train cells' bytes differ by about 0.01% (a decomposition in their
 backward that depends on the device).  The artifact names the device as
 ``traced_device``.
 
-The families that do not run on a mesh of more than one device (xLSTM,
-Zamba2: ROADMAP item 13e) are refused by that item's name: their cells
-write ``status: "refused"`` with the per-device argument bytes of their
-specs and nothing traced.
-
 Usage:
   python -m repro_torch.launch.dryrun --arch yi-9b --shape train_4k --mesh single
   python -m repro_torch.launch.dryrun --all --mesh both --out DIR
@@ -63,7 +58,6 @@ from repro_torch.distributed.context import RecordingContext, parallel_context
 from repro_torch.models.registry import Model, build
 
 PyTree = Any
-REFUSED_ITEM = "13e"
 
 
 def trace_device() -> str:
@@ -277,24 +271,6 @@ def build_cell(model: Model, shape: ShapeConfig, ctx, *, admm: bool = False,
     return build_decode_cell(model, shape, ctx, int8_weights=int8_weights)
 
 
-def refusal(model: Model, kind: str, ctx) -> Optional[str]:
-    """The port's own refusal of a family on this mesh (ROADMAP item 13e),
-    or None: ``train_loop.check_train_mesh`` for a train cell, the serving
-    engine's ``_check_mesh_family`` for the others."""
-    if ctx.entry_size(tuple(ctx.shape)) == 1:
-        return None
-    from repro_torch.serving.engine import _check_mesh_family
-    from repro_torch.training.train_loop import check_train_mesh
-    try:
-        if kind == "train":
-            check_train_mesh(model, ctx)
-        else:
-            _check_mesh_family(model)
-    except NotImplementedError as e:
-        return str(e)
-    return None
-
-
 # ---------------------------------------------------------------------------
 # tracing
 # ---------------------------------------------------------------------------
@@ -385,20 +361,6 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, out_dir: str,
                           int8_weights=int8_weights)
         local = cell.place()
         setup_s = time.perf_counter() - t0
-        reason = refusal(model, shape.kind, ctx)
-        if reason is not None:
-            arg_bytes = {n: opcount.tree_bytes(a) for n, a in zip(cell.names, local)}
-            arg = sum(arg_bytes.values())
-            result.update(status="refused", item=REFUSED_ITEM, reason=reason,
-                          setup_s=setup_s,
-                          memory_analysis={"argument_size": arg,
-                                           "argument_breakdown": arg_bytes,
-                                           "fits_hbm": arg <= roof.H100.hbm_bytes},
-                          **common)
-            _write(out_dir, tag, result)
-            print(f"  REFUSED ({reason})")
-            print(f"  argument_size {arg / 2**30:.2f} GiB per device")
-            return result
         trace = trace_step(cell, local, ctx, record_ops=save_hlo)
         del cell, local
 
@@ -484,7 +446,7 @@ def main(argv=None) -> None:
             print(a, cells_for(a))
         return
 
-    failures, refused = [], []
+    failures = []
     for arch in archs:
         shapes = cells_for(arch) if args.shape is None else [args.shape]
         for shape in shapes:
@@ -496,18 +458,14 @@ def main(argv=None) -> None:
                 tag = f"{arch} x {shape} x {mesh_kind}"
                 print(f"=== {tag} ===", flush=True)
                 try:
-                    res = run_cell(arch, shape, mesh_kind, args.out, admm=args.admm,
-                                   microbatches=args.microbatches,
-                                   save_hlo=args.save_hlo, moe_int8=args.moe_int8,
-                                   capacity_factor=args.capacity_factor,
-                                   int8_weights=args.int8_weights)
-                    if res["status"] == "refused":
-                        refused.append(tag)
+                    run_cell(arch, shape, mesh_kind, args.out, admm=args.admm,
+                             microbatches=args.microbatches,
+                             save_hlo=args.save_hlo, moe_int8=args.moe_int8,
+                             capacity_factor=args.capacity_factor,
+                             int8_weights=args.int8_weights)
                 except Exception:
                     failures.append(tag)
                     traceback.print_exc()
-    if refused:
-        print(f"REFUSED CELLS (ROADMAP item {REFUSED_ITEM}):", refused)
     if failures:
         print("FAILED CELLS:", failures)
         raise SystemExit(1)

@@ -30,10 +30,9 @@ state (FSDP over the batch axes for leaves of 4M elements or more, tensor
 parallel over ``model``) and its rows of every global batch; at 1/1/1 a
 world of one.  It prints a ``mesh:`` line, and rank 0 prints every line.
 On the card start one process per card with ``torchrun``; on the CPU
-``--fake-devices N`` runs the N ranks as gloo processes.  The attention
-families (dense, MoE, MLA with its MTP module, whisper) train on a mesh of
-more than one device; the recurrent ones are refused by name (ROADMAP item
-13e).
+``--fake-devices N`` runs the N ranks as gloo processes.  Every family
+trains on a mesh (the recurrent ones too: xLSTM with all heads on every
+model rank, Zamba2's Mamba blocks on the rank's SSM heads).
 """
 from __future__ import annotations
 
@@ -144,7 +143,6 @@ def _train_on(args, dev: torch.device, mesh) -> None:
         grad_compression=args.grad_compression,
         moment_dtype=args.moment_dtype, remat=not args.reduced, seed=args.seed,
         checkpoint_every=args.ckpt_every)
-    train_loop.check_train_mesh(model, ctx)
     # the whole state from the seed on every rank, then each rank's pieces
     state, table = train_loop.init_train_state(model, tcfg)
     shardings = shd.train_state_shardings(state, ctx, table)

@@ -237,15 +237,23 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     logits, rows = _prefill_core(cfg, params, tokens, length)
     off = seq_offset(cache["k"])
     for name, arr in rows.items():
-        leaf = cache[name]
-        if off is None:
-            leaf[:, slot:slot + 1, :arr.shape[2]] = arr.to(leaf.dtype)
-        else:
-            # this rank holds positions off .. off + S_local - 1
-            hi = min(off + leaf.shape[2], arr.shape[2])
-            if hi > off:
-                leaf[:, slot:slot + 1, :hi - off] = arr[:, :, off:hi].to(leaf.dtype)
+        write_slot_rows(cache[name], slot, arr, off)
     return logits, cache
+
+
+def write_slot_rows(leaf: torch.Tensor, slot: int, rows: torch.Tensor,
+                    off: Optional[int]) -> None:
+    """A prompt's rows ``(L, 1, S, ...)`` into slot ``slot`` of a dense
+    ``(L, B, S_max, ...)`` cache leaf at positions ``0 .. S-1``, in place;
+    where the leaf holds this rank's sequence slice from position ``off``
+    (context-parallel decode, :func:`seq_offset`), only the rows it holds."""
+    s = rows.shape[2]
+    if off is None:
+        leaf[:, slot:slot + 1, :s] = rows.to(leaf.dtype)
+        return
+    hi = min(off + leaf.shape[2], s)
+    if hi > off:
+        leaf[:, slot:slot + 1, :hi - off] = rows[:, :, off:hi].to(leaf.dtype)
 
 
 def seq_offset(leaf: torch.Tensor) -> Optional[int]:

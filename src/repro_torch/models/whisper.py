@@ -39,7 +39,7 @@ from repro_torch.distributed.context import checkpointed, model_ctx
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import (_normal, _serving_head, head_matrix,
                                             layer_params, seq_offset, unstack_layers,
-                                            with_head_cast)
+                                            with_head_cast, write_slot_rows)
 from repro_torch.serving import kv_cache as KV
 
 Params = Dict[str, Any]
@@ -246,14 +246,7 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     logits, rows = _prefill_core(cfg, params, tokens, enc_out, length)
     off = seq_offset(cache["k"])
     for name, arr in rows.items():
-        leaf = cache[name]
-        if off is None:
-            leaf[:, slot:slot + 1, :arr.shape[2]] = arr.to(leaf.dtype)
-        else:
-            # this rank holds positions off .. off + S_local - 1
-            hi = min(off + leaf.shape[2], arr.shape[2])
-            if hi > off:
-                leaf[:, slot:slot + 1, :hi - off] = arr[:, :, off:hi].to(leaf.dtype)
+        write_slot_rows(cache[name], slot, arr, off)
     return logits, cache
 
 

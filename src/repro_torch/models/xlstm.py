@@ -16,6 +16,17 @@ Decode state is O(1) in the sequence: per mLSTM layer a (B, H, dk, dk+1)
 f32 matrix, per sLSTM layer a tuple of three distinct (B, d) f32 tensors
 (c, n, h).  Prefill overwrites a slot's whole state with the final state of
 a fresh pass; decode advances every slot's state, live or not.
+
+On a mesh the states are split over the slots only (the cache rules give
+the mLSTM state ``("batch", None, None, None)``, an sLSTM buffer
+``("batch", None)``), so every model rank runs all heads: the N-split
+projections (the mLSTM's ``wq/wk/wv/wo/wi/wf``, the sLSTM's ``wz/wi/wf``)
+have their outputs gathered (``layers.linear``'s default, whose backward
+keeps the input's cotangent whole), ``wout`` and ``wo_g`` are whole (the
+list-shaped ``blocks/<i>/...`` counts as scanned, which drops ``wout``'s
+leading entry; ``wo_g`` matches no rule), and no leaf splits K, so the
+sharded forward is the one-device one.  FSDP leaves are gathered inside
+each (remat'd) block, the others once.
 """
 from __future__ import annotations
 
@@ -117,52 +128,73 @@ def _slstm_init(g: torch.Generator, cfg: ModelConfig) -> Params:
     }
 
 
-def _slstm_cell(p: Params, zx, ix, fx, ox, state, h_heads):
-    """One sLSTM step.  state: (c, n, hprev), each (B, d) f32."""
+_RECURRENT = ("rz", "ri", "rf", "ro")
+
+
+def _slstm_recurrent(p: Params) -> torch.Tensor:
+    """The four recurrent matrices as one (H, dh, 4, dh) f32 operand, made
+    once per call: each step then takes one batched matmul for all four
+    gates.  f32 whatever the params' dtype, as jnp promotes the f32 state
+    against bf16 matrices (the dry run's bf16 params)."""
+    return torch.stack([p[k] for k in _RECURRENT], dim=2).float()
+
+
+def _slstm_cell(r4: torch.Tensor, bf: torch.Tensor, g_in: torch.Tensor, state):
+    """One sLSTM step in the heads' layout.  g_in: (B, H, 4, dh), the z/i/f/o
+    input projections; state: (c, n, hprev), each (B, H, dh) f32; bf: the
+    forget bias (H, dh).  Each gate sums in the reference's order: input,
+    recurrent term, then the bias."""
     c, n, hp = state
-    hh = hp.reshape(*h_heads)
-    rec = lambda r: torch.einsum("bhd,hde->bhe", hh, r).reshape(c.shape)  # noqa: E731
-    z = torch.tanh(zx + rec(p["rz"]))
-    i = torch.sigmoid(ix + rec(p["ri"]))
-    f = torch.sigmoid(fx + rec(p["rf"]) + p["bf"])
-    o = torch.sigmoid(ox + rec(p["ro"]))
+    z, i, f, o = (g_in + torch.einsum("bhd,hdge->bhge", hp, r4)).unbind(2)
+    z, i, o = torch.tanh(z), torch.sigmoid(i), torch.sigmoid(o)
+    f = torch.sigmoid(f + bf)
     c = f * c + i * z
     n = f * n + i
     hcur = o * c / torch.clamp(n, min=1.0)
     return (c, n, hcur), hcur
 
 
-def _slstm_inputs(p: Params, x: torch.Tensor, cfg: ModelConfig):
-    # the sLSTM's input projections run in f32, as the reference's
-    # L.linear(p, "wz", xa, float32): on the card the f32 kernel serves
-    # them, at M = S in prefill
+def _slstm_inputs(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The z/i/f/o input projections, (B, S, H, 4, dh) in f32.  They run in
+    f32, as the reference's ``L.linear(p, "wz", xa, float32)``: on the card
+    the f32 kernel serves them, at M = S in prefill."""
+    b, s, d = x.shape
     xa = L.rmsnorm(x, p["norm"], cfg.norm_eps).float()
-    return tuple(L.linear(p, name, xa, torch.float32) for name in ("wz", "wi", "wf", "wo_g"))
+    heads = (cfg.num_heads, d // cfg.num_heads)
+    return torch.stack([L.linear(p, name, xa, torch.float32).reshape(b, s, *heads)
+                        for name in ("wz", "wi", "wf", "wo_g")], dim=3)
 
 
 def slstm_block(p: Params, x: torch.Tensor, cfg: ModelConfig, dtype,
                 state: Optional[Tuple[torch.Tensor, ...]] = None):
-    """Full-sequence sLSTM, one step at a time.  Returns (out, final_state)."""
+    """Full-sequence sLSTM, one step at a time.  Returns (out, final_state),
+    the state as three (B, d) f32 tensors."""
     b, s, d = x.shape
-    heads = (b, cfg.num_heads, d // cfg.num_heads)
-    zx, ix, fx, ox = _slstm_inputs(p, x, cfg)
+    pre = _slstm_inputs(p, x, cfg)
+    heads = pre.shape[2], pre.shape[4]
+    r4, bf = _slstm_recurrent(p), p["bf"].reshape(heads)
     if state is None:
-        state = tuple(torch.zeros((b, d), dtype=torch.float32, device=x.device)
+        state = tuple(torch.zeros((b, *heads), dtype=torch.float32, device=x.device)
                       for _ in range(3))
+    else:
+        state = tuple(t.reshape(b, *heads) for t in state)
     hs = []
     for t in range(s):
-        state, hcur = _slstm_cell(p, zx[:, t], ix[:, t], fx[:, t], ox[:, t], state, heads)
+        state, hcur = _slstm_cell(r4, bf, pre[:, t], state)
         hs.append(hcur)
-    y = L.linear(p, "wout", torch.stack(hs, dim=1).to(dtype), dtype)
-    return x + y, state
+    y = L.linear(p, "wout", torch.stack(hs, dim=1).reshape(b, s, d).to(dtype), dtype)
+    return x + y, tuple(t.reshape(b, d) for t in state)
 
 
 def slstm_decode(p: Params, x: torch.Tensor, cfg: ModelConfig, dtype, state):
+    """One decode step (x: (B, 1, d)); state: three (B, d) f32 tensors."""
     b, _, d = x.shape
-    zx, ix, fx, ox = (t[:, 0] for t in _slstm_inputs(p, x, cfg))
-    new_state, hcur = _slstm_cell(p, zx, ix, fx, ox, state, (b, cfg.num_heads, d // cfg.num_heads))
-    y = L.linear(p, "wout", hcur[:, None].to(dtype), dtype)
-    return x + y, new_state
+    pre = _slstm_inputs(p, x, cfg)[:, 0]
+    heads = pre.shape[1], pre.shape[3]
+    new_state, hcur = _slstm_cell(_slstm_recurrent(p), p["bf"].reshape(heads), pre,
+                                  tuple(t.reshape(b, *heads) for t in state))
+    y = L.linear(p, "wout", hcur.reshape(b, 1, d).to(dtype), dtype)
+    return x + y, tuple(t.reshape(b, d) for t in new_state)
 
 
 # ---------------------------------------------------------------------------
@@ -185,9 +217,11 @@ def init(cfg: ModelConfig, generator: torch.Generator) -> Params:
 
 
 def _block_fn(cfg: ModelConfig, bp: Params, dtype):
+    """The block's full-sequence map; its FSDP leaves are gathered inside,
+    so a remat recompute gathers them again."""
     if "slstm" in bp:
-        return lambda x: slstm_block(bp["slstm"], x, cfg, dtype)[0]
-    return lambda x: mlstm_block(bp["mlstm"], x, cfg, dtype)[0]
+        return lambda x: slstm_block(L.gathered(bp["slstm"]), x, cfg, dtype)[0]
+    return lambda x: mlstm_block(L.gathered(bp["mlstm"]), x, cfg, dtype)[0]
 
 
 def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor], *,
@@ -199,6 +233,7 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor], *,
     ``jax.checkpoint`` per block."""
     del q_chunk
     dtype = L.DTYPES[cfg.dtype]
+    params = L.gathered_top(params)
     x = L.embed_lookup(params["embed"], batch["tokens"], dtype)
     for bp in params["blocks"]:
         fn = _block_fn(cfg, bp, dtype)
@@ -231,11 +266,14 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, cache: Dict[
     (chunked mLSTM, stepped sLSTM), then each layer's final state written
     over the slot's whole state, in place.  tokens: (1, S), NOT padded: the
     recurrent state consumes every token, so the engine prefills this
-    family at the exact prompt length (``Model.padded_prefill``)."""
+    family at the exact prompt length (``Model.padded_prefill``).  On a
+    mesh ``slot`` is this data rank's index."""
     dtype = L.DTYPES[cfg.dtype]
+    params = L.gathered_top(params)
     x = L.embed_lookup(params["embed"], tokens, dtype)
     for i, bp in enumerate(params["blocks"]):
         leaf = cache[f"layer{i}"]
+        bp = L.gathered(bp)
         if "slstm" in bp:
             x, fstate = slstm_block(bp["slstm"], x, cfg, dtype)
             for buf, st in zip(leaf, fstate):
@@ -255,9 +293,11 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor, cache: D
     the cache's buffers."""
     del pos
     dtype = L.DTYPES[cfg.dtype]
+    params = L.gathered_top(params)
     x = L.embed_lookup(params["embed"], tokens, dtype)
     for i, bp in enumerate(params["blocks"]):
         key = f"layer{i}"
+        bp = L.gathered(bp)
         if "slstm" in bp:
             x, new_state = slstm_decode(bp["slstm"], x, cfg, dtype, cache[key])
             for buf, st in zip(cache[key], new_state):

@@ -20,6 +20,24 @@ decodes against its dense K/V rows.  Prefill overwrites a slot's whole
 recurrent state with the final state of a fresh pass; decode advances
 every slot's state, live or not, and writes each slot's new K/V at its own
 position.
+
+On a mesh (an ambient context whose model axis has tp > 1 members) the
+Mamba blocks run in the layout of the cache rules (``distributed/
+sharding.cache_logical_axes``): the SSM heads over ``model`` where tp
+divides them, the conv channels (``d_in``) where tp divides those.  The
+Mamba weights match no tensor-parallel rule (their paths are
+``blocks/in_proj``..., not ``ssm/...``) and are whole on every rank, so
+each rank computes the whole ``in_proj`` product and cuts its channels of
+``xs`` and its heads of ``dt`` (and of the per-head weights) out of it,
+keeping ``B``, ``C`` and ``z`` whole; ``y`` is gathered over ``model``
+before the gate norm (an RMS norm over all of ``d_in``) and the whole
+``out_proj``, so every number is the one-device one.  In training the cut
+streams take ``split`` (its backward gathers), ``B``/``C`` take
+``copy_to`` (every local head adds to their cotangent, which is summed over
+``model``).  The shared block is ``layers.attention_block``: its heads over
+``model``, or all heads on a dense K/V cache whose sequence is split
+(context-parallel decode).  FSDP leaves are gathered per layer slice inside
+the (remat'd) block, the others once.
 """
 from __future__ import annotations
 
@@ -29,12 +47,13 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.context import checkpointed
+from repro_torch.distributed.context import checkpointed, model_ctx
 from repro_torch.models import layers as L
 from repro_torch.models.ssm_common import (DEFAULT_CHUNK, causal_conv1d,
                                            chunked_linear_recurrence, recurrence_decode_step)
 from repro_torch.models.transformer import (_normal, _serving_head, head_matrix,
-                                            layer_params, unstack_layers, with_head_cast)
+                                            layer_params, seq_offset, unstack_layers,
+                                            with_head_cast, write_slot_rows)
 
 Params = Dict[str, Any]
 
@@ -74,31 +93,61 @@ def mamba_init(g: torch.Generator, cfg: ModelConfig) -> Params:
     }
 
 
+def _ssm_split(cfg: ModelConfig) -> Tuple[bool, bool]:
+    """Whether this rank runs its share of (the SSM heads, the conv
+    channels) over ``model``: the cache rules' layout of ``ssm`` and
+    ``conv`` (each where tp divides it; off a mesh neither)."""
+    ctx = model_ctx()
+    if ctx is None:
+        return False, False
+    tp = ctx.axis_size("model")
+    d_in, heads = _dims(cfg)
+    return heads % tp == 0, d_in % tp == 0
+
+
 def _mamba_streams(p: Params, x: torch.Tensor, cfg: ModelConfig, dtype,
                    conv_state: Optional[torch.Tensor]):
     b, s, _ = x.shape
     d_in, heads = _dims(cfg)
     st = cfg.ssm_state
-    proj = L.linear(p, "in_proj", x, dtype)
+    proj = L.linear(p, "in_proj", x, dtype)      # whole on every rank (replicated)
     z, xs, bmat, cmat, dt = torch.split(proj, [d_in, d_in, st, st, heads], dim=-1)
-    xs, new_conv = causal_conv1d(xs, p["conv_w"].to(dtype), p["conv_b"].to(dtype), conv_state)
+    a_log, dt_bias, conv_w, conv_b = p["a_log"], p["dt_bias"], p["conv_w"], p["conv_b"]
+    heads_split, conv_split = _ssm_split(cfg)
+    ctx = model_ctx()
+    if conv_split:
+        # this rank's channels of the conv (its slice of the conv state)
+        xs, conv_w, conv_b = (ctx.split(t, "model", -1) for t in (xs, conv_w, conv_b))
+    xs, new_conv = causal_conv1d(xs, conv_w.to(dtype), conv_b.to(dtype), conv_state)
     xs = F.silu(xs)
+    if conv_split and not heads_split:
+        xs = ctx.all_gather(xs, "model", -1)     # every head on every rank
+    if heads_split:
+        dt, a_log, dt_bias = (ctx.split(t, "model", -1) for t in (dt, a_log, dt_bias))
+        bmat, cmat = ctx.copy_to(bmat, "model"), ctx.copy_to(cmat, "model")
+    h = dt.shape[-1]
     # F.softplus switches to the identity above threshold=20, where JAX's
     # softplus is logaddexp(x, 0); the two differ by less than e^-20 there
-    dt = F.softplus(dt.float() + p["dt_bias"])                        # (B, S, H)
-    a = -torch.exp(p["a_log"])                                         # (H,)
+    dt = F.softplus(dt.float() + dt_bias)                             # (B, S, H)
+    a = -torch.exp(a_log)                                              # (H,)
     log_a = dt * a[None, None, :]                                      # <= 0
-    v = xs.reshape(b, s, heads, cfg.ssm_head_dim)
-    k = bmat[:, :, None, :].expand(b, s, heads, st)
-    q = cmat[:, :, None, :].expand(b, s, heads, st)
+    v = xs.reshape(b, s, h, cfg.ssm_head_dim)
+    k = bmat[:, :, None, :].expand(b, s, h, st)
+    q = cmat[:, :, None, :].expand(b, s, h, st)
     return z, v, k, q, log_a, dt, new_conv
 
 
 def _mamba_finish(p: Params, y: torch.Tensor, v: torch.Tensor, z: torch.Tensor,
                   cfg: ModelConfig, dtype, b: int, s: int) -> torch.Tensor:
-    d_in, _ = _dims(cfg)
-    y = y + v * p["d_skip"][None, None, :, None].to(dtype)
-    y = y.reshape(b, s, d_in)
+    d_skip = p["d_skip"]
+    heads_split, _ = _ssm_split(cfg)
+    if heads_split:
+        d_skip = model_ctx().split(d_skip, "model", -1)
+    y = y + v * d_skip[None, None, :, None].to(dtype)
+    y = y.reshape(b, s, -1)
+    if heads_split:
+        # the gate norm is over all of d_in: every rank takes the whole y
+        y = model_ctx().all_gather(y, "model", -1)
     y = L.rmsnorm(y, p["gate_norm"], cfg.norm_eps) * F.silu(z)
     return L.linear(p, "out_proj", y, dtype)
 
@@ -150,12 +199,13 @@ def shared_attn_init(g: torch.Generator, cfg: ModelConfig) -> Params:
 
 def _shared_attn_apply(sp: Params, x: torch.Tensor, cfg: ModelConfig,
                        positions: torch.Tensor, cache, pos, dtype, q_chunk: int,
-                       collect_kv: bool = False):
+                       collect_kv: bool = False, seq_off: Optional[int] = None):
     h, new_kv = L.attention_block(
         sp["attn"], L.rmsnorm(x, sp["norm1"], cfg.norm_eps),
         n_heads=cfg.num_heads, n_kv=cfg.num_kv_heads, hd=cfg.hd(),
         rope_theta=cfg.rope_theta, positions=positions, q_chunk=q_chunk,
-        cache=cache, cache_pos=pos, return_kv=collect_kv, dtype=dtype)
+        cache=cache, cache_pos=pos, return_kv=collect_kv, dtype=dtype,
+        seq_offset=seq_off)
     x = x + h
     x = x + L.swiglu(sp["mlp"], L.rmsnorm(x, sp["norm2"], cfg.norm_eps), dtype)
     return x, new_kv
@@ -183,13 +233,14 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor], *,
     recomputes each Mamba block in the backward pass, as the reference's
     ``jax.checkpoint`` of its scan body (the shared block is not)."""
     dtype = L.DTYPES[cfg.dtype]
+    params = L.gathered_top(params)
     x = L.embed_lookup(params["embed"], batch["tokens"], dtype)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     n_groups, per = _groups(cfg)
     layers = unstack_layers(params["blocks"], cfg.num_layers)
 
     def body(x, bp):
-        return mamba_block(bp, x, cfg, dtype)
+        return mamba_block(L.gathered(bp), x, cfg, dtype)
 
     for g in range(n_groups):
         for bp in layers[g * per:(g + 1) * per]:
@@ -230,22 +281,26 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     from a fresh state, each layer's final ssm/conv state written over the
     slot's, and each shared-block application's K/V rows at ``[:S]``.
     tokens: (1, S), NOT padded: the SSM and conv state consume every token
-    (``Model.padded_prefill``)."""
+    (``Model.padded_prefill``).  On a mesh ``slot`` is this data rank's
+    index, and a K/V cache whose sequence is split over ``model`` takes
+    the rank's positions only."""
     dtype = L.DTYPES[cfg.dtype]
+    params = L.gathered_top(params)
     x = L.embed_lookup(params["embed"], tokens, dtype)
     s = x.shape[1]
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
     n_groups, per = _groups(cfg)
+    off = seq_offset(cache["attn_k"])
     for g in range(n_groups):
         for i in range(g * per, (g + 1) * per):
-            x, fs, fc = mamba_block(layer_params(params["blocks"], i), x, cfg, dtype,
-                                    return_state=True)
+            x, fs, fc = mamba_block(L.gathered(layer_params(params["blocks"], i)), x, cfg,
+                                    dtype, return_state=True)
             cache["ssm"][i, slot].copy_(fs[0])
             cache["conv"][i, slot].copy_(fc[0])
         x, (k, v) = _shared_attn_apply(params["shared_attn"], x, cfg, positions, None, None,
                                        dtype, L.DEFAULT_Q_CHUNK, collect_kv=True)
-        cache["attn_k"][g, slot, :s] = k[0].to(cache["attn_k"].dtype)
-        cache["attn_v"][g, slot, :s] = v[0].to(cache["attn_v"].dtype)
+        write_slot_rows(cache["attn_k"][g:g + 1], slot, k[None], off)
+        write_slot_rows(cache["attn_v"][g:g + 1], slot, v[None], off)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     logits = L.lm_logits(x[:, length - 1:length], _serving_head(cfg, params), dtype)
     return logits[:, 0], cache
@@ -260,19 +315,21 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     the shared block writes each slot's new K/V at ``(slot, pos[slot])``
     (positions past max_len are dropped, as the reference's scatter)."""
     dtype = L.DTYPES[cfg.dtype]
+    params = L.gathered_top(params)
     b = tokens.shape[0]
     pos = torch.as_tensor(pos, device=tokens.device).to(torch.int32).expand(b)
     x = L.embed_lookup(params["embed"], tokens, dtype)
     positions = pos[:, None]
     n_groups, per = _groups(cfg)
+    off = seq_offset(cache["attn_k"])
     for g in range(n_groups):
         for i in range(g * per, (g + 1) * per):
             ssm = cache["ssm"][i]
-            x, _, new_conv = mamba_decode(layer_params(params["blocks"], i), x, cfg, dtype,
-                                          ssm, cache["conv"][i], ssm_out=ssm)
+            x, _, new_conv = mamba_decode(L.gathered(layer_params(params["blocks"], i)), x,
+                                          cfg, dtype, ssm, cache["conv"][i], ssm_out=ssm)
             cache["conv"][i].copy_(new_conv)
         x, _ = _shared_attn_apply(params["shared_attn"], x, cfg, positions,
                                   (cache["attn_k"][g], cache["attn_v"][g]), positions,
-                                  dtype, L.DEFAULT_Q_CHUNK)
+                                  dtype, L.DEFAULT_Q_CHUNK, seq_off=off)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return L.lm_logits(x, _serving_head(cfg, params), dtype), cache

@@ -75,9 +75,9 @@ runs identically on every rank: the logits of each step are gathered over
 so the tokens, and with them every scheduling decision, agree everywhere.
 A paged pool sharded over ``data`` keeps one free list per data rank
 (``PageAllocator(partitions=...)``), so page ids may differ from the
-one-device engine's; tokens do not.  The attention families (dense, MoE,
-MLA, whisper) serve on a mesh; the recurrent families are refused by
-name.
+one-device engine's; tokens do not.  Every family serves on a mesh; the
+recurrent ones on the dense slot cache, their states split over ``data``
+(and Zamba2's SSM heads, conv channels and shared K/V over ``model``).
 """
 from __future__ import annotations
 
@@ -655,12 +655,6 @@ class Scheduler:
         print("[serve] " + ", ".join(parts), flush=True)
 
 
-def _check_mesh_family(model: Model) -> None:
-    """Refuse by name the families the mesh engine does not serve."""
-    from repro_torch.distributed.sharding import check_mesh_family
-    check_mesh_family(model.config, "serving")
-
-
 def _check_mesh(dev: torch.device, ctx: Any, batch_slots: int) -> None:
     mesh_dev = ctx.mesh.device_type
     if mesh_dev != dev.type:
@@ -730,7 +724,6 @@ class ServingEngine:
         self.ctx = None
         if mesh is not None:
             from repro_torch.distributed.sharding import ParallelContext
-            _check_mesh_family(model)
             if not hasattr(mesh, "mesh_dim_names"):
                 raise TypeError(f"mesh= takes a torch.distributed DeviceMesh "
                                 f"(launch/mesh.make_mesh), got {type(mesh).__name__}")

@@ -175,14 +175,6 @@ def _value_and_grad(loss_fn: Callable, params: Params, *args) -> Tuple[torch.Ten
     return loss.detach(), paths.rebuild(params, dict(zip(live, grads)))
 
 
-def check_train_mesh(model: Model, ctx: ParallelContext) -> None:
-    """Refuse by name a family that does not train on a mesh of more than
-    one device (a world of one is the one-device step)."""
-    from repro_torch.distributed.sharding import check_mesh_family
-    if ctx.entry_size(tuple(ctx.shape)) > 1:
-        check_mesh_family(model.config, "training")
-
-
 def shard_batch(batch: Dict[str, torch.Tensor], ctx: ParallelContext
                 ) -> Dict[str, torch.Tensor]:
     """This rank's rows of the global batch: the ``coord("batch")``-th of
@@ -245,7 +237,6 @@ def make_train_step(model: Model, tcfg: TrainConfig,
     lr_fn = opt.cosine_schedule(tcfg)
     table = constraint_table
     ctx = ctx if ctx is not None else ParallelContext.for_shape({"data": 1, "model": 1})
-    check_train_mesh(model, ctx)
 
     def loss_fn(params, batch):
         # on a mesh: one FSDP gather of the embedding/head for the forward and the loss

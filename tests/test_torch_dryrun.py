@@ -26,8 +26,8 @@
   and ``test_torch_mesh_train`` run the same helpers unchanged.
 * The CLI at full width in a subprocess (the check the reference's own
   subprocess test makes), under 2 GB of peak RSS.
-* MLA's and whisper's cells on the 2x16x16 mesh (their argument bytes
-  against the reference's), the refused cells of item 13e,
+* MLA's, whisper's and xLSTM's cells on the 2x16x16 mesh (their argument
+  bytes against the reference's; no cell is refused),
   ``resolve_device`` under fake mode, a kernel reached with
   fake tensors, the context-parallel cache write without a host sync, and
   the int8 weights of a list-shaped tree.
@@ -373,7 +373,7 @@ def test_remat_recomputes_under_the_forwards_context_on_any_thread():
 
 
 # ---------------------------------------------------------------------------
-# the CLI, the report, refused cells
+# the CLI, the report, the 2x16x16 cells
 # ---------------------------------------------------------------------------
 
 @pytest.fixture(scope="module")
@@ -414,15 +414,17 @@ def test_cli_cell_at_full_width_under_two_gb(cli_run):
 def test_report_table_equals_the_reference(cli_run, tmp_path):
     out, _ = cli_run
     rows = report.load_artifacts(str(out))
-    refused = D.run_cell("zamba2-2.7b", "long_500k", "single", str(tmp_path))
-    rows = rows + [refused]
+    zamba = D.run_cell("zamba2-2.7b", "long_500k", "single", str(tmp_path))
+    assert zamba["status"] == "ok"
+    rows = rows + [zamba]
     for mesh in ("single", "multi"):
         assert report.markdown_table(rows, mesh) == jreport.markdown_table(rows, mesh)
-    assert report.markdown_table(rows).count("\n") == 3      # header, rule, one cell
+    table = report.markdown_table(rows)
+    assert table.count("\n") == 4 and "| zamba2-2.7b | long_500k | decode |" in table
     stats = report.summary_stats(rows)
     assert {k: stats[k] for k in ("cells", "bottlenecks", "total_compile_s")} == \
         jreport.summary_stats(rows)
-    assert stats["refused"] == ["zamba2-2.7b x long_500k"]
+    assert stats["cells"] == 2 and stats["over_hbm"] == []
 
 
 MULTI_SIZES = {"pod": 2, "data": 16, "model": 16}
@@ -433,20 +435,15 @@ MULTI_SIZES = {"pod": 2, "data": 16, "model": 16}
                                         ("whisper-small", "decode_32k")])
 def test_item_13d_cells_trace_and_13e_cells_are_refused_by_name(jdr, arch, shape,
                                                                tmp_path):
-    """On the 2x16x16 mesh: MLA and whisper (item 13d) trace as ``ok``,
-    their per-device argument bytes equal to the reference's shardings
-    (the named exceptions of the 16x16 test); the recurrent families' cells
-    are written as refused by item 13e, with their argument bytes."""
+    """On the 2x16x16 mesh every family traces as ``ok`` (nothing is
+    refused since item 13e): MLA and whisper (item 13d), and xLSTM's
+    ``long_500k`` decode (item 13e, one slot: its state replicates over the
+    batch axes), their per-device argument bytes equal to the reference's
+    shardings (the named exceptions of the 16x16 test)."""
     res = D.run_cell(arch, shape, "multi", str(tmp_path))
     on_disk = json.loads((tmp_path / f"{arch}__{shape}__multi.json").read_text())
     assert on_disk == res and res["chips"] == 512
     got = res["memory_analysis"]["argument_breakdown"]
-    if arch == "xlstm-350m":
-        assert res["status"] == "refused" and res["item"] == "13e"
-        assert "ROADMAP item 13e" in res["reason"]
-        assert not {"cost_analysis", "roofline", "collectives"} & set(res)
-        assert res["memory_analysis"]["argument_size"] > 0
-        return
     assert res["status"] == "ok", res
     assert res["cost_analysis"]["flops"] > 0 and res["collectives"]["total_bytes"] > 0
     jctx = jshd.ParallelContext.for_mesh(AbstractMesh((2, 16, 16), ("pod", "data", "model")))
@@ -457,10 +454,12 @@ def test_item_13d_cells_trace_and_13e_cells_are_refused_by_name(jdr, arch, shape
                 jmodel, JSHAPES[shape], jctx, JTrainConfig(remat=True, moment_dtype="int8"))
         else:
             _, specs, in_sh, _, _ = jdr.build_decode_cell(jmodel, JSHAPES[shape], jctx)
-    if shape == "decode_32k":
+    if shape in ("decode_32k", "long_500k"):
         for i, name in enumerate(("params", "tokens", "cache")):
             assert got[name] == _ref_bytes(specs[i], in_sh[i], MULTI_SIZES), name
-        assert got["pos"] == 4 * 128 // 32
+        # the port's (B,) int32 positions: the 128 slots split 32 ways, the
+        # one slot of long_500k whole
+        assert got["pos"] == (4 * 128 // 32 if shape == "decode_32k" else 4)
         return
     with D.fake_mode():
         cell = D.build_cell(build(get_config(arch), device="cpu"), SHAPES[shape],

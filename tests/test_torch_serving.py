@@ -95,13 +95,13 @@ def test_temperature_sampling_is_deterministic_per_seed():
 def test_unported_options_are_refused():
     _, _, tm, tp = models()
     kw = dict(max_len=32, batch_slots=2, device="cpu")
-    # mesh= is ported (tests/test_torch_mesh.py): it takes a DeviceMesh, and
-    # the families the mesh engine does not serve are refused by name
+    # mesh= is ported for every family (tests/test_torch_mesh.py,
+    # tests/test_torch_mesh_recurrent.py): it takes a DeviceMesh
     with pytest.raises(TypeError, match="DeviceMesh"):
         TEngine(tm, tp, **kw, page_size=8, mesh=object())
     for arch in ("xlstm-350m", "zamba2-2.7b"):
         xm = tbuild(torch_reduced(arch), device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP item 13e"):
+        with pytest.raises(TypeError, match="DeviceMesh"):
             TEngine(xm, xm.init(0), **kw, mesh=object())
     # health= is ported (reliability/health): it arms the monitor on a FORMS
     # tree (tests/test_torch_reliability.py)
