@@ -14,10 +14,15 @@ Phases, each printing JSON lines:
                widened in the kernel) equal bit for bit to the f32 launch on
                x.float(); timed at M=4 (f32 and bf16 x, beside the f32 and
                bf16 library calls, the bounds and the achieved TB/s) and at
-               M=64 (f32 x); then the tensor-core kernel on bf16 x at M=16,
-               32, 64 and 256 and a ragged shape (two launches equal bit for
-               bit), timed at M=32 and 64 beside the f32 and bf16 library
-               calls and its bf16 bound; and the M crossover of the two
+               M=64 (f32 x); then the tensor-core kernel on bf16 x at M=4,
+               8, 16, 20, 32, 64 and 256 (called directly; through the route
+               where it takes it) and a ragged shape (two launches equal bit
+               for bit), timed per layer at each M beside the f32 and bf16
+               library calls, its bf16 bound and its TB/s; whisper-small's
+               cross k/v at M=1,024; the narrow-N row (both routes at M=64,
+               N = 1-128, with the least N at which the tensor-core kernel
+               wins: TC_MIN_COLS); the host microseconds per call of its
+               wrapper and of its C entry; and the M crossover of the two
                kernels on bf16 x at M=1 to 64, with the least M at which the
                tensor-core kernel wins (TC_MIN_ROWS);
    kernel_bits — kernel #1 on 2-, 4- and 6-bit codes (the auto-bits
@@ -340,11 +345,22 @@ INT8_OPS = 1979e12             # H100 SXM int8 tensor cores, dense: the least
                                # time any design could take for integer MACs
 REL_TOL = 1e-4                 # both sides sum in f32, in different orders
 DECODE_M, PREFILL_M = 4, 64
-# bf16 x on the tensor-core route: checked at these M, timed at the last two
-TC_CHECK_M, TC_TIMED_M = (16, 256), (32, 64)
+# the tensor-core kernel on bf16 x: held and timed per layer at these M
+# (called directly, whichever route the M takes)
+TC_TIMED_M = (4, 8, 16, 20, 32, 64, 256)
 CROSSOVER_M = (1, 2, 4, 8, 16, 32, 64)
+# the narrow-N row: both routes at M = 64 on xlstm-350m's K (its mLSTM
+# wi/wf are 1024 x 4, and 1024 x 2 and x 1 on a 2- or 4-way model axis)
+NARROW_K, NARROW_N = 1024, (1, 2, 4, 16, 32, 64, 128)
+# whisper-small's cross k/v over 4 slots x max_len 256
+WHISPER_KV = (1024, 768, 768)
+# host time per call: this many calls after a synchronize
+HOST_CALLS = 1000
 # qwen2-1.5b projections per layer: (K, N) -> calls per layer
 LAYER_SHAPES = {(1536, 1536): 2, (1536, 256): 2, (1536, 8960): 2, (8960, 1536): 1}
+# the narrowest of them (k and v): every projection of a call of the
+# slice's model takes the route this width takes
+SLICE_COLS = min(N for _, N in LAYER_SHAPES)
 SLICE_RUNS = 3
 # the speculate phase: the draft's K, and the verify's M = 4 slots x (kk+1)
 SPEC_K = 4
@@ -477,7 +493,7 @@ def phase_kernels():
                "grid": [-(-N // pm._BN), -(-M // pm.tile_rows(M)), splits], "group": group,
                "max_abs_err": abs_err, "max_rel_err": rel_err}
         xb = x.to(torch.bfloat16)
-        if not pm.uses_tensor_cores(xb.dtype, mags.dtype, "cuda", M):
+        if not pm.uses_tensor_cores(xb.dtype, mags.dtype, "cuda", M, N):
             # bf16 x straight into the kernel: one launch, the f32 launch's bits
             before = polarized_matmul.launches
             got_b = polarized_matmul(xb, mags, signs, scale, 8)
@@ -522,11 +538,15 @@ def phase_kernels():
 
 
 def phase_kernels_tc():
-    """The tensor-core kernel on bf16 x through the route of
-    ``pm.polarized_matmul``: against the plain version within REL_TOL, two
-    launches equal bit for bit, at M=16, 32, 64 and 256 and a ragged shape;
-    timed at M=32 and 64 beside the f32 and bf16 library calls.  Then the
-    crossover: both kernels on bf16 x at M=4..64, summed per layer."""
+    """The tensor-core kernel on bf16 x: held against the plain version
+    within REL_TOL, two launches equal bit for bit, at every qwen2-1.5b
+    projection at each of TC_TIMED_M (called directly) and timed there per
+    layer beside the f32 and bf16 library calls and its bf16 bound; through
+    the route at the M it takes (the route launches it) and at a ragged
+    shape; whisper-small's cross k/v at M=1,024; the narrow-N row (both
+    routes at M=64, N = 1 .. 128); the host microseconds per call of the
+    wrapper and of the C entry alone (its tensor maps included).  Then the
+    crossover: both kernels on bf16 x at M=1..64, summed per layer."""
     import torch
     from repro_torch.kernels import polarized_matmul as pm
     from repro_torch.kernels.ref import ref_polarized_matmul_fast
@@ -537,72 +557,131 @@ def phase_kernels_tc():
     flush = lambda: scrub.zero_()
     rows = []
     worst_abs = worst_rel = 0.0
+    route = pm.uses_tensor_cores
 
-    def check(label, M, K, N, time_it=False):
+    def f32_route(fn):
+        """``fn()`` with the route forced to the f32 kernel (patched here, as
+        route_check does, not a flag)."""
+        pm.uses_tensor_cores = lambda *args: False
+        try:
+            return fn()
+        finally:
+            pm.uses_tensor_cores = route
+
+    def check(label, M, K, N, time_it=False, direct=False):
         nonlocal worst_abs, worst_rel
         x, mags, signs, scale = kernel_inputs(gen, M, K, N, x_dtype=torch.bfloat16)
+        fn = pm.polarized_matmul_tc if direct else pm.polarized_matmul
         before = pm.polarized_matmul_tc.launches
-        got = pm.polarized_matmul(x, mags, signs, scale, 8)
-        again = pm.polarized_matmul(x, mags, signs, scale, 8)
+        got = fn(x, mags, signs, scale, 8)
+        again = fn(x, mags, signs, scale, 8)
         took = pm.polarized_matmul_tc.launches - before
         want = ref_polarized_matmul_fast(x, mags, signs, scale, 8)
         torch.cuda.synchronize()
         if not torch.equal(got, again):
             raise AssertionError(f"{label} M={M} K={K} N={N}: two launches differ")
         if took != 2:
-            raise AssertionError(f"{label} M={M}: the route launched the tensor-core "
+            raise AssertionError(f"{label} M={M} N={N}: the route launched the tensor-core "
                                  f"kernel {took} times for 2 calls")
         abs_err = float((got - want).abs().max())
         rel_err = abs_err / float(want.abs().max())
         worst_abs, worst_rel = max(worst_abs, abs_err), max(worst_rel, rel_err)
-        group = pm.tc_group(M, N, K, torch.cuda.get_device_properties(0).multi_processor_count)
+        cluster = pm.tc_group(M, N, K, torch.cuda.get_device_properties(0).multi_processor_count)
         rec = {"case": label, "M": M, "K": K, "N": N, "x": "bfloat16",
-               "grid": [-(-N // pm._TC_BN), -(-M // pm._TC_BM), -(-(-(-K // pm._KC)) // group)],
-               "max_abs_err": abs_err, "max_rel_err": rel_err}
+               "route": "tc" if route(x.dtype, mags.dtype, "cuda", M, N) else "f32",
+               "grid": [-(-N // pm._TC_BN), -(-M // pm.tc_tokens(M)), cluster],
+               "cluster": cluster, "max_abs_err": abs_err, "max_rel_err": rel_err}
         if time_it:
             xf = x.float()
             w = mags.float() * signs.float().repeat_interleave(8, dim=0)
             wb = w.to(torch.bfloat16)   # exact: codes <= 255 and signs +-1
-            rec["kernel_ms"] = timed_ms(lambda: pm.polarized_matmul(x, mags, signs, scale, 8), flush)
+            rec["kernel_ms"] = timed_ms(lambda: pm.polarized_matmul_tc(x, mags, signs, scale, 8),
+                                        flush)
             rec["plain_ms"] = timed_ms(lambda: ref_polarized_matmul_fast(x, mags, signs, scale, 8), flush)
             rec["library_f32_ms"] = timed_ms(lambda: torch.matmul(xf, w), flush)
             rec["library_ms"] = timed_ms(lambda: torch.matmul(x, wb), flush)
             rec["bound_ms"], rec["bound_by"] = bound_tc(M, K, N)
+            nbytes = M * K * 2 + K * N + K // 8 * N + N * 4 + M * N * 4
+            rec["tb_s"] = nbytes / rec["kernel_ms"] / 1e9
         emit("kernel_tc", **rec)
         if not rel_err <= REL_TOL:
             raise AssertionError(f"the tensor-core kernel disagrees with its plain version: {rec}")
         return rec
 
-    for M in TC_CHECK_M + TC_TIMED_M:
+    for M in TC_TIMED_M:
         for (K, N) in LAYER_SHAPES:
-            rec = check("qwen2-1.5b", M, K, N, time_it=M in TC_TIMED_M)
-            if M in TC_TIMED_M:
-                rows.append(rec)
+            rows.append(check("qwen2-1.5b", M, K, N, time_it=True, direct=True))
+            if route(torch.bfloat16, torch.uint8, "cuda", M, N):
+                check("qwen2-1.5b, the route", M, K, N)
     check("ragged edges, prefill", 67, 264, 1030)
+    whisper = check("whisper-small cross k/v", *WHISPER_KV, time_it=True)
     # the timing method's own floor: a spin kernel of 0 cycles, timed as
     # every kernel here is (every per-layer sum holds 7 of these)
     floor_ms = timed_ms(lambda: torch.cuda._sleep(0), flush)
     emit("timing_floor", ms=floor_ms)
 
+    # the narrow-N row: each route at M = 64; TC_MIN_COLS is the least N at
+    # which the tensor-core kernel is faster
+    narrow = []
+    for N in NARROW_N:
+        x, mags, signs, scale = kernel_inputs(gen, PREFILL_M, NARROW_K, N, x_dtype=torch.bfloat16)
+        want = ref_polarized_matmul_fast(x, mags, signs, scale, 8)
+        for got in (pm.polarized_matmul_tc(x, mags, signs, scale, 8),
+                    f32_route(lambda: pm.polarized_matmul(x, mags, signs, scale, 8))):
+            if not float((got - want).abs().max()) <= REL_TOL * float(want.abs().max()):
+                raise AssertionError(f"narrow N={N}: a route disagrees with the plain version")
+        wb = (mags.float() * signs.float().repeat_interleave(8, dim=0)).to(torch.bfloat16)
+        rec = {"M": PREFILL_M, "K": NARROW_K, "N": N,
+               "tc_ms": timed_ms(lambda: pm.polarized_matmul_tc(x, mags, signs, scale, 8), flush),
+               "f32_ms": f32_route(lambda: timed_ms(
+                   lambda: pm.polarized_matmul(x, mags, signs, scale, 8), flush)),
+               "library_ms": timed_ms(lambda: torch.matmul(x, wb), flush),
+               "route": "tc" if route(x.dtype, mags.dtype, "cuda", PREFILL_M, N) else "f32"}
+        emit("narrow_n", **rec)
+        narrow.append(rec)
+    wins = [r["N"] for r in narrow if r["tc_ms"] < r["f32_ms"]]
+    emit("narrow_min_cols", measured=wins[0] if wins else None, TC_MIN_COLS=pm.TC_MIN_COLS)
+
+    # host time per call, after a synchronize: the wrapper, and its C entry
+    # alone with the arguments made once (the entry encodes three tensor
+    # maps and launches)
+    host = {}
+    for M in (16, PREFILL_M):
+        x, mags, signs, scale = kernel_inputs(gen, M, 1536, 1536, x_dtype=torch.bfloat16)
+        y = torch.empty((M, 1536), device="cuda")
+        entry = pm._tc_entry()
+        args = [x.data_ptr(), mags.data_ptr(), signs.data_ptr(), scale.data_ptr(), None, None,
+                y.data_ptr(), M, 1536, 1536, 8, 1, pm.tc_group(M, 1536, 1536, 132),
+                torch.cuda.current_stream().cuda_stream]
+        if entry(*args) != 0:
+            raise AssertionError("the tensor-core C entry refused its launch")
+        for name, call in (("wrapper_us", lambda: pm.polarized_matmul_tc(x, mags, signs, scale, 8)),
+                           ("entry_us", lambda: entry(*args))):
+            call()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(HOST_CALLS):
+                call()
+            host[f"M{M}_{name}"] = (time.perf_counter() - t0) / HOST_CALLS * 1e6
+            torch.cuda.synchronize()
+    emit("tc_host", per="one call at 1536x1536, host clock over 1,000 calls after a "
+                        "synchronize", **host)
+
     crossover = []
-    route = pm.uses_tensor_cores
     for M in CROSSOVER_M:
         rec = {"M": M, "tc_ms": 0.0, "f32_ms": 0.0, "f32_kernel_ms": 0.0,
-               "route": "tc" if route(torch.bfloat16, torch.uint8, "cuda", M) else "f32"}
+               "route": "tc" if route(torch.bfloat16, torch.uint8, "cuda", M, SLICE_COLS)
+               else "f32"}
         for (K, N), calls in LAYER_SHAPES.items():
             x, mags, signs, scale = kernel_inputs(gen, M, K, N, x_dtype=torch.bfloat16)
             rec["tc_ms"] += calls * timed_ms(
                 lambda: pm.polarized_matmul_tc(x, mags, signs, scale, 8), flush)
-            # the f32 route on bf16 x (forced here at every M, the route
-            # patched as route_check does): one launch that widens x in the
-            # kernel; f32_kernel_ms is the same kernel on f32 x
+            # the f32 route on bf16 x (forced here at every M): one launch
+            # that widens x in the kernel; f32_kernel_ms is the same kernel
+            # on f32 x
             xf = x.float()
-            pm.uses_tensor_cores = lambda *args: False
-            try:
-                rec["f32_ms"] += calls * timed_ms(
-                    lambda: pm.polarized_matmul(x, mags, signs, scale, 8), flush)
-            finally:
-                pm.uses_tensor_cores = route
+            rec["f32_ms"] += calls * f32_route(lambda: timed_ms(
+                lambda: pm.polarized_matmul(x, mags, signs, scale, 8), flush))
             rec["f32_kernel_ms"] += calls * timed_ms(
                 lambda: pm.polarized_matmul(xf, mags, signs, scale, 8), flush)
         emit("crossover", per="the 7 projections of one qwen2-1.5b layer, bf16 x", **rec)
@@ -610,18 +689,45 @@ def phase_kernels_tc():
     # TC_MIN_ROWS is the least M at which the tensor-core route wins
     wins = [r["M"] for r in crossover if r["tc_ms"] < r["f32_ms"]]
     emit("crossover_min_rows", measured=wins[0] if wins else None, TC_MIN_ROWS=pm.TC_MIN_ROWS)
-    return rows, worst_abs, worst_rel, crossover, floor_ms
+    return rows, worst_abs, worst_rel, crossover, floor_ms, {
+        "whisper_m1024": whisper, "narrow_n": narrow, "host": host}
 
 
-def route_split(per_call, prefill_rows, steps, slots):
+def route_split(per_call, prefill_rows, steps, slots, cols):
     """The launches a bf16 FORMS model's prefills (M = each prompt's bucket)
-    and decode steps (M = slots) make on the [f32, tensor-core] kernels."""
+    and decode steps (M = slots) make on the [f32, tensor-core] kernels.
+    ``cols`` is the narrowest output width of a call's projections: when it
+    is at least TC_MIN_COLS, every projection of the call takes the route
+    that M gives (a narrower one is reckoned apart, as the xlstm phase does)."""
     import torch
     from repro_torch.kernels import polarized_matmul as pm
+    if cols < pm.TC_MIN_COLS:
+        raise AssertionError(f"a projection of {cols} columns leaves the tensor cores at "
+                             f"every M: reckon it apart")
     out = [0, 0]
     for M in prefill_rows + [slots] * steps:
-        out[pm.uses_tensor_cores(torch.bfloat16, torch.uint8, "cuda", M)] += per_call
+        out[pm.uses_tensor_cores(torch.bfloat16, torch.uint8, "cuda", M, cols)] += per_call
     return out
+
+
+def narrowest(tree) -> int:
+    """The narrowest output width of a compressed tree's FORMS leaves."""
+    from repro_torch.forms import compressed_paths
+    return min(leaf.mags.shape[-1] for leaf in compressed_paths(tree).values())
+
+
+def wide_route(cols):
+    """``route(M, N=cols)``: 1 where bf16 x on uint8 codes at (M, N) takes
+    the tensor-core kernel, else 0 (the [f32, tc] index), for a model whose
+    narrowest projection has ``cols`` columns: at least TC_MIN_COLS, so that
+    all of a call's projections route alike unless N is named."""
+    import torch
+    from repro_torch.kernels import polarized_matmul as pm
+    if cols < pm.TC_MIN_COLS:
+        raise AssertionError(f"a projection of {cols} columns leaves the tensor cores at "
+                             f"every M: reckon it apart")
+    return lambda M, N=cols: int(pm.uses_tensor_cores(torch.bfloat16, torch.uint8, "cuda",
+                                                      M, N))
 
 
 def bound_by(rows):
@@ -707,14 +813,14 @@ def phase_skip():
     worst = 0.0
     for M, x_dtype in ((DECODE_M, torch.float32), (DECODE_M, torch.bfloat16),
                        (PREFILL_M, torch.float32), (PREFILL_M, torch.bfloat16)):
-        tc = pm.uses_tensor_cores(x_dtype, torch.uint8, "cuda", M)
+        tc = pm.uses_tensor_cores(x_dtype, torch.uint8, "cuda", M, SLICE_COLS)
         counter = pm.polarized_matmul_tc_skip if tc else pm.polarized_matmul_skip
         bm = pm.tile_rows(M, tc)
         for (K, N) in LAYER_SHAPES:
             x0, mags, signs, scale = kernel_inputs(gen, M, K, N, x_dtype=x_dtype)
             for frac in (0.0, 0.5, 1.0):
                 x = dead_slices(x0.clone(), frac)
-                mask = pm.tile_mask(x, mags.dtype)
+                mask = pm.tile_mask(x, mags.dtype, N)
                 dense = pm.polarized_matmul(x, mags, signs, scale, 8)
                 before = counter.launches
                 skip = pm.polarized_matmul_skip(x, mags, signs, scale, 8, mask=mask)
@@ -1008,7 +1114,7 @@ def phase_slice():
         for uid, t in toks.items():
             if len(t) != n_new or not all(0 <= v < cfg.vocab_size for v in t):
                 raise AssertionError(f"request {uid} returned {t}")
-        f32, tc = route_split(per_call, buckets, steps, engine.slots)
+        f32, tc = route_split(per_call, buckets, steps, engine.slots, SLICE_COLS)
         want = {"polarized_matmul": f32, "polarized_matmul_tc": tc}
         if launches != want:
             raise AssertionError(f"the kernels launched {launches} times for "
@@ -1065,9 +1171,9 @@ def held_skip(gen, M, K, N, flush, x_dtype=None):
 
     x, mags, signs, scale = kernel_inputs(gen, M, K, N, x_dtype=x_dtype or torch.bfloat16)
     x = dead_slices(x, 0.5)
-    tc = pm.uses_tensor_cores(x.dtype, mags.dtype, "cuda", M)
+    tc = pm.uses_tensor_cores(x.dtype, mags.dtype, "cuda", M, N)
     bm = pm.tile_rows(M, tc)
-    mask = pm.tile_mask(x, mags.dtype)
+    mask = pm.tile_mask(x, mags.dtype, N)
     got = pm.polarized_matmul_skip(x, mags, signs, scale, 8, mask=mask)
     again = pm.polarized_matmul_skip(x, mags, signs, scale, 8, mask=mask)
     dense = pm.polarized_matmul(x, mags, signs, scale, 8)
@@ -1173,7 +1279,7 @@ def phase_mesh(plain_engine, plain_tokens):
          decode_step_ms_mean={k: float(np.mean(v)) for k, v in step_ms.items()},
          launches=mesh_launches,
          launches_expected=dict(zip(("polarized_matmul", "polarized_matmul_tc"),
-                                    route_split(per_call, buckets, steps, 4))),
+                                    route_split(per_call, buckets, steps, 4, SLICE_COLS))),
          tokens_equal=True, serve_line=line, serve_s=time.perf_counter() - t0,
          nvidia_smi=nvidia_smi_line(),
          shard_rows={k: len(v) for k, v in rows.items()})
@@ -1339,18 +1445,20 @@ def verify_shapes(gen, flush):
     return rows
 
 
-def spec_reckoning(per_call, buckets, widths, draft_layers, slots=4):
+def spec_reckoning(per_call, buckets, widths, draft_layers, cols, slots=4):
     """[f32, tensor-core] launches of a speculative run: two prefills per
     admission (the draft's only with FORMS draft layers), kk + 1 draft calls
-    at M = slots and one verify at M = slots x (kk+1) per round."""
+    at M = slots and one verify at M = slots x (kk+1) per round (``cols``:
+    as route_split's)."""
     import torch
     from repro_torch.kernels import polarized_matmul as pm
-    out = [2 * n for n in route_split(per_call, buckets, 0, slots)] if draft_layers \
-        else route_split(per_call, buckets, 0, slots)
+    out = [2 * n for n in route_split(per_call, buckets, 0, slots, cols)] if draft_layers \
+        else route_split(per_call, buckets, 0, slots, cols)
     for kk in widths:
-        out[0] += (kk + 1) * 7 * draft_layers
-        out[pm.uses_tensor_cores(torch.bfloat16, torch.uint8, "cuda", slots * (kk + 1))] += \
-            per_call
+        out[pm.uses_tensor_cores(torch.bfloat16, torch.uint8, "cuda", slots, cols)] += \
+            (kk + 1) * 7 * draft_layers
+        out[pm.uses_tensor_cores(torch.bfloat16, torch.uint8, "cuda", slots * (kk + 1),
+                                 cols)] += per_call
     return out
 
 
@@ -1447,7 +1555,7 @@ def phase_speculate(model, cfg, prompts, plain_engine, plain_tokens, trace=False
                                       threshold, label)
 
     def check_launches(run, draft_layers, label):
-        want = spec_reckoning(per_call, buckets, run["widths"], draft_layers)
+        want = spec_reckoning(per_call, buckets, run["widths"], draft_layers, SLICE_COLS)
         got = [run["launches"]["polarized_matmul"], run["launches"]["polarized_matmul_tc"]]
         run["launches_expected"] = want
         if got != want:
@@ -1507,7 +1615,7 @@ def phase_speculate(model, cfg, prompts, plain_engine, plain_tokens, trace=False
     dense_engine = ServingEngine(model, tree, page_size=0, decode_block=4, **common)
     dense_run = serve(dense_engine)
     steps = dense_run["rounds"] * dense_engine.decode_block
-    dense_want = route_split(per_call, buckets, steps, 4)
+    dense_want = route_split(per_call, buckets, steps, 4, SLICE_COLS)
     dense_got = [dense_run["launches"]["polarized_matmul"],
                  dense_run["launches"]["polarized_matmul_tc"]]
     dense_rule = token_rule(dense_engine, dense_run["tokens"], "dense cache")
@@ -1687,19 +1795,21 @@ def recorded(runner):
     return log
 
 
-def fleet_reckoning(per_call, slots, decode_block, log, chunk_widths, round_widths=None):
+def fleet_reckoning(per_call, slots, decode_block, log, chunk_widths, round_widths=None,
+                    cols=SLICE_COLS):
     """[f32, tensor-core] launches of a fleet run, from what it recorded:
     a bulk prefill at M = bucket, a chunk at M = slots x width, a plain
     decode round of ``decode_block`` calls at M = slots.  On the
     speculative runner every admission and chunk runs twice (target and
     FORMS draft) and a round of width kk runs kk + 1 draft calls at M =
-    slots and a verify at M = slots x (kk + 1)."""
+    slots and a verify at M = slots x (kk + 1).  ``cols``: as route_split's
+    (the fleet serves the slice's model)."""
     rows = log["prefill_buckets"] + [slots * w for w in chunk_widths]
     if round_widths is None:
-        return route_split(per_call, rows, log["decode_rounds"] * decode_block, slots)
-    admitted = route_split(2 * per_call, rows, 0, slots)
+        return route_split(per_call, rows, log["decode_rounds"] * decode_block, slots, cols)
+    admitted = route_split(2 * per_call, rows, 0, slots, cols)
     rounds = route_split(per_call, [slots * (kk + 1) for kk in round_widths],
-                         sum(kk + 1 for kk in round_widths), slots)
+                         sum(kk + 1 for kk in round_widths), slots, cols)
     return [a + b for a, b in zip(admitted, rounds)]
 
 
@@ -1905,7 +2015,7 @@ def phase_checkpoint_serve(plain_engine, plain_tokens, root):
     counts = launch_counts()
     launches = [counts["polarized_matmul"], counts["polarized_matmul_tc"]]
     want = route_split(7 * cfg.num_layers, [engine.runner.bucket_for(len(p)) for p in prompts],
-                       (engine.scheduler.rounds - rounds0) * engine.decode_block, 4)
+                       (engine.scheduler.rounds - rounds0) * engine.decode_block, 4, SLICE_COLS)
     # the f32 tree this one compresses: the compressed leaves' dense bytes
     # and the leaves left dense (f32 already)
     f32_bytes = plain_engine.compression_report.bytes_dense + sum(
@@ -2178,7 +2288,7 @@ def phase_zero_skip():
         steps = (engine.scheduler.rounds - rounds0) * engine.decode_block
         calls = len(results) + steps
         want = route_split(per_call, [engine.runner.bucket_for(len(p)) for p in prompts],
-                           steps, engine.slots)
+                           steps, engine.slots, narrowest(tree))
         skips = [counts["polarized_matmul_skip"], counts["polarized_matmul_tc_skip"]]
         if mode.startswith("block") and (skips != want or counts["polarized_matmul"]
                                          or counts["polarized_matmul_tc"]):
@@ -3073,7 +3183,7 @@ def held_matmul(gen, M, K, N, bits=8, flush=None, x_dtype=None):
     abs_err = float((got - want).abs().max())
     rec = {"M": M, "K": K, "N": N, "bits": bits, "x": str(x_dtype).removeprefix("torch."),
            "max_code": int(mags.max()),
-           "route": "tc" if pm.uses_tensor_cores(x.dtype, mags.dtype, "cuda", M) else "f32",
+           "route": "tc" if pm.uses_tensor_cores(x.dtype, mags.dtype, "cuda", M, N) else "f32",
            "max_abs_err": abs_err, "max_rel_err": abs_err / float(want.abs().max())}
     if not torch.equal(got, again):
         raise AssertionError(f"two launches differ: {rec}")
@@ -3259,7 +3369,7 @@ def phase_autobits(engine, prompts, plain_tokens, uniform_draft):
     plan_launches = {k: v for k, v in launch_counts().items() if v}
     names = ("polarized_matmul", "polarized_matmul_tc")
     name = names[pm.uses_tensor_cores(torch.bfloat16, torch.uint8, "cuda",
-                                      acfg.calib_batch * acfg.calib_len)]
+                                      acfg.calib_batch * acfg.calib_len, SLICE_COLS)]
     nlls, rest = divmod(plan_launches.get(name, 0), acfg.calib_batches * per_call)
     base_plan = all(b == spec.bits for b in plan.bits.values())
     want = {name: nlls * acfg.calib_batches * per_call, "admm_polarize": nlls * matrices}
@@ -3296,7 +3406,7 @@ def phase_autobits(engine, prompts, plain_tokens, uniform_draft):
         runs[name].append(served(engine if name == "uniform8" else mixed, prompts))
     for name, rs in runs.items():
         for r in rs:
-            want = route_split(per_call, buckets, r["decode_steps"], 4)
+            want = route_split(per_call, buckets, r["decode_steps"], 4, SLICE_COLS)
             got = {k: v for k, v in r["counts"].items() if v}
             if got != {k: v for k, v in zip(names, want) if v}:
                 raise AssertionError(f"{name}: launched {got}, reckoned {want}")
@@ -3317,7 +3427,7 @@ def phase_autobits(engine, prompts, plain_tokens, uniform_draft):
     del params
     spec_run = served(draft_engine, prompts)
     widths = list(draft_engine.runner.round_widths)
-    want = spec_reckoning(per_call, buckets, widths, cfg.num_layers)
+    want = spec_reckoning(per_call, buckets, widths, cfg.num_layers, SLICE_COLS)
     got = {k: v for k, v in spec_run["counts"].items() if v}
     if got != {k: v for k, v in zip(names, want) if v}:
         raise AssertionError(f"auto-draft: launched {got}, the round widths "
@@ -3387,11 +3497,11 @@ def phase_dense_configs():
                                    device="cuda")
                for mode in ("off", "block")}
     buckets = [engines["off"].runner.bucket_for(len(p)) for p in prompts]
-    route = lambda M: pm.uses_tensor_cores(torch.bfloat16, torch.uint8, "cuda", M)
+    route = wide_route(narrowest(tree))
     runs = {"off": [], "block": []}
     for mode in ("off", "block", "block", "off"):
         run = served(engines[mode], prompts)
-        want = route_split(7 * cfg.num_layers, buckets, run["decode_steps"], 4)
+        want = route_split(7 * cfg.num_layers, buckets, run["decode_steps"], 4, narrowest(tree))
         want[route(1)] += len(prompts)          # the head at each prefill's last row
         want[route(4)] += run["decode_steps"]   # and at each decode step
         names = (("polarized_matmul", "polarized_matmul_tc") if mode == "off"
@@ -3466,7 +3576,7 @@ def phase_reliability(plain_engine, plain_tokens):
     binary), greedy agreement with the slice's tokens (no gate: random
     weights have near-ties); (5) the stat line of ``stats_every=4``.  Each
     run's launches reckoned: the route's prefills and decode steps, and two
-    probe forwards at M=8 (the f32 kernel) per probe.  Times: probe ms,
+    probe forwards at M=8 (the tensor-core kernel) per probe.  Times: probe ms,
     scan s (1.31 GB device to host and compared), repair ms, each
     injection's s, and the host's peak RSS."""
     import contextlib
@@ -3483,7 +3593,7 @@ def phase_reliability(plain_engine, plain_tokens):
     tree = {k: v for k, v in plain_engine.params.items() if k != "head_cast"}
     prompts = slice_prompts(cfg)
     per_call = 7 * cfg.num_layers
-    route = lambda M: pm.uses_tensor_cores(torch.bfloat16, torch.uint8, "cuda", M)
+    route = wide_route(SLICE_COLS)
     leaves = compressed_paths(tree)
     cells = sum(leaf.mags.numel() * 4 for leaf in leaves.values())
     cut_cells = sum(leaves[p].mags.numel() * 4 for p in INJECT_LEAVES)
@@ -3513,7 +3623,7 @@ def phase_reliability(plain_engine, plain_tokens):
         run = served(eng, prompts)
         probes = (eng.health.probes if eng.health is not None else 0) - probes0
         want = route_split(per_call, [eng.runner.bucket_for(len(p)) for p in prompts],
-                           run["decode_steps"], 4)
+                           run["decode_steps"], 4, SLICE_COLS)
         want[route(8)] += probes * 2 * per_call
         got = [run["counts"]["polarized_matmul"], run["counts"]["polarized_matmul_tc"]]
         if got != want:
@@ -3684,7 +3794,7 @@ def phase_moe():
     lens = [len(p) for p in prompts]
     if [engine.runner.bucket_for(n) for n in lens] != lens:
         raise AssertionError("the MoE engine padded a prompt")
-    route = lambda M: pm.uses_tensor_cores(torch.bfloat16, torch.uint8, "cuda", M)
+    route = wide_route(narrowest(tree))
     runs = []
     for _ in range(2):
         run = served(engine, prompts)
@@ -3938,7 +4048,7 @@ def phase_mla():
     engine = ServingEngine(model, tree, page_size=16, **kw)
     if [engine.runner.bucket_for(n) for n in lens] != lens:
         raise AssertionError("the MLA engine padded a prompt")
-    route = lambda M: pm.uses_tensor_cores(torch.bfloat16, torch.uint8, "cuda", M)
+    route = wide_route(narrowest(tree))
     L = cfg.num_layers
     runs = []
     for _ in range(2):
@@ -4097,7 +4207,7 @@ def phase_whisper():
     enc_out = engine.cache.dense["enc_out"]
     prompts = slice_prompts(cfg)
     buckets = [prefill_bucket(len(p), SERVE_MAX_LEN) for p in prompts]
-    route = lambda M: pm.uses_tensor_cores(torch.bfloat16, torch.uint8, "cuda", M)
+    route = wide_route(narrowest(tree))
     runs = []
     for _ in range(2):
         run = served(engine, prompts)
@@ -4605,18 +4715,17 @@ RECURRENT_CHECK = dict(slots=2, max_len=64, prompt=8, seq=256)
 RECURRENT_TOL = 1e-3
 
 
-def serve_recurrent(cfg, want_pol, prefill_launches, step_launches, state_leaves, step_calls,
-                    label):
+def serve_recurrent(cfg, want_pol, launches_at, state_leaves, step_calls, label):
     """A recurrent family at ``cfg``, random weights from seed 0, compressed
     by FORMS (m=8, 8 bits, energy rule; ``want_pol`` polarizations
     reckoned) and served with ``page_size=16`` asked for: the engine falls
     back to the dense slot cache (``engine.paged`` False).  The slice's 4
     prompts at exact length, 16 new tokens, 4 slots, max_len 256,
     decode_block 4, twice (the same tokens), every run's launches equal to
-    ``prefill_launches(n)`` ([f32, tc] of an n-token prefill) per prompt
-    plus ``step_launches`` per decode step on the f32 kernel (M = 4), which
-    the tree reckons too: ``step_calls(path)`` calls of each compressed
-    leaf per decode step.
+    ``launches_at(n, 1)`` ([f32, tc] of an n-token prefill, the head at its
+    last row) per prompt plus ``launches_at(4, 4)`` per decode step (M = 4
+    slots), whose sum the tree reckons too: ``step_calls(path)`` calls of
+    each compressed leaf per decode step.
     The decode step's byte bound: every code, sign and scale of the tree
     read once, and the recurrent state (the cache leaves in
     ``state_leaves``) read and written once.  Then ``mesh_serve`` (line
@@ -4648,6 +4757,8 @@ def serve_recurrent(cfg, want_pol, prefill_launches, step_launches, state_leaves
     if pol_launches != want_pol or matrices != want_pol:
         raise AssertionError(f"{cfg.name}: compress_tree polarized {pol_launches} matrices "
                              f"({matrices} in the tree), reckoned {want_pol}")
+    step_split = launches_at(DECODE_M, DECODE_M)
+    step_launches = sum(step_split)
     if sum(step_calls(p) for p in leaves) != step_launches:
         raise AssertionError(f"{cfg.name}: the tree reckons {sum(map(step_calls, leaves))} "
                              f"launches per decode step, the config {step_launches}")
@@ -4661,14 +4772,12 @@ def serve_recurrent(cfg, want_pol, prefill_launches, step_launches, state_leaves
     lens = [len(p) for p in prompts]
     if [engine.runner.bucket_for(n) for n in lens] != lens:
         raise AssertionError(f"{cfg.name}: the engine padded a prompt")
-    if pm.uses_tensor_cores(torch.bfloat16, torch.uint8, "cuda", DECODE_M):
-        raise AssertionError("the decode step's M takes the tensor-core route")
     runs = []
     for _ in range(2):
         run = served(engine, prompts)
-        want = [run["decode_steps"] * step_launches, 0]
+        want = [run["decode_steps"] * v for v in step_split]
         for n in lens:
-            want = [a + b for a, b in zip(want, prefill_launches(n))]
+            want = [a + b for a, b in zip(want, launches_at(n, 1))]
         got = [run["counts"]["polarized_matmul"], run["counts"]["polarized_matmul_tc"]]
         if got != want:
             raise AssertionError(f"{cfg.name}: launched {got}, reckoned {want}")
@@ -4695,7 +4804,7 @@ def serve_recurrent(cfg, want_pol, prefill_launches, step_launches, state_leaves
                 decode_step_ms=[r["decode_step_ms"] for r in runs],
                 step_bound_ms=(tree_bytes + 2 * state_bytes) / HBM_BYTES_PER_S * 1e3,
                 mean_prefill_ms=[r["mean_prefill_ms"] for r in runs],
-                launches=last["launches"], launches_per_decode_step=step_launches,
+                launches=last["launches"], launches_per_decode_step=step_split,
                 mesh_launches=mesh, tokens=last["tokens"])
     del engine
     return line, tree
@@ -4805,16 +4914,16 @@ def phase_xlstm():
     cfg = get_config(XLSTM_ARCH)
     n_s = sum(1 for i in range(cfg.num_layers) if i % cfg.slstm_every == 0)
     n_m = cfg.num_layers - n_s
-    route = lambda M: pm.uses_tensor_cores(torch.bfloat16, torch.uint8, "cuda", M)  # noqa: E731
+    route = wide_route(XLSTM_SQUARE[1])
 
-    def prefill_launches(n):
+    def launches_at(M, head_rows):
         want = [4 * n_s, 0]                  # the sLSTM's f32-x input projections
-        want[route(n)] += 7 * n_m + n_s      # the mLSTM's 7, the sLSTM's wout
-        want[route(1)] += 1                  # the head at the prompt's last row
+        want[route(M)] += 5 * n_m + n_s      # the mLSTM's wq/wk/wv/wo/wout, the sLSTM's wout
+        want[route(M, XLSTM_GATES[1])] += 2 * n_m   # the mLSTM's wi/wf, N = num_heads
+        want[route(head_rows)] += 1          # the head (a prefill's last row)
         return want
 
-    per_step = 7 * n_m + 5 * n_s + 1
-    line, tree = serve_recurrent(cfg, 7 * n_m + 5 * n_s + 1, prefill_launches, per_step,
+    line, tree = serve_recurrent(cfg, 7 * n_m + 5 * n_s + 1, launches_at,
                                  [f"layer{i}" for i in range(cfg.num_layers)],
                                  lambda path: 1, "xlstm")   # every leaf is one 2-D matrix
     check = recurrent_model_check(cfg, tree, xlstm)
@@ -4876,19 +4985,19 @@ def phase_zamba():
 
     cfg = get_config(ZAMBA_ARCH)
     L, groups = cfg.num_layers, cfg.num_layers // cfg.shared_attn_every
-    route = lambda M: pm.uses_tensor_cores(torch.bfloat16, torch.uint8, "cuda", M)  # noqa: E731
+    route = wide_route(min(N for _, N in ZAMBA_SHAPES.values()))
     per_call = 2 * L + 7 * groups
 
-    def prefill_launches(n):
+    def launches_at(M, head_rows):
         want = [0, 0]
-        want[route(n)] += per_call
-        want[route(1)] += 1
+        want[route(M)] += per_call
+        want[route(head_rows)] += 1
         return want
 
     # a stacked Mamba leaf runs once per layer, a shared-block leaf once per
     # application, the head once
     line, tree = serve_recurrent(
-        cfg, 2 * L + 7 + 1, prefill_launches, per_call + 1, ["ssm", "conv"],
+        cfg, 2 * L + 7 + 1, launches_at, ["ssm", "conv"],
         lambda path: L if path.startswith("blocks/") else
         groups if path.startswith("shared_attn/") else 1, "zamba")
     cut = dataclasses.replace(cfg, num_layers=ZAMBA_CHECK_LAYERS)
@@ -4970,7 +5079,7 @@ def held_fc(name, leaf, x, flush=None):
     abs_err = float((got - want).abs().max())
     rec = {"leaf": name, "M": x.shape[0], "K": leaf.k, "Kp": kp, "N": leaf.n,
            "route": "tc" if pm.uses_tensor_cores(xp.dtype, leaf.mags.dtype, "cuda",
-                                                 x.shape[0]) else "f32",
+                                                 x.shape[0], leaf.n) else "f32",
            "max_abs_err": abs_err, "max_rel_err": abs_err / max(float(want.abs().max()), 1e-30)}
     if not torch.equal(got, again):
         raise AssertionError(f"two launches differ: {rec}")
@@ -5233,11 +5342,11 @@ def phase_vlm():
     engine = ServingEngine(model, tree, spec=spec, page_size=16, batch_slots=4,
                            max_len=SERVE_MAX_LEN, decode_block=4, device="cuda")
     buckets = [engine.runner.bucket_for(len(p)) for p in prompts]
-    route = lambda M: pm.uses_tensor_cores(torch.bfloat16, torch.uint8, "cuda", M)  # noqa: E731
+    route = wide_route(narrowest(tree))
     runs = []
     for _ in range(2):
         run = served(engine, prompts)
-        want = route_split(7 * cfg.num_layers, buckets, run["decode_steps"], 4)
+        want = route_split(7 * cfg.num_layers, buckets, run["decode_steps"], 4, narrowest(tree))
         want[route(1)] += len(prompts)
         want[route(DECODE_M)] += run["decode_steps"]
         got = [run["counts"]["polarized_matmul"], run["counts"]["polarized_matmul_tc"]]
@@ -5429,7 +5538,7 @@ def main() -> int:
          ptxas={k: v["ptxas"] for k, v in build.BUILD_LOG.items()})
 
     rows, worst_abs, worst_rel = phase_kernels()
-    tc_rows, tc_abs, tc_rel, crossover, floor_ms = phase_kernels_tc()
+    tc_rows, tc_abs, tc_rel, crossover, floor_ms, tc_extra = phase_kernels_tc()
     width_rows, head_rows = phase_kernel_widths()
     skip_rows, skip_bf16_rows, tc_skip_rows, skip_err = phase_skip()
     bit_rows, bit_adc4_rows = phase_bitserial()
@@ -5731,7 +5840,7 @@ def main() -> int:
         "name": "polarized_matmul_tc", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/polarized_matmul_tc.cu",
         "replaces": "src/repro/kernels/polarized_matmul.py:45 and :68 (bf16 x, uint8 "
-                    "codes, M >= TC_MIN_ROWS)",
+                    "codes, M >= TC_MIN_ROWS, N >= TC_MIN_COLS)",
         "launches": launches["polarized_matmul_tc"],
         "skip_launches": skip_launches["polarized_matmul_tc_skip"],
         "speculate_launches": spec_launches["polarized_matmul_tc"],
@@ -5772,8 +5881,16 @@ def main() -> int:
         "library_ms": per_layer(tc_rows, PREFILL_M, "library_ms"),
         "library_f32_ms": per_layer(tc_rows, PREFILL_M, "library_f32_ms"),
         "f32_kernel_ms": per_layer(rows, PREFILL_M, "kernel_ms"),
-        "m32": {k: per_layer(tc_rows, 32, k) for k in
-                ("kernel_ms", "plain_ms", "bound_ms", "library_ms", "library_f32_ms")},
+        "per_m": {M: {k: per_layer(tc_rows, M, k) for k in
+                      ("kernel_ms", "plain_ms", "bound_ms", "library_ms", "library_f32_ms")}
+                  for M in TC_TIMED_M},
+        "tb_s": {M: sum(r["tb_s"] * r["kernel_ms"] * LAYER_SHAPES[(r["K"], r["N"])]
+                        for r in tc_rows if r["M"] == M) / per_layer(tc_rows, M, "kernel_ms")
+                 for M in TC_TIMED_M},
+        "whisper_m1024": {k: tc_extra["whisper_m1024"][k] for k in
+                          ("kernel_ms", "plain_ms", "library_ms", "bound_ms", "tb_s")},
+        "narrow_n": tc_extra["narrow_n"],
+        "host_us": tc_extra["host"],
         "skip_ms": per_layer(tc_skip_rows, PREFILL_M, "kernel_ms"),
         "skip_bound_ms": per_layer(tc_skip_rows, PREFILL_M, "bound_ms"),
         "crossover": [{k: r[k] for k in ("M", "tc_ms", "f32_ms", "f32_kernel_ms", "route")}
@@ -5797,7 +5914,8 @@ def main() -> int:
                "prefills (M = the bucket, the cross k/v at M = max_len) and every decode "
                "step's cross k/v (M = 4 slots x 256); whisper_cross_kv: that M=1024 call "
                "(768x768), timed; xlstm_launches, zamba_launches: the recurrent families' "
-               "exact-length prefills (M = 16-64; xlstm's mLSTM wi/wf at N = 4); "
+               "exact-length prefills (M = 16-64; xlstm's mLSTM wi/wf, N = 4, take the f32 "
+               "kernel); "
                "vlm_launches: phi-3-vision-4.2b's prefills at their buckets; "
                "bits: the 7 at M=64 on 2-, 4- and 6-bit codes; mesh_launches: the slice "
                "served on a data=1,model=1 mesh; mesh_shards: the mesh phase's shard "
@@ -5805,7 +5923,11 @@ def main() -> int:
                "mesh_mla_launches, mesh_whisper_launches, mesh_xlstm_launches, "
                "mesh_zamba_launches: their phases' trees on a data=1,model=1 mesh; "
                "mesh_family_shards: MLA's, whisper's, xLSTM's and Zamba2's shard shapes "
-               "at M=64 and whisper's cross k/v at M = 4 slots x 256",
+               "at M=64 and whisper's cross k/v at M = 4 slots x 256; per_m, tb_s: the 7 "
+               "per layer at each M of TC_TIMED_M, the kernel called directly; "
+               "whisper_m1024: the cross k/v at M=1,024; narrow_n: both routes at M=64, "
+               "K=1024, N = 1-128; host_us: host microseconds per call of the wrapper "
+               "and of the C entry at 1536x1536",
     }]}
     emit("total", seconds=time.perf_counter() - t_start)
     print(json.dumps(kernels), flush=True)

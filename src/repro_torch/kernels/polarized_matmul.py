@@ -9,16 +9,19 @@ the card and how its design answers that:
 
 * ``csrc/polarized_matmul_tc.cu`` — bf16 x times uint8 codes on the tensor
   cores (:func:`polarized_matmul_tc`, :func:`polarized_matmul_tc_skip`), for
-  M >= :data:`TC_MIN_ROWS`: the prefill of a bf16 served model;
+  M >= :data:`TC_MIN_ROWS` and N >= :data:`TC_MIN_COLS`: the prefill of a
+  bf16 served model (``wgmma`` with the codes widened in registers, TMA
+  loads, the K slices of an output tile summed inside a thread-block
+  cluster; :func:`tc_group` picks the cluster);
 * ``csrc/polarized_matmul.cu`` — f32 on the CUDA cores
   (:func:`polarized_matmul`, :func:`polarized_matmul_skip`), for everything
-  else: decode, int32 codes (bits > 8) and f32 activations.  It takes bf16 x
+  else: decode, narrow N, int32 codes (bits > 8) and f32 activations.  It takes bf16 x
   as it is and widens it in the kernel (exactly), and its launch geometry is
   :func:`decode_split`'s plan.
 
 :func:`polarized_matmul` and :func:`polarized_matmul_skip` are the entry
 points: :func:`uses_tensor_cores` picks the kernel from x's dtype, the codes'
-dtype, the device and M.  The tensors' device picks the route: CPU tensors
+dtype, the device, M and N.  The tensors' device picks the route: CPU tensors
 go to the plain PyTorch versions
 (:func:`repro_torch.kernels.ref.ref_polarized_matmul_fast` and
 ``ref_polarized_matmul_skip``, on x widened to f32), CUDA tensors to a
@@ -47,25 +50,35 @@ _ENTRY = {(torch.float32, torch.uint8): "forms_polarized_matmul_u8",
 _MAG_DTYPES = (torch.uint8, torch.int32)
 _TC_SOURCE, _TC_ENTRY = "polarized_matmul_tc", "forms_polarized_matmul_tc"
 # x, mags, signs, scale, mask, gate, y, work, tickets; M, N, K, m, fast,
-# group; stream (both kernels' entries)
+# group; stream (the f32 kernel's entries)
 _ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+# x, mags, signs, scale, mask, gate, y; M, N, K, m, fast, cluster; stream
+# (the tensor-core entry: no scratch, the K slices meet inside a cluster)
+_TC_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 # the zero-skip mask's K slice, as both sources fix it
 _KC = 256
 # the f32 kernel's tiling, as csrc/polarized_matmul.cu fixes it: 128 output
 # columns by 4 (M <= 4) or 8 rows per block, each block summing ``group``
 # (at most 32) K slices
 _BN, _MAX_GROUP = 128, 32
-# the tensor-core kernel's, as csrc/polarized_matmul_tc.cu fixes it: 64
-# rows by 64 columns per block, the zero-skip mask in the same K slices of
-# 256 rows, each block summing a group of at most 64 of them
-_TC_BM, _TC_BN, _TC_MAX_GROUP = 64, 64, 64
+# the tensor-core kernel's, as csrc/polarized_matmul_tc.cu fixes it: the
+# zero-skip mask in 64-row tiles of x (a block's tokens: 8, 16, 32 or 64 of
+# them) and the same K slices of 256 rows, 128 columns per block, and the K
+# range of an output tile cut over a cluster of at most 8 blocks
+_TC_BM, _TC_BN, _TC_MAX_CLUSTER = 64, 128, 8
 
 #: the least M that takes the tensor-core kernel (bf16 x, uint8 codes).
-#: Measured on an H100 (PERF.md, the M crossover table): with bf16 x
-#: widened inside the f32 kernel, the f32 kernel is faster per layer up to
-#: M = 8 (0.123 against 0.154 ms) and the tensor-core kernel from M = 16
-#: (0.156 against 0.163 ms).
-TC_MIN_ROWS = 16
+#: Measured on an H100 (PERF.md, the M crossover, per qwen2-1.5b layer on
+#: bf16 x): the f32 kernel is faster up to M = 4 (0.1028 against 0.1087
+#: ms), the tensor-core kernel from M = 8 (0.1087 against 0.1269 ms).
+TC_MIN_ROWS = 8
+
+#: the least N that takes the tensor-core kernel.  Measured on an H100 at
+#: M = 64, K = 1024 (PERF.md, the narrow-N row): at N = 1, 2 and 4 (the
+#: mLSTM's wi/wf and their shards) its plain loads of a 128-column tile take
+#: 0.055-0.058 ms against the f32 kernel's 0.018; from N = 16 it wins
+#: (0.0116 against 0.0129 ms).
+TC_MIN_COLS = 16
 
 # per (device, stream): the kernel's per-tile ticket counters, all zero
 # between launches (the kernel resets what it uses), grown on demand.  One
@@ -109,26 +122,33 @@ def _tc_entry():
     fn = getattr(lib, _TC_ENTRY)
     if fn.argtypes is None:
         tile = tuple(lib.forms_polarized_matmul_tc_tile(i) for i in range(4))
-        if tile != (_TC_BM, _TC_BN, _KC, _TC_MAX_GROUP):
+        if tile != (_TC_BM, _TC_BN, _KC, _TC_MAX_CLUSTER):
             raise RuntimeError(f"csrc/polarized_matmul_tc.cu tiles by {tile}, its wrapper "
-                               f"by {(_TC_BM, _TC_BN, _KC, _TC_MAX_GROUP)}")
-        fn.argtypes = _ARGTYPES
+                               f"by {(_TC_BM, _TC_BN, _KC, _TC_MAX_CLUSTER)}")
+        fn.argtypes = _TC_ARGTYPES
         fn.restype = ctypes.c_int
     return fn
 
 
+def tc_tokens(M: int) -> int:
+    """Rows of x per tensor-core block: the least ``wgmma`` N of 8, 16, 32
+    and 64 that holds M, else 64 (the mask's row tile)."""
+    return next(n for n in (8, 16, 32, _TC_BM) if M <= n or n == _TC_BM)
+
+
 def tc_group(M: int, N: int, K: int, sms: int) -> int:
-    """K slices of 256 rows that one tensor-core block sums: as few K splits
-    as keep about two blocks per SM (``sms`` of them) in flight, since every
-    split writes and re-reads an (M, N) f32 partial; rounded up to a power
-    of two, which timed fastest on an H100 (PERF.md, PR 16)."""
-    tiles = -(-N // _TC_BN) * -(-M // _TC_BM)
-    ktiles = -(-K // _KC)
-    splits = min(ktiles, max(1, -(-2 * sms // tiles)))
-    group = 1
-    while group < -(-ktiles // splits):
-        group *= 2
-    return min(_TC_MAX_GROUP, group)
+    """The tensor-core kernel's cluster: how many blocks split the K range
+    of one output tile (their partial tiles are summed in the cluster's
+    shared memory).  The largest power of two whose blocks fit one wave on
+    the ``sms`` SMs (a block takes an SM), at most 8 (a portable cluster)
+    and at most one 64-row stage of K per block: timed fastest at every
+    qwen2-1.5b, whisper, MLA and Zamba2 shape on an H100 (PERF.md)."""
+    tiles = -(-N // _TC_BN) * -(-M // tc_tokens(M))
+    stages = -(-K // 64)
+    cluster = 1
+    while 2 * cluster * tiles <= sms and 2 * cluster <= min(_TC_MAX_CLUSTER, stages):
+        cluster *= 2
+    return cluster
 
 
 def decode_split(M: int, N: int, K: int, sms: int) -> Tuple[int, int]:
@@ -151,11 +171,12 @@ def decode_split(M: int, N: int, K: int, sms: int) -> Tuple[int, int]:
 
 
 def uses_tensor_cores(x_dtype: torch.dtype, mag_dtype: torch.dtype, device_type: str,
-                      M: int) -> bool:
+                      M: int, N: int) -> bool:
     """Whether a call takes the tensor-core kernel: CUDA, bf16 x, uint8
-    codes (every operand exact in bf16) and M >= :data:`TC_MIN_ROWS`."""
+    codes (every operand exact in bf16), M >= :data:`TC_MIN_ROWS` and N >=
+    :data:`TC_MIN_COLS`."""
     return (device_type == "cuda" and x_dtype == torch.bfloat16
-            and mag_dtype == torch.uint8 and M >= TC_MIN_ROWS)
+            and mag_dtype == torch.uint8 and M >= TC_MIN_ROWS and N >= TC_MIN_COLS)
 
 
 def tile_rows(M: int, tensor_cores: bool = False) -> int:
@@ -166,12 +187,16 @@ def tile_rows(M: int, tensor_cores: bool = False) -> int:
     return 4 if M <= 4 else 8
 
 
-def tile_mask(x: torch.Tensor, mag_dtype: torch.dtype = torch.uint8) -> torch.Tensor:
+def tile_mask(x: torch.Tensor, mag_dtype: torch.dtype = torch.uint8,
+              N: Optional[int] = None) -> torch.Tensor:
     """The int32 zero-skip mask of x at the tiling of the kernel that a call
-    with x and codes of ``mag_dtype`` launches: one entry per (row tile,
-    K slice of ``KC`` rows), 1 where the tile holds a nonzero."""
+    with x and codes of ``mag_dtype`` on ``N`` output columns (None: at
+    least :data:`TC_MIN_COLS`) launches: one entry per (row tile, K slice of
+    ``KC`` rows), 1 where the tile holds a nonzero."""
     M = x.shape[0]
-    return _tile_mask(x, tile_rows(M, uses_tensor_cores(x.dtype, mag_dtype, x.device.type, M)))
+    N = TC_MIN_COLS if N is None else N
+    return _tile_mask(x, tile_rows(M, uses_tensor_cores(x.dtype, mag_dtype, x.device.type,
+                                                        M, N)))
 
 
 def _tile_mask(x: torch.Tensor, bm: int) -> torch.Tensor:
@@ -196,7 +221,8 @@ def _device_of(*ts: torch.Tensor) -> torch.device:
 
 
 def _tensor_cores(x: torch.Tensor, mags: torch.Tensor, dev: torch.device) -> bool:
-    return x.ndim == 2 and uses_tensor_cores(x.dtype, mags.dtype, dev.type, x.shape[0])
+    return (x.ndim == 2 and mags.ndim == 2
+            and uses_tensor_cores(x.dtype, mags.dtype, dev.type, x.shape[0], mags.shape[1]))
 
 
 def polarized_matmul(x: torch.Tensor, mags: torch.Tensor, signs: torch.Tensor,
@@ -227,9 +253,9 @@ def polarized_matmul(x: torch.Tensor, mags: torch.Tensor, signs: torch.Tensor,
 def polarized_matmul_tc(x: torch.Tensor, mags: torch.Tensor, signs: torch.Tensor,
                         scale: torch.Tensor, m: int, *, gate: Optional[torch.Tensor] = None,
                         out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The product on the tensor-core kernel: bf16 x, uint8 codes, any M
-    (:func:`polarized_matmul` sends it M >= :data:`TC_MIN_ROWS`); ``gate``
-    and ``out`` as there."""
+    """The product on the tensor-core kernel: bf16 x, uint8 codes, any M and
+    N (:func:`polarized_matmul` sends it M >= :data:`TC_MIN_ROWS` and N >=
+    :data:`TC_MIN_COLS`); ``gate`` and ``out`` as there."""
     dev = _device_of(x, mags, signs, scale)
     if dev.type == "cpu":
         if gate is not None or out is not None:
@@ -341,30 +367,33 @@ def _launch(x, mags, signs, scale, m, mask, gate, out, *, tc: bool) -> torch.Ten
         if gate is None:
             return y.zero_()
         return y.masked_fill_(gate.reshape(1, 1) != 0, 0.0)  # no host read
-    # 16-byte cp.async needs whole 8-element rows of x, 16-column rows of
-    # codes and signs, and aligned bases; anything else stages element by
+    # 16-byte cp.async and TMA need whole 8-element rows of x, 16-column rows
+    # of codes and signs, and aligned bases; anything else stages element by
     # element
     fast = int(K % 8 == 0 and N % 16 == 0
                and all(t.data_ptr() % 16 == 0 for t in (x, mags, signs)))
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    if tc:
-        fn = _tc_entry()
-        tiles = -(-N // _TC_BN) * -(-M // _TC_BM)
-        group = tc_group(M, N, K, sms)
-        slices = -(-(-(-K // _KC)) // group)
-    else:
-        fn = _entry(x.dtype, mags.dtype)
-        group, slices = decode_split(M, N, K, sms)
-        tiles = -(-N // _BN) * -(-M // tile_rows(M))
     stream = torch.cuda.current_stream(dev).cuda_stream
+    ptr = lambda t: t.data_ptr() if t is not None else None
+    if tc:
+        args = [x.data_ptr(), mags.data_ptr(), signs.data_ptr(), scale.data_ptr(),
+                ptr(mask), ptr(gate), y.data_ptr(), M, N, K, m, fast,
+                tc_group(M, N, K, sms), stream]
+        with torch.cuda.device(dev):
+            err = _tc_entry()(*args)
+        if err != 0:
+            raise RuntimeError(f"polarized_matmul_tc kernel launch failed: CUDA error {err}")
+        return y
+    fn = _entry(x.dtype, mags.dtype)
+    group, slices = decode_split(M, N, K, sms)
+    tiles = -(-N // _BN) * -(-M // tile_rows(M))
     key = (dev, stream)
     work = tickets = None
     if slices > 1:
         work = torch.empty(slices * M * N, dtype=torch.float32, device=dev)
-        # one buffer per stream serves both kernels: launches on a stream
-        # run in order, and each returns its counters to zero
+        # one buffer per stream: launches on a stream run in order, and
+        # each returns its counters to zero
         tickets = _tickets(key, tiles)
-    ptr = lambda t: t.data_ptr() if t is not None else None
     args = [x.data_ptr(), mags.data_ptr(), signs.data_ptr(), scale.data_ptr(),
             ptr(mask), ptr(gate), y.data_ptr(), ptr(work), ptr(tickets), M, N, K, m, fast]
     with torch.cuda.device(dev):

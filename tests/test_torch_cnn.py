@@ -522,16 +522,3 @@ def test_pipeline_in_situ_fc_matches_dense(pipeline):
     y, eic, _ = tforms.apply_simulated(fp, x, t["spec"])
     rel = float(torch.linalg.norm(y - x @ w) / torch.linalg.norm(x @ w))
     assert rel < 0.05 and float(eic.float().mean()) < 16.0
-
-
-def test_launcher_runs_on_cpu_and_refuses_without_a_card(capsys, monkeypatch):
-    cnn_pipeline.main(["--fragment", "8", "--device", "cpu"])
-    out = capsys.readouterr().out.splitlines()
-    assert out[0] == "=== FORMS pipeline, fragment size 8 ===" and out[-1] == "OK"
-    assert any(line.startswith("compressed-tree forward: argmax agreement") for line in out)
-    assert any(line.startswith("modeled FPS vs original ISAAC") for line in out)
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        cnn_pipeline.main([])
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        tdata.image_batch(tdata.ImageStreamConfig(8, 1, 10, 2), 0)

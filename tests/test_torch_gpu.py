@@ -50,7 +50,7 @@ def test_cuda_kernel_matches_plain(M, K, N, levels):
 @pytest.mark.parametrize("M,K,N,levels", [(1, 1536, 1536, 256), (4, 1536, 256, 256),
                                           (4, 1536, 8960, 256), (4, 8960, 1536, 256),
                                           (4, 1536, 1536, 1024), (7, 1544, 250, 256),
-                                          (8, 8960, 1536, 256)])
+                                          (7, 8960, 1536, 256)])
 @pytest.mark.gpu
 @needs_card
 def test_f32_kernel_takes_bf16_x_in_one_launch_with_the_widened_bits(M, K, N, levels):
@@ -93,12 +93,18 @@ def test_cuda_wrapper_raises_instead_of_falling_back():
         pm.polarized_matmul(x, mags.t().contiguous().t(), signs, scale, 8)
 
 
-def _split(per_call, prefills, steps, slots):
-    """Launches of the [f32, tensor-core] kernels for a bf16 model's
-    prefills (M = bucket, 8 here) and decode steps (M = slots), by the route."""
+def _split(cfg, prefills, steps, slots):
+    """Launches of the [f32, tensor-core] kernels for a bf16 dense model's
+    prefills (M = bucket, 8 here) and decode steps (M = slots), by the
+    route at each of a layer's 7 projections (q, k, v, o, gate, up, down)."""
+    hd = cfg.head_dim
+    cols = [cfg.num_heads * hd, cfg.num_kv_heads * hd, cfg.num_kv_heads * hd, cfg.d_model,
+            cfg.d_ff, cfg.d_ff, cfg.d_model]
     out = [0, 0]
     for calls, M in ((prefills, 8), (steps, slots)):
-        out[pm.uses_tensor_cores(torch.bfloat16, torch.uint8, "cuda", M)] += per_call * calls
+        for N in cols:
+            out[pm.uses_tensor_cores(torch.bfloat16, torch.uint8, "cuda", M, N)] += (
+                cfg.num_layers * calls)
     return out
 
 
@@ -123,7 +129,7 @@ def test_engine_on_the_card_goes_through_the_kernel():
     results = eng.run(reqs)
     steps = eng.stats()["rounds"] * eng.decode_block
     launched = [k.launches - b for k, b in zip(kernels, before)]
-    assert launched == _split(7 * cfg.num_layers, len(results), steps, eng.slots)
+    assert launched == _split(cfg, len(results), steps, eng.slots)
     assert all(len(r.tokens) == 5 and all(0 <= t < cfg.vocab_size for t in r.tokens)
                for r in results)
 
@@ -207,7 +213,7 @@ def test_tensor_core_skip_equals_dense(frac):
     S = -(-K // pm._KC)
     for k in ([] if frac == 0 else range(S) if frac == 1 else range(1, S, 2)):
         x[:, k * pm._KC:(k + 1) * pm._KC] = 0
-    mask = pm.tile_mask(x, mags.dtype)
+    mask = pm.tile_mask(x, mags.dtype, N)
     assert tuple(mask.shape) == (1, S)
     before = pm.polarized_matmul_tc_skip.launches
     skip = pm.polarized_matmul_skip(x, mags, signs, scale, 8, mask=mask)
@@ -379,7 +385,7 @@ def test_engine_block_skip_tokens_equal_dense_on_the_card():
         tokens[mode] = {r.uid: r.tokens for r in res}
         steps = eng.stats()["rounds"] * eng.decode_block
         skips = [k.launches - b for k, b in zip(skip_kernels, before)]
-        want = _split(7 * cfg.num_layers, len(res), steps, eng.slots)
+        want = _split(cfg, len(res), steps, eng.slots)
         assert skips == (want if mode == "block" else [0, 0])
     assert tokens["block"] == tokens["off"]
 

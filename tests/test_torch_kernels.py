@@ -126,10 +126,11 @@ def _case(*values, id=None):
     return pytest.param(*values, id=id or "-".join(map(str, values[:-1])))
 
 
-def host_library(tmp_path, name: str, kernel: str):
+def host_library(tmp_path, name: str, kernel):
     """``csrc/<name>.cu`` compiled with g++ against a host stand-in for the
-    CUDA names (``tests/cuda_host``), its one launch of ``kernel`` run block
-    by block on the CPU; skips without g++."""
+    CUDA names (``tests/cuda_host``), its one ``<<<>>>`` launch of
+    ``kernel`` (None: no such launch) run block by block on the CPU; skips
+    without g++."""
     import re
     import shutil
     import subprocess
@@ -138,9 +139,10 @@ def host_library(tmp_path, name: str, kernel: str):
     if cxx is None:
         pytest.skip("g++ is not installed")
     src = (pm.build.CSRC / f"{name}.cu").read_text()
-    src, n = re.subn(rf"({re.escape(kernel)})<<<grid, THREADS, [^,>]*, ([^>]*)>>>\(([^;]*)\);",
-                     r"host_launch(grid, THREADS, [=] { \1(\3); });", src)
-    assert n == 1
+    if kernel is not None:   # a source that launches with cudaLaunchKernelEx needs none
+        src, n = re.subn(rf"({re.escape(kernel)})<<<grid, THREADS, [^,>]*, ([^>]*)>>>\(([^;]*)\);",
+                         r"host_launch(grid, THREADS, [=] { \1(\3); });", src)
+        assert n == 1
     (tmp_path / f"{name}.cpp").write_text(src)
     lib_path = tmp_path / f"{name}.so"
     include = pathlib.Path(__file__).parent / "cuda_host"
@@ -329,119 +331,51 @@ def _bf16(x):
     return xb.view(torch.int16).numpy().view(np.uint16).copy(), xb.float()
 
 
-def _tc_fn(lib):
-    fn = getattr(lib, pm._TC_ENTRY)
-    fn.argtypes, fn.restype = pm._ARGTYPES, ctypes.c_int
-    return fn
-
-
-def _tc_run(fn, xbits, mags, signs, scale, m, mask=None, gate=None, y=None, fast=None,
-            group=1):
-    """One launch of the tensor-core entry on numpy buffers, each block
-    summing ``group`` K slices; checks that the ticket counters come back
-    to zero."""
-    M, K = xbits.shape
-    N = mags.shape[1]
-    if fast is None:
-        fast = int(K % 8 == 0 and N % 16 == 0)
-    slices = -(-(-(-K // pm._KC)) // group)
-    y = np.zeros((M, N), np.float32) if y is None else y
-    work = np.zeros(slices * M * N, np.float32)
-    tickets = np.zeros(-(-N // pm._TC_BN) * -(-M // pm._TC_BM), np.int32)
-    ptr = lambda a: None if a is None else a.ctypes.data
-    assert fn(*(a.ctypes.data for a in (xbits, mags, signs, scale)), ptr(mask), ptr(gate),
-              y.ctypes.data, work.ctypes.data, tickets.ctypes.data, M, N, K, m, fast,
-              group, None) == 0
-    assert not tickets.any()
-    return y
-
-
-@pytest.mark.parametrize("M,K,N,m,fast,group", [
-    (20, 264, 72, 8, 0, 1),     # ragged M, N (not 16-aligned), two K slices
-    (20, 264, 80, 8, 1, 1),     # cp.async staging, a partial column tile
-    (70, 512, 48, 16, 1, 1),    # two row tiles, m = 16
-    (5, 268, 40, 4, 0, 2),      # K % 8 != 0, one m16 tile of rows, m = 4, one block in K
-    (20, 774, 32, 3, 0, 2),     # m = 3: fragments straddle stages; 2 blocks of 2 slices
-    (9, 520, 70, 8, 0, 2),      # N % 4 != 0: the epilogue's scalar edge, 2 K splits
-])
-def test_tc_source_under_host_emulation(tmp_path, M, K, N, m, fast, group):
-    """``csrc/polarized_matmul_tc.cu`` compiled with g++ against the host
-    stand-in (cp.async done at once, mma.sync as a warp collective in the
-    PTX fragment layout): equal to the plain version on the bf16-rounded x,
-    on both staging paths, with ragged edges and split K."""
-    lib = host_library(tmp_path, "polarized_matmul_tc", "polarized_matmul_tc_kernel<Fast, Whole>")
-    assert tuple(lib.forms_polarized_matmul_tc_tile(i) for i in range(4)) == (
-        pm._TC_BM, pm._TC_BN, pm._KC, pm._TC_MAX_GROUP)
-    x, mags, signs, scale = _mk(11, M, K, N, m)
-    xbits, xf = _bf16(x)
-    y = _tc_run(_tc_fn(lib), xbits, mags, signs, scale, m, fast=fast, group=group)
-    want = ref.ref_polarized_matmul_fast(xf, *_torch(mags, signs, scale), m).numpy()
-    np.testing.assert_allclose(y, want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
-
-
-def test_tc_skip_and_gate_under_host_emulation(tmp_path):
-    """The tensor-core source's mask and gate: with whole (64-row tile,
-    K slice) tiles of x zeroed, the masked launch equals the dense launch
-    bit for bit (and the plain tile-skip sum); a gate reading 0 leaves the
-    output untouched, one reading 1 writes the dense result."""
-    lib = host_library(tmp_path, "polarized_matmul_tc", "polarized_matmul_tc_kernel<Fast, Whole>")
-    fn = _tc_fn(lib)
-    M, K, N, m = 70, 776, 32, 8
-    x, mags, signs, scale = _mk(12, M, K, N, m)
-    bm, kc = pm._TC_BM, pm._KC
-    for i, k in ((0, 1), (1, 0), (1, 3)):
-        x[i * bm:(i + 1) * bm, k * kc:(k + 1) * kc] = 0.0
-    xbits, xf = _bf16(x)
-    mask = pm._tile_mask(xf, bm).numpy()
-    assert mask.shape == (2, 4) and int(mask.size - mask.sum()) == 3
-    dense = _tc_run(fn, xbits, mags, signs, scale, m)
-    skip = _tc_run(fn, xbits, mags, signs, scale, m, mask=mask)
-    assert np.array_equal(skip, dense)
-    plain = ref.ref_polarized_matmul_skip(xf, *_torch(mags, signs, scale),
-                                          torch.from_numpy(mask), m, bm, kc).numpy()
-    np.testing.assert_allclose(skip, plain, rtol=1e-5, atol=1e-5 * np.abs(plain).max())
-    # blocks that sum two or four mask tiles skip the dead ones inside
-    for group in (2, 4):
-        grouped = _tc_run(fn, xbits, mags, signs, scale, m, group=group)
-        assert np.array_equal(_tc_run(fn, xbits, mags, signs, scale, m, mask=mask,
-                                      group=group), grouped)
-        np.testing.assert_allclose(grouped, plain, rtol=1e-5, atol=1e-5 * np.abs(plain).max())
-    closed, open_ = np.zeros(1, np.int32), np.ones(1, np.int32)
-    y = np.full((M, N), 7.0, np.float32)
-    assert (_tc_run(fn, xbits, mags, signs, scale, m, gate=closed, y=y) == 7.0).all()
-    assert np.array_equal(_tc_run(fn, xbits, mags, signs, scale, m, gate=open_, y=y), dense)
-
-
 @pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32, torch.float16])
 @pytest.mark.parametrize("mag_dtype", [torch.uint8, torch.int32])
 @pytest.mark.parametrize("device_type", ["cuda", "cpu"])
 def test_tensor_core_route_is_cuda_bf16_uint8_at_prefill_rows(x_dtype, mag_dtype, device_type):
-    """The route as a pure function of dtypes, device type and M: the
+    """The route as a pure function of dtypes, device type, M and N: the
     tensor-core kernel exactly for CUDA + bf16 x + uint8 codes + M >=
-    TC_MIN_ROWS, and its 64-row tiling for the zero-skip mask then."""
+    TC_MIN_ROWS + N >= TC_MIN_COLS (the mLSTM's wi/wf at N = 4, 2 and 1 take
+    the f32 kernel at every M), and its 64-row tiling for the zero-skip mask
+    then, also through ``tile_mask``."""
     for M in (1, 4, pm.TC_MIN_ROWS - 1, pm.TC_MIN_ROWS, 64, 257):
-        want = (device_type == "cuda" and x_dtype == torch.bfloat16
-                and mag_dtype == torch.uint8 and M >= pm.TC_MIN_ROWS)
-        assert pm.uses_tensor_cores(x_dtype, mag_dtype, device_type, M) is want
-        assert pm.tile_rows(M, want) == (64 if want else 4 if M <= 4 else 8)
+        for N in (1, 2, 4, pm.TC_MIN_COLS - 1, pm.TC_MIN_COLS, 256, 8960):
+            want = (device_type == "cuda" and x_dtype == torch.bfloat16
+                    and mag_dtype == torch.uint8 and M >= pm.TC_MIN_ROWS
+                    and N >= pm.TC_MIN_COLS)
+            assert pm.uses_tensor_cores(x_dtype, mag_dtype, device_type, M, N) is want
+            assert pm.tile_rows(M, want) == (64 if want else 4 if M <= 4 else 8)
+    if device_type == "cpu":
+        x = torch.ones((70, 512), dtype=x_dtype)
+        assert pm.tile_mask(x, mag_dtype, N=1).shape == (9, 2)
 
 
 def test_tensor_core_source_and_grid():
-    """The tensor-core source names the TPU kernels it replaces and its C
-    entry; the wrapper's K grouping gives the grids PERF.md reports for
-    qwen2-1.5b at M = 64 on 132 SMs."""
+    """The tensor-core source names the TPU kernels it replaces, its PTX
+    (wgmma on register A, TMA into an mbarrier ring, a cluster's sum over
+    distributed shared memory) and its C entry; the wrapper's clusters give
+    the grids PERF.md reports for qwen2-1.5b at M = 64 on 132 SMs, and token
+    tiles of 8, 16, 32 or 64 rows."""
     src = (pm.build.CSRC / "polarized_matmul_tc.cu").read_text()
     assert "src/repro/kernels/polarized_matmul.py:45" in src
     assert "src/repro/kernels/polarized_matmul.py:68" in src
-    assert f"int {pm._TC_ENTRY}(" in src and "mma.sync.aligned.m16n8k16" in src
+    assert f"int {pm._TC_ENTRY}(" in src
+    for ptx in ("wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16",
+                "cp.async.bulk.tensor.2d", "mbarrier.try_wait.parity", "mapa.shared::cluster",
+                "barrier.cluster.arrive", "cudaLaunchAttributeClusterDimension"):
+        assert ptx in src
+    assert "atomicAdd(" not in src and "mma.sync.aligned" not in src
 
     def grid(M, K, N):
-        g = pm.tc_group(M, N, K, 132)
-        return -(-N // pm._TC_BN) * -(-M // pm._TC_BM) * -(-(-(-K // pm._KC)) // g)
+        return -(-N // pm._TC_BN) * -(-M // pm.tc_tokens(M)) * pm.tc_group(M, N, K, 132)
     assert [grid(64, K, N) for K, N in ((1536, 1536), (1536, 256), (1536, 8960),
-                                         (8960, 1536))] == [144, 24, 280, 216]
-    assert all(1 <= pm.tc_group(M, 8960, K, 132) <= pm._TC_MAX_GROUP
-               for M in (8, 64, 4096) for K in (256, 8960, 10 ** 6))
+                                         (8960, 1536))] == [96, 16, 70, 96]
+    assert [pm.tc_tokens(M) for M in (1, 8, 9, 16, 20, 32, 33, 64, 65, 1024)] == [
+        8, 8, 16, 16, 32, 32, 64, 64, 64, 64]
+    assert all(1 <= pm.tc_group(M, N, K, 132) <= min(pm._TC_MAX_CLUSTER, -(-K // 64))
+               for M in (8, 64, 4096) for N in (1, 256, 8960) for K in (8, 256, 8960, 10 ** 6))
 
 
 def test_cpu_bf16_activations_give_the_f32_paths_bits():
