@@ -70,8 +70,18 @@ Phases, each printing JSON lines:
                timed at every local shard shape that model = 2, 4 and 8
                give the slice's seven projections and its vocab-sharded
                head (N/tp columns, or Kp/tp rows for o/down), at M=4 and
-               M=64 on bf16 x; then ``serve --forms --mesh data=1,model=1``
-               in a subprocess and its ``mesh:`` line;
+               M=64 on bf16 x; while the world is up, mesh_speculate: the
+               slice's tree saved and restored straight into its layout
+               (``restore(shardings=params_shardings(...))``) and served
+               with ``speculate=True`` at the speculate phase's settings
+               beside a plain speculative engine, in turns: tokens bit for
+               bit, #1/#2 launches equal, the drafts code for code, each
+               draft's build seconds and peak device memory; and
+               mesh_block: the slice served with ``zero_skip="block"`` on
+               the mesh beside a plain block engine: the slice's tokens,
+               every projection through the skip kernels as reckoned; then
+               ``serve --forms --mesh data=1,model=1`` in a subprocess and
+               its ``mesh:`` line;
 8. speculate — the slice's target served self-speculatively (a 4-bit FORMS
                draft of its weights on its fragments, full depth, K=4,
                adaptive K): two greedy runs agree; the token rule: their
@@ -1255,6 +1265,9 @@ def phase_mesh(plain_engine, plain_tokens):
     steps = engine.scheduler.rounds // 2 * engine.decode_block
     step_ms = {name: [g[3] for g in got if g[0] == name] for name in ("plain", "mesh")}
     del engine
+    torch.cuda.empty_cache()
+    new_runs = {"speculate": mesh_speculate(plain_engine, mesh, prompts),
+                "block": mesh_block(plain_engine, mesh, prompts, plain_tokens)}
     dist.destroy_process_group()
     torch.cuda.empty_cache()
 
@@ -1283,7 +1296,161 @@ def phase_mesh(plain_engine, plain_tokens):
          tokens_equal=True, serve_line=line, serve_s=time.perf_counter() - t0,
          nvidia_smi=nvidia_smi_line(),
          shard_rows={k: len(v) for k, v in rows.items()})
-    return mesh_launches, rows
+    return mesh_launches, rows, new_runs
+
+
+def in_turns(plain, mesh, prompts):
+    """``served`` runs of two engines in turns (plain, mesh, mesh, plain):
+    ``{"plain": [run, run], "mesh": [run, run]}``, first runs first."""
+    out = {"plain": [], "mesh": []}
+    for name, eng in (("plain", plain), ("mesh", mesh), ("mesh", mesh), ("plain", plain)):
+        out[name].append(served(eng, prompts))
+    return out
+
+
+def mesh_speculate(plain_engine, mesh, prompts):
+    """Speculative serving on ``mesh`` from a tree restored straight into
+    its layout: the slice's tree saved, restored with
+    ``shardings=params_shardings(tree, ctx, fsdp=False)`` (every FORMS leaf
+    placed) and served with ``speculate=True`` at the speculate phase's
+    settings (4-bit FORMS draft, K=SPEC_K), beside a plain speculative
+    engine on the same tree, in turns.  Both draft leaf by leaf, the mesh
+    engine gathering and placing each leaf of the placed tree; on a world
+    of one both give the same draft (checked code for code) and run the
+    same kernels, so the greedy tokens of each pair of runs are equal bit
+    for bit and so are the #1/#2 launches.  Each route's ``make_draft`` is
+    timed alone, with the device's peak allocation over it.  Returns the
+    mesh engine's first run's launches."""
+    import torch
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.forms import FormsSpec, compressed_paths
+    from repro_torch.serving import speculate as SP
+    from repro_torch.serving.engine import ServingEngine
+
+    tree = {k: v for k, v in plain_engine.params.items() if k != "head_cast"}
+    ctx = shd.ParallelContext.for_mesh(mesh)
+    nbytes = sum(x.numel() * x.element_size() for x in ckpt.tree_leaves(tree))
+    root = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        need_disk(root, int(1.2 * nbytes))
+        path = str(pathlib.Path(root) / "serve")
+        t = time.perf_counter()
+        ckpt.save(path, tree, step=0)
+        save_s = time.perf_counter() - t
+        t = time.perf_counter()
+        restored, _ = ckpt.restore(path, tree,
+                                   shardings=shd.params_shardings(tree, ctx, fsdp=False))
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if not shd.is_placed(restored):
+        raise AssertionError("the restore with shardings gave a tree that is not placed")
+
+    common = dict(spec=FormsSpec(m=8, bits=8, rule="energy"), page_size=16, batch_slots=4,
+                  max_len=256, device="cuda", speculate=True, draft_k=SPEC_K, draft_bits=4,
+                  draft_mode="forms")
+    # each draft build alone, as the engines below make it: the restored
+    # tree on the mesh's context (gathered and placed leaf by leaf), the
+    # whole tree without one
+    draft_cfg = SP.SpeculateConfig(k=SPEC_K, bits=4, mode="forms", fragment=8)
+    builds = {}
+    for name, params, on in (("mesh", restored, ctx), ("plain", tree, None)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t = time.perf_counter()
+        with torch.inference_mode():
+            built = SP.make_draft(plain_engine.model, params, draft_cfg, ctx=on)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        builds[name] = {"seconds": time.perf_counter() - t, "allocated_before_gb": before / 1e9,
+                        "peak_gb": peak / 1e9, "peak_over_before_gb": (peak - before) / 1e9}
+        del built
+    plain = ServingEngine(plain_engine.model, tree, **common)
+    eng = ServingEngine(plain_engine.model, restored, **common, mesh=mesh)
+    mine, theirs = (compressed_paths(e.runner.draft_params) for e in (eng, plain))
+    draft_equal = mine.keys() == theirs.keys() and all(
+        torch.equal(getattr(mine[k], f), getattr(theirs[k], f))
+        for k in mine for f in ("mags", "signs", "scale"))
+    runs = in_turns(plain, eng, prompts)
+    keys = ("polarized_matmul", "polarized_matmul_tc")
+
+    def brief(r):
+        emitted = sum(len(x.tokens) - 1 for x in r["results"])
+        return {"wall_s": r["wall_s"], "mean_prefill_ms": r["mean_prefill_ms"],
+                "decode_ms_per_token": sum(x.decode_ms for x in r["results"]) / emitted,
+                "launches": {k: r["counts"][k] for k in keys}}
+
+    report = {name: [brief(r) for r in rs] for name, rs in runs.items()}
+    emit("mesh_speculate", arch=plain_engine.cfg.name, mesh={"data": 1, "model": 1},
+         draft="forms, 4 bits, m=8, full depth", k=SPEC_K, tree_bytes=nbytes,
+         save_s=save_s, restore_s=restore_s, placed=True,
+         draft_leaves=len(mine), draft_equal=draft_equal, draft_build=builds,
+         runs=report, spec_stats=eng.stats()["speculate"],
+         tokens_equal=all(r["tokens"] == runs["plain"][0]["tokens"]
+                          for rs in runs.values() for r in rs),
+         nvidia_smi=nvidia_smi_line())
+    if not draft_equal:
+        raise AssertionError("the draft built from the restored layout differs from the "
+                             "plain engine's")
+    for i in range(2):
+        p, m = runs["plain"][i], runs["mesh"][i]
+        if m["tokens"] != p["tokens"] or p["tokens"] != runs["plain"][0]["tokens"]:
+            raise AssertionError(f"run {i}: the restored mesh engine's speculative tokens "
+                                 f"{m['tokens']} differ from the plain one's {p['tokens']}")
+        if report["mesh"][i]["launches"] != report["plain"][i]["launches"]:
+            raise AssertionError(f"run {i}: launches differ: {report}")
+    del eng, plain, restored
+    torch.cuda.empty_cache()
+    return report["mesh"][0]["launches"]
+
+
+def mesh_block(plain_engine, mesh, prompts, plain_tokens):
+    """The slice's tree served with ``zero_skip="block"`` on ``mesh`` and on
+    a plain engine, in turns: every run gives the slice's plain tokens
+    (block equals off at the same tiling) and runs every projection
+    through the skip kernels, as many launches as the zero_skip phase's
+    reckoning and the plain block engine's.  Returns the mesh engine's
+    first run's skip launches."""
+    import torch
+    from repro_torch.forms import FormsSpec
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg = plain_engine.cfg
+    tree = {k: v for k, v in plain_engine.params.items() if k != "head_cast"}
+    common = dict(spec=FormsSpec(m=8, bits=8, rule="energy"), zero_skip="block",
+                  page_size=16, batch_slots=4, max_len=256, decode_block=4, device="cuda")
+    plain = ServingEngine(plain_engine.model, tree, **common)
+    eng = ServingEngine(plain_engine.model, tree, **common, mesh=mesh)
+    runs = in_turns(plain, eng, prompts)
+    keys = ("polarized_matmul_skip", "polarized_matmul_tc_skip")
+    buckets = [eng.runner.bucket_for(len(p)) for p in prompts]
+    report = {name: [{"wall_s": r["wall_s"], "decode_step_ms": r["decode_step_ms"],
+                      "mean_prefill_ms": r["mean_prefill_ms"],
+                      "launches": {k: r["counts"][k] for k in keys},
+                      "launches_expected": dict(zip(keys, route_split(
+                          7 * cfg.num_layers, buckets, r["decode_steps"], 4, SLICE_COLS))),
+                      "dense_launches": r["counts"]["polarized_matmul"]
+                      + r["counts"]["polarized_matmul_tc"]} for r in rs]
+              for name, rs in runs.items()}
+    emit("mesh_block", arch=cfg.name, mesh={"data": 1, "model": 1}, zero_skip="block",
+         runs=report,
+         tokens_equal_slice=all(r["tokens"] == plain_tokens for rs in runs.values() for r in rs),
+         nvidia_smi=nvidia_smi_line())
+    for name, rs in runs.items():
+        for r, rep in zip(rs, report[name]):
+            if r["tokens"] != plain_tokens:
+                raise AssertionError(f"the {name} block engine served {r['tokens']}, the "
+                                     f"slice {plain_tokens}")
+            if rep["launches"] != rep["launches_expected"] or rep["dense_launches"]:
+                raise AssertionError(f"the {name} block run did not launch as reckoned: {rep}")
+    if [r["launches"] for r in report["mesh"]] != [r["launches"] for r in report["plain"]]:
+        raise AssertionError(f"the mesh and plain block engines launched otherwise: {report}")
+    del eng, plain
+    torch.cuda.empty_cache()
+    return report["mesh"][0]["launches"]
 
 
 def target_logits(engine, seq):
@@ -5549,7 +5716,7 @@ def main() -> int:
     phase_train_recurrent()
     launches, slice_engine, slice_tokens = phase_slice()
     torch.cuda.empty_cache()
-    mesh_launches, mesh_rows = phase_mesh(slice_engine, slice_tokens)
+    mesh_launches, mesh_rows, mesh_runs = phase_mesh(slice_engine, slice_tokens)
     torch.cuda.empty_cache()
     spec_launches, verify_rows, uniform_draft = phase_speculate(
         slice_engine.model, slice_engine.cfg, slice_prompts(slice_engine.cfg), slice_engine,
@@ -5622,6 +5789,7 @@ def main() -> int:
             and vlm["polarize_launches"]
             and all(all(v.values()) for v in dense_launches.values())
             and all(mesh_launches.values()) and mesh_train_launches
+            and all(mesh_runs["speculate"].values()) and all(mesh_runs["block"].values())
             and all(mla["mesh_launches"]) and all(whisper["mesh_launches"])
             and all(xlstm["mesh_launches"]) and all(zamba["mesh_launches"])
             and all(family_train_launches.values())):
@@ -5669,6 +5837,7 @@ def main() -> int:
         "vlm_launches": vlm["launches"][0],
         "vlm": {"layer_m4": vlm["layer_m4"], "head_m4": vlm["head_m4"]},
         "mesh_launches": mesh_launches["polarized_matmul"],
+        "mesh_speculate_launches": mesh_runs["speculate"]["polarized_matmul"],
         "mesh_shards": [r for r in mesh_rows["polarized_matmul"] if r["route"] == "f32"],
         "mesh_mla_launches": mla["mesh_launches"][0],
         "mesh_whisper_launches": whisper["mesh_launches"][0],
@@ -5712,7 +5881,8 @@ def main() -> int:
                "projections of one layer and its head (3072x32064) at M=4, bf16 x; "
                "bits: the same 7 at 2-, 4- and 6-bit codes, bf16 x; heads: the "
                "untied heads' shapes at M=4, bf16 x; mesh_launches: the slice served on "
-               "a data=1,model=1 mesh; mesh_shards: every local shard shape of the "
+               "a data=1,model=1 mesh; mesh_speculate_launches: its tree restored "
+               "straight into that mesh's layout, served speculatively; mesh_shards: every local shard shape of the "
                "slice's projections and head at model = 2, 4, 8 (N/tp columns, Kp/tp "
                "rows for o/down), M=4 on bf16 x (M=64: the tensor-core entry's); "
                "mesh_mla_launches, mesh_whisper_launches, mesh_xlstm_launches, "
@@ -5737,12 +5907,15 @@ def main() -> int:
         "bf16_x": {k: per_layer(skip_bf16_rows, DECODE_M, k) for k in
                    ("kernel_ms", "dense_ms", "plain_ms", "bound_ms", "library_ms")},
         "dense_configs_launches": dense_launches["block"]["polarized_matmul_skip"],
+        "mesh_block_launches": mesh_runs["block"]["polarized_matmul_skip"],
         "mesh_shards": [r for r in mesh_rows["polarized_matmul_skip"] if r["route"] == "f32"],
         "mesh_family_shards": {f: [r for r in rows["polarized_matmul_skip"]
                                    if r["route"] == "f32"]
                                for f, rows in family_shards.items()},
         "per": "the 7 projections of one qwen2-1.5b layer at M=4, f32 x, every other "
-               "K slice of x zero (bf16_x: the same on bf16 x; mesh_shards: the local "
+               "K slice of x zero (bf16_x: the same on bf16 x; mesh_block_launches: the "
+               "slice served with zero_skip='block' on a data=1,model=1 mesh; "
+               "mesh_shards: the local "
                "shard shapes of the mesh phase, every other K slice dead, M=4 on bf16 "
                "x; M=64: the tensor-core entry's; mesh_family_shards: the same at MLA's, "
                "whisper's, xLSTM's (the sLSTM's on f32 x) and Zamba2's shard shapes)",
@@ -5855,6 +6028,8 @@ def main() -> int:
         "moe_launches": moe["launches"][1],
         "mla_launches": mla["launches"][1],
         "mesh_launches": mesh_launches["polarized_matmul_tc"],
+        "mesh_speculate_launches": mesh_runs["speculate"]["polarized_matmul_tc"],
+        "mesh_block_skip_launches": mesh_runs["block"]["polarized_matmul_tc_skip"],
         "mesh_shards": [dict(r, skip=key.endswith("skip")) for key, rs in mesh_rows.items()
                         for r in rs if r["route"] == "tc"],
         "mesh_mla_launches": mla["mesh_launches"][1],
@@ -5918,7 +6093,10 @@ def main() -> int:
                "kernel); "
                "vlm_launches: phi-3-vision-4.2b's prefills at their buckets; "
                "bits: the 7 at M=64 on 2-, 4- and 6-bit codes; mesh_launches: the slice "
-               "served on a data=1,model=1 mesh; mesh_shards: the mesh phase's shard "
+               "served on a data=1,model=1 mesh; mesh_speculate_launches: its tree "
+               "restored straight into that layout, served speculatively; "
+               "mesh_block_skip_launches: the slice on that mesh with zero_skip='block'; "
+               "mesh_shards: the mesh phase's shard "
                "shapes at M=64 (skip: the block-skip launch, every other K slice dead); "
                "mesh_mla_launches, mesh_whisper_launches, mesh_xlstm_launches, "
                "mesh_zamba_launches: their phases' trees on a data=1,model=1 mesh; "

@@ -11,7 +11,7 @@ sorts before ``blocks/2``.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Iterator, List, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 
 def path_str(path) -> str:
@@ -65,6 +65,24 @@ def map_with_path(fn: Callable[[str, Any], Any], tree: Any, prefix: Tuple = ()) 
     if isinstance(tree, list):
         return [map_with_path(fn, v, prefix + (i,)) for i, v in enumerate(tree)]
     return fn(path_str(prefix), tree)
+
+
+def map_in_order(fn: Callable[[str, Any], Any], tree: Any, *,
+                 load: Optional[Callable[[Tuple, Any], Any]] = None,
+                 store: Optional[Callable[[Tuple, Any], Any]] = None,
+                 prefix: Tuple = ()) -> Any:
+    """The structure of ``tree`` with every leaf replaced by ``fn(path,
+    leaf)``, the leaves visited in flatten order; dicts come out with their
+    keys sorted, lists stay lists.  ``load(keys, leaf)`` and ``store(keys,
+    out)``, when given, wrap each leaf in turn (``keys`` its path as a
+    tuple): ``fn`` reads what ``load`` returns and the walk keeps what
+    ``store`` makes of the result before it reads the next leaf."""
+    if is_node(tree):
+        done = {k: map_in_order(fn, v, load=load, store=store, prefix=prefix + (k,))
+                for k, v in children(tree)}
+        return [done[i] for i in range(len(tree))] if isinstance(tree, list) else done
+    out = fn(path_str(prefix), tree if load is None else load(prefix, tree))
+    return out if store is None else store(prefix, out)
 
 
 def rebuild(tree: Any, by_path: Dict[str, Any], prefix: Tuple = ()) -> Any:

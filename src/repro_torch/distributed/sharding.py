@@ -296,12 +296,13 @@ def _scanned(pstr: str, scanned_prefixes: Tuple[str, ...] = SCANNED_PREFIXES) ->
 
 def params_shardings(params: PyTree, ctx: ParallelContext,
                      scanned_prefixes: Tuple[str, ...] = SCANNED_PREFIXES,
-                     fsdp: bool = True) -> PyTree:
+                     fsdp: bool = True, prefix: Tuple = ()) -> PyTree:
     """:class:`Sharding` tree of a parameter tree (divisibility-checked):
     model-axis specs from the naming rules, leaves of ``FSDP_THRESHOLD``
     elements or more also over the data axes with ``fsdp=True``
     (:func:`_fsdp_extend`), and the co-sharded trio of
-    :func:`forms_param_spec` for every compressed leaf."""
+    :func:`forms_param_spec` for every compressed leaf.  ``prefix`` is the
+    path of ``params`` in its whole tree (a subtree's own rules)."""
     def one(pstr: str, leaf: Any) -> Any:
         scanned = _scanned(pstr, scanned_prefixes)
         if _is_forms_leaf(leaf):
@@ -310,7 +311,7 @@ def params_shardings(params: PyTree, ctx: ParallelContext,
             return leaf
         entries = _dense_entries(pstr, tuple(leaf.shape), ctx, scanned, fsdp)
         return Sharding(ctx, _trim(entries))
-    return _walk(params, one)
+    return _walk(params, one, prefix)
 
 
 def train_state_shardings(state: Any, ctx: ParallelContext, table: Any = None,
@@ -529,6 +530,14 @@ def reshard_state(state: PyTree, shardings: PyTree) -> PyTree:
     return _zip(state, shardings)
 
 
+def place_leaf(path: Tuple, leaf: Any, ctx: ParallelContext) -> Any:
+    """This rank's piece of the whole serving ``leaf`` at ``path`` of a
+    params tree (a FORMS leaf, a tensor, or a subtree such as an int-grid
+    ``{"q", "s"}`` leaf), cut as ``params_shardings(tree, ctx, fsdp=False)``
+    would cut it."""
+    return reshard_state(leaf, params_shardings(leaf, ctx, fsdp=False, prefix=tuple(path)))
+
+
 def sharded_leaf_count(shardings: PyTree) -> int:
     """How many param leaves (a FORMS leaf counted once per plane) have any
     sharded dim: the count the serve launcher's mesh line prints."""
@@ -580,15 +589,21 @@ def placed_shardings(params: PyTree, ctx: ParallelContext) -> PyTree:
     return _walk(params, one)
 
 
-def whole_leaf(t: torch.Tensor, ctx: ParallelContext) -> torch.Tensor:
+def whole_leaf(t: Any, ctx: ParallelContext) -> Any:
     """The global tensor of a leaf that carries a layout, on its device
-    (every split dim gathered; every rank takes part and gets it whole);
-    a leaf without one (or without a context) as it is."""
+    (every split dim gathered; every rank takes part and gets it whole); a
+    FORMS leaf whole and unmarked, each of its planes gathered over the
+    axes that split it; a leaf without a layout (or without a context) as
+    it is."""
     from repro_torch.core.admm import _whole
     sh = getattr(t, "shard", None)
     if sh is None or ctx is None:
         return t
     with torch.no_grad():
+        if isinstance(t, FormsLinearParams):
+            mags, signs, scale = (_whole(p, s.spec, ctx)
+                                  for p, s in zip((t.mags, t.signs, t.scale), sh))
+            return dataclasses.replace(t, mags=mags, signs=signs, scale=scale, shard=None)
         return _whole(t, sh.spec, ctx)
 
 

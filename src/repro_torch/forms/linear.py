@@ -200,7 +200,7 @@ def apply(p: FormsLinearParams, x: torch.Tensor,
         raise ValueError(
             f"apply() needs a 2-D weight, got mags of rank {p.mags.ndim}; take "
             "one layer of a stacked leaf with p.layer(i) (expert and conv "
-            "leaves are not ported yet)")
+            "leaves are rebuilt with to_dense or sliced by their callers)")
     spec = _resolve_spec(p, spec)
     x2, lead = _flatten_pad(x, p.mags.shape[0])
     if _SPARSITY_METER is not None:

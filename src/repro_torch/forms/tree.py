@@ -14,12 +14,12 @@ JAX package's (``blocks/attn/wq``), so reports and plans line up one to one.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Set, Tuple
 
 import torch
 
 from repro_torch.core.fragments import conv_to_matrix, is_crossbar_weight
-from repro_torch.core.paths import children, is_node, path_str, tree_map
+from repro_torch.core.paths import children, is_node, map_in_order, path_str, tree_map
 from repro_torch.forms.linear import FormsLinearParams, from_dense, to_dense
 from repro_torch.forms.spec import FormsSpec
 
@@ -82,7 +82,7 @@ def spec_for_path(plan: Optional[Dict[str, FormsSpec]], pstr: str,
     return default
 
 
-def _check_plan_covered(plan: Dict[str, FormsSpec], compressed: Dict[str, Any]) -> None:
+def _check_plan_covered(plan: Dict[str, FormsSpec], compressed: Set[str]) -> None:
     unmatched = [key for key in plan
                  if key not in compressed
                  and not any(p.endswith("/" + key) for p in compressed)]
@@ -128,6 +128,9 @@ def compress_tree(
     spec: Optional[FormsSpec] = FormsSpec(),
     predicate: Callable[[str, Tuple[int, ...]], bool] = is_crossbar_weight,
     plan: Optional[Dict[str, FormsSpec]] = None,
+    *,
+    load: Optional[Callable[[Tuple, Any], Any]] = None,
+    store: Optional[Callable[[Tuple, Any], Any]] = None,
 ) -> Tuple[Any, CompressReport]:
     """Compress every crossbar-mappable weight of a params tree (nested
     dicts and lists).
@@ -136,20 +139,16 @@ def compress_tree(
     replaced by ``FormsLinearParams``; other leaves pass through untouched,
     and already-compressed leaves are left alone.  ``plan`` overrides the
     spec per leaf (:func:`spec_for_path`); an entry that matches no leaf
-    raises.
+    raises.  ``load`` and ``store`` wrap each leaf in turn
+    (:func:`~repro_torch.core.paths.map_in_order`): a mesh-placed tree is
+    so gathered and cut back leaf by leaf.
     """
     report = CompressReport(errors={})
-    compressed: Dict[str, Any] = {}
+    compressed: Set[str] = set()
 
-    def visit(tree, prefix):
-        if is_node(tree):
-            # leaves in flatten order (dict keys sorted, lists by index), so
-            # the report and the polarization launches go as the reference's
-            done = {k: visit(v, prefix + (k,)) for k, v in children(tree)}
-            return [done[i] for i in range(len(tree))] if isinstance(tree, list) else done
-        pstr = path_str(prefix)
+    def one(pstr, tree):
         if isinstance(tree, FormsLinearParams):
-            compressed[pstr] = tree
+            compressed.add(pstr)
             report.bits[pstr] = tree.bits
             return tree
         if not isinstance(tree, torch.Tensor):
@@ -168,10 +167,12 @@ def compress_tree(
         report.bytes_dense += tree.numel() * tree.element_size()
         report.bytes_compressed += sum(t.numel() * t.element_size()
                                        for t in (fp.mags, fp.signs, fp.scale))
-        compressed[pstr] = fp
+        compressed.add(pstr)
         return fp
 
-    out = visit(params, ())
+    # leaves in flatten order (dict keys sorted, lists by index), so the
+    # report and the polarization launches go as the reference's
+    out = map_in_order(one, params, load=load, store=store)
     if plan:
         _check_plan_covered(plan, compressed)
     return out, report

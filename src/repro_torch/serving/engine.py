@@ -799,10 +799,11 @@ class ServingEngine:
                 layer_step=draft_layer_step, adaptive=adaptive_k)
             # the draft derives from what the target serves (the float
             # projection of the compressed tree when forms is on); the dense
-            # tree made on the way is freed before the draft pool exists
+            # leaves are made one at a time; on a mesh the draft comes out
+            # placed, each leaf cut as it is made
             with torch.inference_mode():
                 draft_model, draft_params, self.draft_report = SP.make_draft(
-                    model, params, spec_cfg, plan=draft_plan)
+                    model, params, spec_cfg, ctx=self.ctx, plan=draft_plan)
             draft_cache = draft_model.init_paged_cache(num_pages, self.page_size,
                                                        batch_slots, max_len)
             draft = [draft_model, draft_params, draft_cache]
@@ -824,8 +825,6 @@ class ServingEngine:
                 self.cache_shardings = shd.cache_shardings(cache, self.ctx)
                 cache = shd.reshard_state(cache, self.cache_shardings)
                 if draft is not None:
-                    draft[1] = shd.reshard_state(
-                        draft[1], shd.params_shardings(draft[1], self.ctx, fsdp=False))
                     draft[2] = shd.reshard_state(draft[2],
                                                  shd.cache_shardings(draft[2], self.ctx))
         run_kw = dict(max_len=max_len, spec=self.spec, decode_block=decode_block,

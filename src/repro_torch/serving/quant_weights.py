@@ -10,11 +10,11 @@ runs outside any Pallas kernel.  ``torch.round`` rounds half to even like
 """
 from __future__ import annotations
 
-from typing import Any, Optional, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import torch
 
-from repro_torch.core.paths import path_str
+from repro_torch.core.paths import map_in_order
 
 QUANT_SUFFIXES = ("attn/wq", "attn/wk", "attn/wv", "attn/wo",
                   "mlp/gate", "mlp/up", "mlp/down",
@@ -61,21 +61,21 @@ def dequantize_leaf(v: dict, dtype: torch.dtype) -> torch.Tensor:
     return v["q"].to(dtype) * v["s"].to(dtype)
 
 
-def quantize_tree(params: Any, bits: int = 8) -> Tuple[Any, int, int]:
+def quantize_tree(params: Any, bits: int = 8, *,
+                  load: Optional[Callable[[Tuple, Any], Any]] = None,
+                  store: Optional[Callable[[Tuple, Any], Any]] = None
+                  ) -> Tuple[Any, int, int]:
     """Quantize the matching weights of a tree of dicts and lists, as the
     reference's ``tree_flatten`` walks it; returns ``(tree,
     bytes_before, bytes_after)``.  ``bytes_after`` counts the int8
-    container as stored: a 4-bit grid does not halve it."""
+    container as stored: a 4-bit grid does not halve it.  ``load`` and
+    ``store`` wrap each leaf in turn (:func:`~repro_torch.core.paths.
+    map_in_order`)."""
     acc = [0, 0]
 
-    def visit(tree, prefix):
-        if isinstance(tree, dict):
-            return {k: visit(v, prefix + (k,)) for k, v in tree.items()}
-        if isinstance(tree, list):      # xLSTM's per-layer blocks
-            return [visit(v, prefix + (i,)) for i, v in enumerate(tree)]
+    def one(pstr, tree):
         if not (isinstance(tree, torch.Tensor) and tree.ndim >= 2):
             return tree
-        pstr = path_str(prefix)
         if any(pstr.endswith(sfx) for sfx in EXPERT_SUFFIXES):
             batch_dims = tree.ndim - 2
         elif any(pstr.endswith(sfx) for sfx in QUANT_SUFFIXES):
@@ -87,5 +87,4 @@ def quantize_tree(params: Any, bits: int = 8) -> Tuple[Any, int, int]:
         acc[1] += v["q"].numel() + v["s"].numel() * 4
         return v
 
-    out = visit(params, ())
-    return out, acc[0], acc[1]
+    return map_in_order(one, params, load=load, store=store), acc[0], acc[1]

@@ -41,8 +41,9 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.distributed.context import LeafShard, set_shard, shard_of
 from repro_torch.forms import (CompressReport, FormsLinearParams, FormsSpec, compress_tree,
-                               decompress_tree)
+                               to_dense, validate_tree_sharding)
 from repro_torch.models.registry import Model, build
 from repro_torch.serving import kv_cache as KV
 from repro_torch.serving.engine import (ModelRunner, clone_cache, gumbel_argmax,
@@ -91,19 +92,21 @@ class SpeculateConfig:
 # ---------------------------------------------------------------------------
 
 
-def _has_forms_leaves(tree: Any) -> bool:
-    if isinstance(tree, dict):
-        return any(_has_forms_leaves(v) for v in tree.values())
-    return isinstance(tree, FormsLinearParams)
+def _kept(sh: Optional[LeafShard], n: int) -> Optional[LeafShard]:
+    # the layer axis is never split (param_spec skips it), so a rank's
+    # kept layers are its piece of the whole tree's kept layers
+    return None if sh is None else LeafShard(sh.spec, (n,) + tuple(sh.shape[1:]))
 
 
 def _take_layers(tree: Any, keep: torch.Tensor) -> Any:
     if isinstance(tree, dict):
         return {k: _take_layers(v, keep) for k, v in tree.items()}
+    n = int(keep.numel())
     if isinstance(tree, FormsLinearParams):
+        shard = None if tree.shard is None else tuple(_kept(s, n) for s in tree.shard)
         return dataclasses.replace(tree, mags=tree.mags[keep], signs=tree.signs[keep],
-                                   scale=tree.scale[keep])
-    return tree[keep]
+                                   scale=tree.scale[keep], shard=shard)
+    return set_shard(tree[keep], _kept(shard_of(tree), n))
 
 
 def skip_layers(model: Model, params: Any, layer_step: int) -> Tuple[Model, Any]:
@@ -112,7 +115,8 @@ def skip_layers(model: Model, params: Any, layer_step: int) -> Tuple[Model, Any]
     collection (``blocks``, or whisper's decoder ``dec_blocks``: its
     encoder runs only when the caller encodes, and keeps full depth; FORMS
     leaves slice their planes together) and rebuilds the model at the
-    reduced depth on the same device.  Other leaves are shared."""
+    reduced depth on the same device.  Other leaves are shared.  A placed
+    leaf keeps its layout, at the kept depth."""
     if layer_step <= 1:
         return model, params
     cfg = model.config
@@ -124,45 +128,67 @@ def skip_layers(model: Model, params: Any, layer_step: int) -> Tuple[Model, Any]
     return build(dataclasses.replace(cfg, num_layers=int(keep.numel())), model.device), out
 
 
+def _leaf_hooks(ctx: Optional[Any]) -> Dict[str, Any]:
+    """The ``load``/``store`` hooks that draft a tree one leaf at a time:
+    each leaf gathered whole over the axes that split it (a no-op for a
+    leaf without a layout; every rank takes part, in the walk's order), a
+    FORMS leaf rebuilt dense, and with ``ctx`` the drafted leaf cut to this
+    rank's piece of ``params_shardings(draft, ctx, fsdp=False)`` before the
+    next leaf is read.  A rank so holds its own draft leaves and at most one
+    whole target leaf, dense."""
+    from repro_torch.distributed.sharding import place_leaf, whole_leaf
+
+    def load(path: Tuple, leaf: Any) -> Any:
+        leaf = whole_leaf(leaf, ctx)
+        return to_dense(leaf) if isinstance(leaf, FormsLinearParams) else leaf
+
+    return {"load": load,
+            "store": None if ctx is None else lambda path, leaf: place_leaf(path, leaf, ctx)}
+
+
 def make_draft_tree(params: Any, spec: Optional[FormsSpec] = None, *, bits: int = 4,
-                    mode: str = "forms", plan: Optional[Dict[str, FormsSpec]] = None
-                    ) -> Tuple[Any, CompressReport]:
+                    mode: str = "forms", plan: Optional[Dict[str, FormsSpec]] = None,
+                    ctx: Optional[Any] = None) -> Tuple[Any, CompressReport]:
     """The low-bit draft of ``params``: ``mode="forms"`` compresses at
     ``spec`` (default ``FormsSpec(bits=bits)``), ``mode="int"`` quantizes
-    to the symmetric ``bits`` grid.  An already-compressed tree is
-    decompressed first, so a 4-bit draft of an 8-bit tree re-quantizes the
-    float projection instead of aliasing the 8-bit leaves.  ``plan`` (a
+    to the symmetric ``bits`` grid.  A compressed leaf is decompressed
+    first, so a 4-bit draft of an 8-bit tree re-quantizes the float
+    projection instead of aliasing the 8-bit leaves.  ``plan`` (a
     ``{path: FormsSpec}`` map, ``forms.autobits.plan_draft_bits``) makes a
-    forms draft heterogeneous; int drafts are uniform and refuse it."""
-    if _has_forms_leaves(params):
-        params = decompress_tree(params)
+    forms draft heterogeneous; int drafts are uniform and refuse it.
+
+    The tree is drafted leaf by leaf (:func:`_leaf_hooks`).  With ``ctx``
+    (the engine's mesh context) a leaf placed already (a restore straight
+    into the layout) is gathered first, and the draft comes out placed,
+    each rank's leaves its slice of the draft of the whole tree."""
+    validate_tree_sharding(params)
+    hooks = _leaf_hooks(ctx)
     if mode == "int":
         if plan is not None:
             raise ValueError("per-leaf plans are a forms-mode feature; "
                              "mode='int' drafts are uniform")
-        tree, before, after = quantize_tree(params, bits=bits)
+        tree, before, after = quantize_tree(params, bits=bits, **hooks)
         return tree, CompressReport(errors={}, bytes_dense=before, bytes_compressed=after)
     if mode != "forms":
         raise ValueError(f"draft mode must be 'forms' or 'int', got {mode!r}")
     return compress_tree(params, spec if spec is not None else FormsSpec(bits=bits),
-                         plan=plan)
+                         plan=plan, **hooks)
 
 
-def make_draft(model: Model, params: Any, cfg: SpeculateConfig, *,
+def make_draft(model: Model, params: Any, cfg: SpeculateConfig, *, ctx: Optional[Any] = None,
                plan: Optional[Dict[str, FormsSpec]] = None
                ) -> Tuple[Model, Any, CompressReport]:
     """Layer skipping + low-bit weights: ``(draft_model, draft_params,
-    report)``.  A compressed target is decompressed before slicing, so the
-    draft approximates what the target serves; the dense tree is dropped
-    on return.  ``plan`` rides through to :func:`make_draft_tree` in place
-    of the uniform ``cfg.bits``."""
-    if _has_forms_leaves(params):
-        params = decompress_tree(params)
+    report)``.  The draft's layers are taken first; :func:`make_draft_tree`
+    then decompresses a compressed target's kept layers one leaf at a time,
+    so the draft approximates what the target serves and no dropped layer
+    is rebuilt (on a mesh, gathered).  ``plan`` rides through to
+    :func:`make_draft_tree` in place of the uniform ``cfg.bits``."""
     draft_model, draft_params = skip_layers(model, params, cfg.layer_step)
     spec = (FormsSpec(m=cfg.fragment, bits=cfg.bits) if cfg.fragment is not None
             else FormsSpec(bits=cfg.bits))
     draft_params, report = make_draft_tree(draft_params, spec, bits=cfg.bits, mode=cfg.mode,
-                                           plan=plan)
+                                           plan=plan, ctx=ctx)
     return draft_model, draft_params, report
 
 

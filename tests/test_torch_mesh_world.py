@@ -9,9 +9,12 @@ the port alone at its top) and handed to the ranks with the bridged
 weights.  Each rank also serves the port's unsharded engine: the sharded
 greedy tokens must equal both, for plain paged, dense slot cache,
 speculative, fleet with chunked prefill, a mixed-precision plan, a restore
-straight into the sharded layout and ``donate=False``, on the reduced
-qwen2 (f32, random QKV biases) and the reference's two-layer test model,
-and for a head count that does not divide the model axis.
+straight into the sharded layout (served plainly and speculatively, with
+FORMS, int-grid, layer-skipping and per-leaf-planned drafts built from the
+placed leaves) and
+``donate=False``, on the reduced qwen2 (f32, random QKV biases) and the
+reference's two-layer test model, and for a head count that does not
+divide the model axis.
 """
 import contextlib
 import dataclasses
@@ -28,6 +31,7 @@ from repro_torch.configs.base import MeshConfig
 from repro_torch.forms import FormsSpec, compress_tree, compressed_paths, validate_tree_sharding
 from repro_torch.launch.mesh import make_mesh, spawn_cpu_world
 from repro_torch.models.registry import build
+from repro_torch.serving import speculate as SP
 from repro_torch.serving.engine import Request, ServingEngine
 
 PROMPTS = [[1, 2, 3], [2, 2, 3], [3, 2, 3], [4, 2, 3]]
@@ -53,6 +57,17 @@ MODELS = {
     "heads3": lambda base: _tiny_cfg(base, heads=3, kv=3, d_ff=96),
 }
 BASE = {"qwen2": "qwen2-1.5b", "tiny": "yi-9b", "heads3": "yi-9b"}
+
+
+# (tag, draft_mode, draft_bits, draft_layer_step, draft_plan) of the drafts
+# built from a tree restored straight into its layout
+SPECULATIVE_RESTORES = [
+    ("restore_speculative", "forms", 4, 1, None),
+    ("restore_speculative_int", "int", 4, 1, None),
+    ("restore_speculative_int_skip2", "int", 8, 2, None),
+    ("restore_speculative_plan", "forms", 4, 1,
+     {"attn/wq": FormsSpec(m=8, bits=2), "mlp/down": FormsSpec(m=8, bits=6)}),
+]
 
 
 def _plan():
@@ -88,6 +103,23 @@ def _split_bytes_ok(params) -> int:
             assert t.numel() * t.element_size() * ways == glob, (path, t.shape, sh)
             n += 1
     return n
+
+
+def _same_leaves(a, b) -> bool:
+    """Whether two placed trees hold the same leaves, code for code, with
+    the same layouts."""
+    from repro_torch.distributed.context import shard_of
+    la, lb = dict(_leaves(a)), dict(_leaves(b))
+    if la.keys() != lb.keys():
+        return False
+    for path, x in la.items():
+        y = lb[path]
+        planes = (lambda t: (t.mags, t.signs, t.scale)) if hasattr(x, "mags") else (
+            lambda t: (t,))
+        if shard_of(x) != shard_of(y) or not all(
+                p.dtype == q.dtype and torch.equal(p, q) for p, q in zip(planes(x), planes(y))):
+            return False
+    return True
 
 
 def _leaves(tree, prefix=""):
@@ -165,6 +197,24 @@ def _world_engine(path, out):
         eng = ServingEngine(m, restored, **kw, page_size=8, mesh=mesh)
         check(f"{name}/restore", _tokens(eng), _tokens(ServingEngine(m, comp, **kw,
                                                                      page_size=8)), want)
+        # speculative serving from that layout: the draft is built leaf by
+        # leaf from the placed target, and equals this rank's slice of the
+        # draft built from the whole tree, by the unplaced mesh engine and
+        # by make_draft off the mesh, resharded whole
+        for tag, mode, bits, step, plan in SPECULATIVE_RESTORES:
+            sp = dict(page_size=8, speculate=True, draft_k=4, draft_bits=bits,
+                      draft_mode=mode, draft_layer_step=step, draft_plan=plan)
+            eng = ServingEngine(m, restored, **kw, **sp, mesh=mesh)
+            check(f"{name}/{tag}", _tokens(eng), _tokens(ServingEngine(m, comp, **kw, **sp)),
+                  want)
+            res[f"{name}/{tag}_draft_split"] = _split_bytes_ok(eng.runner.draft_params)
+            unplaced = ServingEngine(m, comp, **kw, **sp, mesh=mesh).runner.draft_params
+            dm, dp, _ = SP.make_draft(m, comp, SP.SpeculateConfig(k=4, bits=bits, mode=mode,
+                                                                  layer_step=step), plan=plan)
+            whole = dm.serving_params(shd.reshard_state(
+                dp, shd.params_shardings(dp, ctx, fsdp=False)))
+            res[f"{name}/{tag}_draft_equal"] = (_same_leaves(eng.runner.draft_params, unplaced)
+                                               and _same_leaves(eng.runner.draft_params, whole))
         # the reference's own checkpoint of the same codes, read into the layout
         restored, _ = ckpt.restore(os.path.join(os.path.dirname(path), f"ref_ckpt_{name}"),
                                    comp, shardings=shd.params_shardings(comp, ctx, fsdp=False))
@@ -344,8 +394,9 @@ def engine_world(tmp_path_factory):
 
 CHECKS = [f"{m}/{r}" for m in ("qwen2", "tiny")
           for r in ("paged", "dense", "speculative", "fleet", "donate_false", "mixed",
-                    "restore", "restore_reference_checkpoint", "zero_skip_block")] + ["heads3/paged", "heads3/dense",
-                                                       "health/tokens"]
+                    "restore", "restore_reference_checkpoint", "zero_skip_block",
+                    *(r[0] for r in SPECULATIVE_RESTORES))] + [
+    "heads3/paged", "heads3/dense", "health/tokens"]
 
 
 @pytest.mark.parametrize("check", CHECKS)
@@ -361,13 +412,18 @@ def test_sharded_tokens_equal_unsharded_and_reference(engine_world, check):
 @pytest.mark.parametrize("name", ["qwen2", "tiny"])
 def test_no_rank_holds_a_whole_copy_of_a_model_sharded_leaf(engine_world, name):
     """Each rank's bytes of every model-sharded leaf are the spec's share
-    (served, drafted and restored trees); the pool holds half the pages
+    (served, drafted and restored trees, and the drafts built leaf by leaf
+    from the restored layout, which equal the rank's slices of the drafts
+    built from the whole tree code for code); the pool holds half the pages
     per data rank, its heads split over model; the compressed leaves pass
     validate_tree_sharding with their N (or K) on 'model'."""
     ranks, _ = engine_world
     for res in ranks:
         assert res[f"{name}/split_leaves"] >= 7
         assert res[f"{name}/draft_split"] >= 7
+        for tag, *_ in SPECULATIVE_RESTORES:
+            assert res[f"{name}/{tag}_draft_split"] >= 7
+            assert res[f"{name}/{tag}_draft_equal"]
         assert res[f"{name}/restore_split"] >= 7
         pages, heads = res[f"{name}/pool_pages"]
         assert pages == (4 * 4 + 2) // 2 and heads == 1
