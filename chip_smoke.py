@@ -773,6 +773,18 @@ def reset_counts() -> None:
         fn.launches = 0
 
 
+def run_timed(eng, reqs):
+    """``eng.run(reqs)``, the device synchronized after it: the results, the
+    wall seconds, and the host ms of the run's decode rounds, the wall less
+    the requests' prefills (``Result.prefill_ms``)."""
+    import torch
+    t = time.perf_counter()
+    results = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    return results, wall, wall * 1e3 - sum(r.prefill_ms for r in results)
+
+
 def dead_slices(x, frac: float):
     """x with none (0), every other (0.5) or all (1) of its K slices of the
     kernel's tiling set to zero, in place."""
@@ -1107,20 +1119,17 @@ def phase_slice():
         reqs = [Request(uid=i, prompt=p, max_new_tokens=n_new) for i, p in enumerate(prompts)]
         rounds0 = engine.scheduler.rounds
         reset_counts()
-        t = time.perf_counter()
-        results = engine.run(reqs)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
+        results, wall, decode_ms = run_timed(engine, reqs)
         counts = launch_counts()
         launches = {k: counts[k] for k in ("polarized_matmul", "polarized_matmul_tc")}
         steps = (engine.scheduler.rounds - rounds0) * engine.decode_block
-        return results, launches, len(results) + steps, wall, steps
+        return results, launches, len(results) + steps, wall, steps, decode_ms
 
     runs = [run() for _ in range(SLICE_RUNS)]
     tokens = [{r.uid: r.tokens for r in res} for res, *_ in runs]
     per_call = 7 * cfg.num_layers
     buckets = [engine.runner.bucket_for(len(p)) for p in prompts]
-    for (results, launches, calls, wall, steps), toks in zip(runs, tokens):
+    for (results, launches, calls, wall, steps, _), toks in zip(runs, tokens):
         for uid, t in toks.items():
             if len(t) != n_new or not all(0 <= v < cfg.vocab_size for v in t):
                 raise AssertionError(f"request {uid} returned {t}")
@@ -1138,11 +1147,10 @@ def phase_slice():
     step_bytes = rep.bytes_compressed + engine.params["head_cast"].nbytes
     step_ms = []
     tok_s = []
-    for results, _, _, _, steps in runs:
-        decode_ms = sum(r.decode_ms for r in results)   # the rounds' wall time
+    for results, _, _, _, steps, decode_ms in runs:
         step_ms.append(decode_ms / steps)
         tok_s.append(sum(len(r.tokens) - 1 for r in results) / decode_ms * 1e3)
-    results, launches, calls, wall, steps = runs[-1]
+    results, launches, calls, wall, steps, _ = runs[-1]
     emit("slice", arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
          d_ff=cfg.d_ff, vocab=cfg.vocab_size, compression=rep.summary(),
          setup_s=setup_s, prompt_lens=[len(p) for p in prompts],
@@ -1243,13 +1251,12 @@ def phase_mesh(plain_engine, plain_tokens):
         reqs = [Request(uid=i, prompt=p, max_new_tokens=n_new) for i, p in enumerate(prompts)]
         rounds0 = eng.scheduler.rounds
         reset_counts()
-        results = eng.run(reqs)
-        torch.cuda.synchronize()
+        results, _, decode_ms = run_timed(eng, reqs)
         counts = launch_counts()
         steps = (eng.scheduler.rounds - rounds0) * eng.decode_block
         return ({r.uid: r.tokens for r in results},
                 {k: counts[k] for k in ("polarized_matmul", "polarized_matmul_tc")},
-                sum(r.decode_ms for r in results) / steps)
+                decode_ms / steps)
 
     order = [("plain", plain_engine), ("mesh", engine), ("mesh", engine), ("plain", plain_engine)]
     got = [(name, *run(eng)) for name, eng in order]
@@ -1380,7 +1387,7 @@ def mesh_speculate(plain_engine, mesh, prompts):
     def brief(r):
         emitted = sum(len(x.tokens) - 1 for x in r["results"])
         return {"wall_s": r["wall_s"], "mean_prefill_ms": r["mean_prefill_ms"],
-                "decode_ms_per_token": sum(x.decode_ms for x in r["results"]) / emitted,
+                "decode_ms_per_token": r["decode_ms"] / emitted,
                 "launches": {k: r["counts"][k] for k in keys}}
 
     report = {name: [brief(r) for r in rs] for name, rs in runs.items()}
@@ -1692,16 +1699,12 @@ def phase_speculate(model, cfg, prompts, plain_engine, plain_tokens, trace=False
         tallies = ("drafted", "accepted", "emitted", "participations")
         tally0 = [getattr(eng.runner, k, 0) for k in tallies]
         reset_counts()
-        t = time.perf_counter()
-        results = eng.run(reqs)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
+        results, wall, decode_ms = run_timed(eng, reqs)
         counts = launch_counts()
         toks = {r.uid: r.tokens for r in results}
         for uid, tk in toks.items():
             if len(tk) != n_new or not all(0 <= v < cfg.vocab_size for v in tk):
                 raise AssertionError(f"request {uid} returned {tk}")
-        decode_ms = sum(r.decode_ms for r in results)
         emitted = sum(len(r.tokens) - 1 for r in results)
         drafted, accepted, yielded, slot_rounds = (getattr(eng.runner, k, 0) - t0
                                                    for k, t0 in zip(tallies, tally0))
@@ -2445,10 +2448,7 @@ def phase_zero_skip():
             pm._tile_mask = counting_mask
         reset_counts()
         try:
-            t = time.perf_counter()
-            results = engine.run(reqs)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t
+            results, wall, decode_ms = run_timed(engine, reqs)
         finally:
             pm._tile_mask = tile_mask
         counts = launch_counts()
@@ -2463,7 +2463,7 @@ def phase_zero_skip():
                                  f"skip kernel: {counts}, {calls} model calls")
         return {"tokens": {r.uid: r.tokens for r in results}, "wall_s": wall,
                 "decode_steps": steps, "model_calls": calls,
-                "decode_step_ms": sum(r.decode_ms for r in results) / steps,
+                "decode_step_ms": decode_ms / steps,
                 "mean_prefill_ms": sum(r.prefill_ms for r in results) / len(results),
                 "launches": counts}
 
@@ -3438,19 +3438,15 @@ def served(eng, prompts):
     """One greedy run of ``prompts`` (SERVED_NEW tokens each) on ``eng``, the
     launch counts set to 0 just before it: every request must return
     SERVED_NEW tokens in the vocabulary.  Returns the tokens, the results,
-    the wall seconds, the decode steps, ms per decode step and per prefill,
-    and the counts."""
-    import torch
+    the wall seconds, the decode steps, the decode rounds' host ms
+    (``run_timed``), ms per decode step and per prefill, and the counts."""
     from repro_torch.serving.engine import Request
 
     vocab = eng.cfg.vocab_size
     reqs = [Request(uid=i, prompt=p, max_new_tokens=SERVED_NEW) for i, p in enumerate(prompts)]
     rounds0 = eng.scheduler.rounds
     reset_counts()
-    t = time.perf_counter()
-    results = eng.run(reqs)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t
+    results, wall, decode_ms = run_timed(eng, reqs)
     counts = launch_counts()
     steps = (eng.scheduler.rounds - rounds0) * eng.decode_block
     tokens = {r.uid: r.tokens for r in results}
@@ -3458,8 +3454,8 @@ def served(eng, prompts):
         if len(toks) != SERVED_NEW or not all(0 <= v < vocab for v in toks):
             raise AssertionError(f"a request returned {toks}")
     return {"tokens": tokens, "results": results, "reqs": reqs, "wall_s": wall,
-            "decode_steps": steps,
-            "decode_step_ms": sum(r.decode_ms for r in results) / steps,
+            "decode_steps": steps, "decode_ms": decode_ms,
+            "decode_step_ms": decode_ms / steps,
             "mean_prefill_ms": sum(r.prefill_ms for r in results) / len(results),
             "counts": counts}
 
@@ -3612,8 +3608,7 @@ def phase_autobits(engine, prompts, plain_tokens, uniform_draft):
          mixed_tokens_equal_uniform8=mixed_tokens == plain_tokens, parity=parity,
          auto_draft={"histogram": dplan.histogram(), "summary": dplan.summary(),
                      "acceptance": st["acceptance"], "tokens_per_round": st["tokens_per_round"],
-                     "decode_ms_per_token": sum(r.decode_ms for r in spec_run["results"])
-                     / emitted,
+                     "decode_ms_per_token": spec_run["decode_ms"] / emitted,
                      "launches": [spec_run["counts"][n] for n in names],
                      "launches_expected": want,
                      "threshold": threshold, "token_rule": rule,
@@ -5697,12 +5692,16 @@ def main() -> int:
     emit("device", name=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
          nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
 
+    from repro_torch import obs
     from repro_torch.kernels import build
     t0 = time.perf_counter()
+    obs.enable()
     build.build(["polarized_matmul", "polarized_matmul_tc", "bitserial_crossbar",
                  "admm_polarize"])
+    obs.disable()
+    built = [s for s in obs.drain()[0] if s.name == "rt.kernels.build"]
     emit("build", seconds=time.perf_counter() - t0,
-         ptxas={k: v["ptxas"] for k, v in build.BUILD_LOG.items()})
+         ptxas=built[0].attrs["ptxas"] if built else {})
 
     rows, worst_abs, worst_rel = phase_kernels()
     tc_rows, tc_abs, tc_rel, crossover, floor_ms, tc_extra = phase_kernels_tc()

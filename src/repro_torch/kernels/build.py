@@ -5,6 +5,9 @@ own into ``build/repro_torch_kernels/<name>-<hash>.so`` under the checkout
 (a directory ``.gitignore`` lists).  The hash covers the source and the
 flags, so an edited source rebuilds and an unchanged one loads at once.
 Nothing is built at import: the first call that launches a kernel builds it.
+Each :func:`build` that compiles is the span ``rt.kernels.build``: its
+``sources`` attribute names what it compiled, its ``ptxas`` attribute holds
+each built source's compiler report.
 """
 from __future__ import annotations
 
@@ -15,8 +18,9 @@ import pathlib
 import shutil
 import subprocess
 import tempfile
-import time
 from typing import Dict, List
+
+from repro_torch import obs
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -24,8 +28,6 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
-#: name -> {"seconds": build time, "ptxas": compiler report} of this process's builds
-BUILD_LOG: Dict[str, Dict[str, object]] = {}
 
 
 def refuse_fake(kernel: str, *ts) -> None:
@@ -64,23 +66,24 @@ def build(names: List[str]) -> None:
         return
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     exe = nvcc()
-    procs = []
-    t0 = time.perf_counter()
-    for name in todo:
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [exe, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
-        procs.append((name, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    ptxas: Dict[str, str] = {}       # each built source's compiler report
     errors = []
-    for name, tmp, proc in procs:
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            errors.append(f"nvcc failed on {name}.cu:\n{out}")
-            continue
-        os.replace(tmp, library_path(name))
-        BUILD_LOG[name] = {"seconds": time.perf_counter() - t0, "ptxas": out}
+    with obs.span("rt.kernels.build", sources=todo, ptxas=ptxas):
+        procs = []
+        for name in todo:
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            cmd = [exe, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+            procs.append((name, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        for name, tmp, proc in procs:
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                os.unlink(tmp)
+                errors.append(f"nvcc failed on {name}.cu:\n{out}")
+                continue
+            os.replace(tmp, library_path(name))
+            ptxas[name] = out
     if errors:
         raise RuntimeError("\n".join(errors))
 

@@ -16,6 +16,7 @@ from typing import Any, Callable, Optional, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import sparsity
 from repro_torch.kernels.admm_polarize import admm_polarize as _polarize_kernel
 from repro_torch.kernels.bitserial_crossbar import bitserial_crossbar as _bitserial_kernel
@@ -106,6 +107,7 @@ def _compact_matmul(x: torch.Tensor, mags: torch.Tensor, signs: torch.Tensor,
     return out
 
 
+@obs.spanned("rt.forms.mm")
 def polarized_matmul(x: torch.Tensor, mags: torch.Tensor, signs: torch.Tensor,
                      scale: torch.Tensor, *, m: int = 8, zero_skip: str = "off",
                      zero_skip_keep: float = 0.5,

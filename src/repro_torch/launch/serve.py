@@ -83,7 +83,10 @@ pages over ``data``) and prints the reference's ``mesh:`` line: on the card
 writes every dispatch into a fresh copy of the cache.
 ``--device`` defaults to ``cuda`` and the launcher fails without a card
 unless ``--device cpu`` is given.  Requests are made as the JAX launcher
-makes them (``np.random.RandomState(0)``).
+makes them (``np.random.RandomState(0)``).  The summary line gives each
+request's time to first token (``Result.ttft_ms``: median and max);
+``--trace-out PATH`` writes the serving call's spans (``repro_torch.obs``)
+to PATH as a Chrome/Perfetto trace (rank 0's on a mesh).
 """
 from __future__ import annotations
 
@@ -96,6 +99,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.configs import ARCH_NAMES, get_config, get_reduced
 from repro_torch.forms import FormsSpec
 from repro_torch.forms import autobits as AB
@@ -281,6 +285,8 @@ def _parser() -> argparse.ArgumentParser:
                     help="with --device cpu: run the mesh as N gloo processes on the CPU")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write the serving call's spans to PATH (Chrome/Perfetto JSON)")
     return ap
 
 
@@ -458,20 +464,27 @@ def _serve_on(args, mesh) -> None:
                 for i in range(args.requests)]
     launches0 = polarized_matmul.launches
     skips0 = polarized_matmul_skip.launches
+    tracing = args.trace_out and (mesh is None or torch.distributed.get_rank() == 0)
+    if tracing:
+        obs.enable()
     t0 = time.perf_counter()
     results = engine.run(reqs)
     if engine.device.type == "cuda":
         torch.cuda.synchronize(engine.device)
     dt = time.perf_counter() - t0
+    if tracing:
+        obs.disable()
+        print(f"trace: {obs.write_chrome(args.trace_out)} spans -> {args.trace_out}")
     toks = sum(len(r.tokens) for r in results)
     for r in results[:4]:
         print(f"req {r.uid}: {r.tokens}")
     pf = np.mean([r.prefill_ms for r in results])
-    dm = np.mean([r.decode_ms for r in results])
+    ttft = [r.ttft_ms for r in results]
     print(f"{len(results)} requests, {toks} tokens in {dt:.2f}s "
           f"({toks / dt:.1f} tok/s, forms={args.forms}, "
           f"block={args.decode_block}, device={engine.device}); "
-          f"mean prefill {pf:.1f}ms, mean decode share {dm:.1f}ms")
+          f"mean prefill {pf:.1f}ms, ttft median {np.median(ttft):.1f}ms "
+          f"max {max(ttft):.1f}ms")
     stats = engine.stats()
     parts = [f"rounds {stats['rounds']}",
              f"max_concurrent {stats['max_concurrent']}"]

@@ -33,6 +33,9 @@ On the card start one process per card with ``torchrun``; on the CPU
 ``--fake-devices N`` runs the N ranks as gloo processes.  Every family
 trains on a mesh (the recurrent ones too: xLSTM with all heads on every
 model rank, Zamba2's Mamba blocks on the rank's SSM heads).
+``--trace-out PATH`` writes the steps' spans (``repro_torch.obs``: the
+train step, the Z-updates, attention) to PATH as a Chrome/Perfetto trace
+(rank 0's).
 """
 from __future__ import annotations
 
@@ -43,6 +46,7 @@ import time
 
 import torch
 
+from repro_torch import obs
 from repro_torch.checkpoint.manager import CheckpointManager, install_preemption_handler
 from repro_torch.configs import ARCH_NAMES, get_config, get_reduced
 from repro_torch.configs.base import TrainConfig
@@ -95,6 +99,8 @@ def main(argv=None) -> None:
                     help="with --device cpu: run the mesh as N gloo processes on the CPU")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; no fallback between them")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write the steps' spans to PATH (Chrome/Perfetto JSON; rank 0)")
     args = ap.parse_args(argv)
     if args.fake_devices is not None:
         if args.device != "cpu":
@@ -189,6 +195,9 @@ def _train_on(args, dev: torch.device, mesh) -> None:
 
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     sync()
+    tracing = args.trace_out and dist.get_rank() == 0
+    if tracing:
+        obs.enable()
     t0 = t_log = time.perf_counter()
     since = 0
     for i in range(start, args.steps):
@@ -220,6 +229,9 @@ def _train_on(args, dev: torch.device, mesh) -> None:
     tput = ((args.steps - start) * args.global_batch * args.seq_len
             / max(time.perf_counter() - t0, 1e-9))
     print(f"done: {args.steps - start} steps, {tput:.0f} tokens/s on {dev}")
+    if tracing:
+        obs.disable()
+        print(f"trace: {obs.write_chrome(args.trace_out)} spans -> {args.trace_out}")
 
 
 if __name__ == "__main__":

@@ -37,6 +37,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.distributed.context import gather_fsdp, model_ctx, set_shard, shard_of
 from repro_torch.distributed.sharding import SCANNED_PREFIXES
 from repro_torch.forms.linear import DTYPES, FormsLinearParams  # noqa: F401
@@ -76,17 +77,24 @@ def load_leaf(v, name: str, dtype: torch.dtype) -> torch.Tensor:
     multiplies with ``torch.einsum``, and a layer's MLA ``kv_up``, which
     the absorbed decode folds into the query and the output.  On a mesh a
     leaf split along N comes back as this rank's columns (``kv_up``: the
-    rank's heads); one split along K raises (``forms.to_dense``).
+    rank's heads); one split along K raises (``forms.to_dense``).  The
+    experts' rebuild is the span ``rt.moe.rebuild``; ``moe.rebuild_bytes``
+    counts the bytes of the dense tensors it returns.
     """
     if isinstance(v, dict) and "q" in v:
         return dequantize_leaf(v, dtype)
     if isinstance(v, FormsLinearParams):
-        rebuilt = ((name in EXPERT_WEIGHT_NAMES and v.mags.ndim == 3)
-                   or (name == "kv_up" and v.mags.ndim == 2))
+        experts = name in EXPERT_WEIGHT_NAMES and v.mags.ndim == 3
+        rebuilt = experts or (name == "kv_up" and v.mags.ndim == 2)
         if v.mags.device.type != "cpu" and not rebuilt:
             raise NotImplementedError(
                 f"{name}: a FORMS leaf on {v.mags.device} is consumed by the "
                 "polarized-matmul kernel via linear(), not decompressed")
+        if experts:
+            with obs.span("rt.moe.rebuild", leaf=name):
+                out = forms_to_dense(v).to(dtype)
+            obs.count("moe.rebuild_bytes", out.numel() * out.element_size())
+            return out
         return forms_to_dense(v).to(dtype)
     return v.to(dtype)
 
@@ -296,6 +304,7 @@ def gqa_scores_softmax_out(qr, k, v, qpos, kpos, window, scale, causal=True):
     return out.to(v.dtype).reshape(b, qc, kv, g, hdv)
 
 
+@obs.spanned("rt.attn.prefill")
 def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      window: Optional[int] = None,
                      q_chunk: int = DEFAULT_Q_CHUNK,
@@ -335,6 +344,7 @@ def position_span(pos: torch.Tensor, t: int) -> torch.Tensor:
     return pos[:, None] + torch.arange(t, dtype=torch.int32, device=pos.device)[None, :]
 
 
+@obs.spanned("rt.attn.decode")
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                      pos: torch.Tensor, window: Optional[int] = None) -> torch.Tensor:
     """Bounded-token GQA against a cache view.

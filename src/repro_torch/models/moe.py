@@ -47,6 +47,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.configs.base import MLAConfig, ModelConfig
 from repro_torch.distributed import moe_dispatch
 from repro_torch.distributed.context import checkpointed, current_context, model_ctx
@@ -102,6 +103,7 @@ def top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
+@obs.spanned("rt.moe.ffn")
 def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig, dtype, batch_aux: bool = False
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (out, aux_loss), the reference's scatter path.

@@ -38,6 +38,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.distributed.context import parallel_context
 from repro_torch.forms.linear import default_spec
 from repro_torch.forms.tree import compressed_paths
@@ -257,6 +258,7 @@ class HealthMonitor:
     # the scheduler hook
     # ------------------------------------------------------------------
 
+    @obs.spanned("rt.sched.health")
     def tick(self, runner: Any, round_: int) -> None:
         """One health pass: fire due chaos faults, probe, and past the drift
         threshold scan, score and (``auto_repair``) re-encode the flagged

@@ -91,6 +91,7 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.distributed.context import parallel_context, set_shard, shard_of
 from repro_torch.forms import (CompressReport, FormsSpec, compress_tree, default_spec,
@@ -117,10 +118,15 @@ class Request:
 
 @dataclasses.dataclass
 class Result:
+    """A served request: its tokens; the host ms of its prefill calls;
+    ``ttft_ms`` and ``latency_ms``, from its arrival (``run()`` start on the
+    plain scheduler, ``arrival_s`` on the fleet) to its first and its last
+    token on the host."""
     uid: int
     tokens: List[int]
     prefill_ms: float = 0.0
-    decode_ms: float = 0.0
+    ttft_ms: float = 0.0
+    latency_ms: float = 0.0
 
 
 _MIN_BUCKET = 8
@@ -136,6 +142,13 @@ def prefill_bucket(n: int, max_len: int) -> int:
 
 # rotating-window cap on the scheduler's admission log
 ADMISSION_LOG_WINDOW = 1024
+
+
+def host_read(t: torch.Tensor) -> np.ndarray:
+    """``t`` copied to the host: a read of the serving path, which waits for
+    the device to finish the work queued before it."""
+    with obs.span("rt.runner.host_read"):
+        return t.cpu().numpy()
 
 
 def gumbel_argmax(logits: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
@@ -312,6 +325,7 @@ class ModelRunner:
         """The data rank that holds ``slot``."""
         return slot // self.slot_share if self.n_data > 1 else 0
 
+    @obs.spanned("rt.runner.prefill")
     @torch.inference_mode()
     def prefill_slot(self, slot: int, prompt: np.ndarray, temperature: float = 0.0,
                      pages: Optional[np.ndarray] = None) -> int:
@@ -325,6 +339,8 @@ class ModelRunner:
         self._own_caches()
         lg = None
         if self._owner(slot) == self.data_rank:
+            obs.count("prefill.tokens", n)
+            obs.count("prefill.rows", toks.shape[1])
             logits, self.cache = self._prefill_call(self.model, self.params, self.cache,
                                                     self._to_device(toks), slot, n, pages)
             lg = logits.reshape(1, -1).float()
@@ -334,7 +350,7 @@ class ModelRunner:
                                  device=self.device)
             lg = self.ctx.broadcast(lg, "batch", self._owner(slot))
         temp = self._to_device(np.array([temperature]), torch.float32)
-        return int(sample_on_device(lg, temp, self.generator)[0])
+        return int(host_read(sample_on_device(lg, temp, self.generator))[0])
 
     def chunk_width(self, n: int) -> int:
         """Power-of-two chunk width (at least 8, at most max_len), as the
@@ -342,6 +358,7 @@ class ModelRunner:
         the same rows are committed."""
         return prefill_bucket(n, self.max_len)
 
+    @obs.spanned("rt.runner.prefill_chunk")
     @torch.inference_mode()
     def prefill_chunk(self, tokens: np.ndarray, positions: np.ndarray,
                       block_tables: np.ndarray, cols: np.ndarray,
@@ -368,7 +385,7 @@ class ModelRunner:
             out = sample_on_device(self._gathered(lg), self._to_device(temps, torch.float32),
                                    self.generator)
         self.chunk_widths.append(int(tokens.shape[1]))
-        return out.cpu().numpy()
+        return host_read(out)
 
     def _decode_call(self, tok: torch.Tensor, pos: torch.Tensor,
                      tables: Optional[torch.Tensor]):
@@ -400,7 +417,8 @@ class ModelRunner:
                 out.append(full)
                 tok = self._local(full)
                 pos = pos + 1
-        return torch.stack(out).cpu().numpy()
+        obs.count("decode.steps", self.decode_block)
+        return host_read(torch.stack(out))
 
     def decode_round(self, tokens: np.ndarray, positions: np.ndarray,
                      temps: np.ndarray, block_tables: Optional[np.ndarray] = None,
@@ -512,6 +530,7 @@ class Scheduler:
         """The page partition (data rank) of ``slot``'s pages."""
         return slot // (self.slots // self.allocator.partitions)
 
+    @obs.spanned("rt.sched.release")
     def _release_slot(self, slot: int) -> None:
         if not self.paged:
             return
@@ -521,8 +540,10 @@ class Scheduler:
         self.slot_pages[slot] = []
         self.block_tables[slot] = 0   # idle slots read/write scratch only
 
+    @obs.spanned("rt.sched.run")
     def run(self, requests: List[Request]) -> List[Result]:
         """Serve a list of requests with continuous batching over slots."""
+        t_run = time.perf_counter()
         queue = list(requests)
         active: List[Optional[Tuple[Request, Result]]] = [None] * self.slots
         done: List[Result] = []
@@ -536,42 +557,45 @@ class Scheduler:
             at the head of the queue."""
             while queue:
                 req = queue[0]
-                prompt = np.asarray(req.prompt, np.int32).reshape(-1)
-                if prompt.shape[0] >= self.max_len:
-                    prompt = prompt[-(self.max_len - 1):]
-                pages = None
-                if self.paged:
-                    pages = self._reserve_pages(req.uid, slot, prompt,
-                                                req.max_new_tokens)
-                    if pages is None:
-                        if not any(a is not None for a in active):
-                            raise RuntimeError(
-                                "page pool exhausted with no request in "
-                                "flight — pool sizing bug")
-                        return
-                queue.pop(0)
-                res = Result(uid=req.uid, tokens=[])
-                t0 = time.perf_counter()
-                first = self.runner.prefill_slot(slot, prompt, req.temperature,
-                                                 pages=pages)
-                res.prefill_ms = (time.perf_counter() - t0) * 1e3
-                res.tokens.append(first)
-                n_prompt = int(prompt.shape[0])
-                if (len(res.tokens) >= req.max_new_tokens
-                        or n_prompt >= self.max_len - 1):
-                    self._release_slot(slot)
-                    done.append(res)
-                    continue
-                if self.prefix is not None:
-                    self.prefix.register(prompt, self.slot_pages[slot])
-                cur[slot] = first
-                slot_pos[slot] = n_prompt
-                temps[slot] = req.temperature
-                active[slot] = (req, res)
-                self.runner.reset_slot(slot)
-                self.max_concurrent = max(self.max_concurrent,
-                                          sum(a is not None for a in active))
-                return
+                with obs.span("rt.sched.admit", uid=req.uid):
+                    prompt = np.asarray(req.prompt, np.int32).reshape(-1)
+                    if prompt.shape[0] >= self.max_len:
+                        prompt = prompt[-(self.max_len - 1):]
+                    pages = None
+                    if self.paged:
+                        pages = self._reserve_pages(req.uid, slot, prompt,
+                                                    req.max_new_tokens)
+                        if pages is None:
+                            if not any(a is not None for a in active):
+                                raise RuntimeError(
+                                    "page pool exhausted with no request in "
+                                    "flight — pool sizing bug")
+                            return
+                    queue.pop(0)
+                    res = Result(uid=req.uid, tokens=[])
+                    t0 = time.perf_counter()
+                    first = self.runner.prefill_slot(slot, prompt, req.temperature,
+                                                     pages=pages)
+                    t1 = time.perf_counter()
+                    res.prefill_ms = (t1 - t0) * 1e3
+                    res.ttft_ms = res.latency_ms = (t1 - t_run) * 1e3
+                    res.tokens.append(first)
+                    n_prompt = int(prompt.shape[0])
+                    if (len(res.tokens) >= req.max_new_tokens
+                            or n_prompt >= self.max_len - 1):
+                        self._release_slot(slot)
+                        done.append(res)
+                        continue
+                    if self.prefix is not None:
+                        self.prefix.register(prompt, self.slot_pages[slot])
+                    cur[slot] = first
+                    slot_pos[slot] = n_prompt
+                    temps[slot] = req.temperature
+                    active[slot] = (req, res)
+                    self.runner.reset_slot(slot)
+                    self.max_concurrent = max(self.max_concurrent,
+                                              sum(a is not None for a in active))
+                    return
 
         def finish(slot: int) -> None:
             done.append(active[slot][1])
@@ -599,27 +623,26 @@ class Scheduler:
             self.health.tick(self.runner, self.rounds)
         admit_idle()
         while any(a is not None for a in active):
-            n_active = sum(a is not None for a in active)
-            t0 = time.perf_counter()
             # a round yields a variable number of tokens per slot (a fixed
             # decode_block on the plain runner, 1 + accepted drafts on the
             # speculative one): counts[s] is the only source of truth
-            out, counts = self.runner.decode_round(
-                cur, slot_pos, temps, block_tables=self.block_tables,
-                active=[a is not None for a in active])
-            dt = (time.perf_counter() - t0) * 1e3
+            with obs.span("rt.runner.decode_round", round=self.rounds):
+                out, counts = self.runner.decode_round(
+                    cur, slot_pos, temps, block_tables=self.block_tables,
+                    active=[a is not None for a in active])
+            now_ms = (time.perf_counter() - t_run) * 1e3
             self.rounds += 1
             for s in range(self.slots):
                 a = active[s]
                 if a is None:
                     continue
                 req, res = a
-                res.decode_ms += dt / max(1, n_active)
                 budget = min(req.max_new_tokens - len(res.tokens),
                              self.max_len - 1 - int(slot_pos[s]))
                 take = min(int(counts[s]), budget)
                 res.tokens.extend(int(t) for t in out[:take, s])
                 if take >= budget:
+                    res.latency_ms = now_ms
                     finish(s)
                 else:
                     cur[s] = out[counts[s] - 1, s]

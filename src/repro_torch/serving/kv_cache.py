@@ -31,6 +31,8 @@ from typing import Dict, Iterable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
+
 SCRATCH_PAGE = 0
 
 
@@ -61,6 +63,7 @@ def pages_for(rows: int, page_size: int) -> int:
     return -(-rows // page_size)
 
 
+@obs.spanned("rt.kv.gather")
 def gather_views(cache: PagedKVCache, block_tables: torch.Tensor
                  ) -> Dict[str, torch.Tensor]:
     """Per-slot contiguous views of the pool via the block tables.

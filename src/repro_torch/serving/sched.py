@@ -49,6 +49,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.serving.engine import ModelRunner, Request, Result, Scheduler
 
 PRIORITIES = ("interactive", "batch")   # admission order: left beats right
@@ -226,6 +227,7 @@ class FleetScheduler(Scheduler):
     # the round loop
     # ------------------------------------------------------------------
 
+    @obs.spanned("rt.sched.run")
     def run(self, requests: List[Request]) -> List[Result]:
         self._t0 = time.perf_counter()
         queue: List[_Entry] = [self._make_entry(r) for r in requests]
@@ -296,7 +298,10 @@ class FleetScheduler(Scheduler):
             head = arrived[0]
             slot = next((s for s in range(self.slots) if runs[s] is None),
                         None)
-            started = slot is not None and self._start(state, slot, head)
+            started = False
+            if slot is not None:
+                with obs.span("rt.sched.admit", uid=head.req.uid):
+                    started = self._start(state, slot, head)
             if started:
                 queue.remove(head)
                 continue
@@ -461,7 +466,8 @@ class FleetScheduler(Scheduler):
         e.res.tokens.append(tok)
         if not e.ttft_done:
             e.ttft_done = True
-            self._ttft[PRIORITIES[e.prio]].add((now - e.arrival) * 1e3)
+            e.res.ttft_ms = (now - e.arrival) * 1e3
+            self._ttft[PRIORITIES[e.prio]].add(e.res.ttft_ms)
         st.last_emit = now
         if (len(e.res.tokens) >= e.req.max_new_tokens
                 or st.n_prompt >= self.max_len - 1):
@@ -492,16 +498,14 @@ class FleetScheduler(Scheduler):
         mask = np.zeros(self.slots, bool)
         mask[decoding] = True
         tables = np.where(mask[:, None], self.block_tables, 0)
-        t0 = time.perf_counter()
-        out, counts = self.runner.decode_round(
-            cur, slot_pos, temps, block_tables=tables,
-            active=list(mask))
-        dt = (time.perf_counter() - t0) * 1e3
+        with obs.span("rt.runner.decode_round", round=self.rounds):
+            out, counts = self.runner.decode_round(
+                cur, slot_pos, temps, block_tables=tables,
+                active=list(mask))
         now = self._now()
         for s in decoding:
             st = runs[s]
             e = st.entry
-            e.res.decode_ms += dt / len(decoding)
             budget = min(e.req.max_new_tokens - len(e.res.tokens),
                          self.max_len - 1 - int(slot_pos[s]))
             take = min(int(counts[s]), budget)
@@ -523,6 +527,7 @@ class FleetScheduler(Scheduler):
         self._release_slot(slot)
         runs[slot] = None
         temps[slot] = 0.0
+        e.res.latency_ms = (self._now() - e.arrival) * 1e3
         state["done"].append(e.res)
         self.completed += 1
         cls = self._class[PRIORITIES[e.prio]]

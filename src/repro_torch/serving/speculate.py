@@ -41,12 +41,13 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.distributed.context import LeafShard, set_shard, shard_of
 from repro_torch.forms import (CompressReport, FormsLinearParams, FormsSpec, compress_tree,
                                to_dense, validate_tree_sharding)
 from repro_torch.models.registry import Model, build
 from repro_torch.serving import kv_cache as KV
-from repro_torch.serving.engine import (ModelRunner, clone_cache, gumbel_argmax,
+from repro_torch.serving.engine import (ModelRunner, clone_cache, gumbel_argmax, host_read,
                                        sample_on_device)
 from repro_torch.serving.quant_weights import quantize_tree
 
@@ -379,7 +380,8 @@ class SpeculativeRunner(ModelRunner):
             kk, self._to_device(tokens), self._to_device(positions),
             self._tables(block_tables), self._to_device(k_eligible),
             self._to_device(temps, torch.float32))
-        host = torch.cat([out, n_emit[:, None]], dim=1).cpu().numpy()
+        obs.count("decode.steps")           # the round's one verify call
+        host = host_read(torch.cat([out, n_emit[:, None]], dim=1))
         out, counts = host[:, :-1], host[:, -1]
         self.rounds += 1
         self.round_widths.append(kk)
@@ -403,6 +405,7 @@ class SpeculativeRunner(ModelRunner):
                     st.k = min(self.k_max, st.k + 1)
         return out.T, counts
 
+    @obs.spanned("rt.runner.prefill")
     @torch.inference_mode()
     def prefill_slot(self, slot: int, prompt: np.ndarray, temperature: float = 0.0,
                      pages: Optional[np.ndarray] = None) -> int:
@@ -417,6 +420,7 @@ class SpeculativeRunner(ModelRunner):
                                                      slot, n, pages)
         return tok
 
+    @obs.spanned("rt.runner.prefill_chunk")
     @torch.inference_mode()
     def prefill_chunk(self, tokens: np.ndarray, positions: np.ndarray,
                       block_tables: np.ndarray, cols: np.ndarray,

@@ -36,6 +36,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.configs.base import TrainConfig
 from repro_torch.core import admm as admm_mod
 from repro_torch.core import paths
@@ -275,7 +276,7 @@ def make_train_step(model: Model, tcfg: TrainConfig,
     def step_fn(state: TrainState, batch: Dict[str, torch.Tensor]
                 ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         nonlocal table
-        with parallel_context(ctx):
+        with obs.span("rt.train.step"), parallel_context(ctx):
             if state.admm is not None and table is None:
                 table = admm_mod.constraint_table(
                     state.params, admm_mod.default_constraints(rho=tcfg.admm_rho))
@@ -334,7 +335,8 @@ def maybe_admm_update(state: TrainState, table, tcfg: TrainConfig,
         return state
     z_updates = host_step // tcfg.admm_update_every
     refresh = z_updates % max(tcfg.admm_sign_refresh_every, 1) == 0
-    with parallel_context(ctx) if ctx is not None else contextlib.nullcontext():
+    scope = parallel_context(ctx) if ctx is not None else contextlib.nullcontext()
+    with obs.span("rt.train.z_update", z_update=z_updates), scope:
         new_admm = admm_mod.admm_update(state.params, state.admm, table,
                                         refresh_signs=refresh)
     return dataclasses.replace(state, admm=new_admm)
